@@ -1,0 +1,507 @@
+"""Drive the PyTorch port (mvs_tpu_torch) of CasMVSNet inference on one
+CUDA card, holding each hand-written kernel against its plain version.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+  1. device check (CUDA required), card name and power limit, kernel build;
+  2. each kernel against its plain PyTorch version on the card, at the
+     main path's shapes (with times: kernel, plain, library call, bound) and
+     at awkward shapes (batch 2, ragged sizes, off-image and behind-camera
+     samples);
+  3. one seeded CasMVSNet at 128x160, card (kernels) against CPU (plain):
+     each stage's pre-softmax scores, depth and confidence;
+  4. full width: 1152x864, 5 views, 48/32/8 hypotheses, bf16 and f32, through
+     cli.infer.make_apply_fn, with the kernels' launch counts on that run;
+  5. run_batched_inference at batch 2 over 3 samples (a padded tail), PFM
+     and cam files written and one read back;
+then one JSON line listing the kernels, and last
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mvs_tpu_torch.cli.infer import (make_apply_fn, run_batched_inference,
+                                     stack_model_inputs, write_depth_outputs)
+from mvs_tpu_torch.io import read_pfm
+from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
+from mvs_tpu_torch.ops import _build
+from mvs_tpu_torch.ops.conv3d import conv3d_affine, conv3d_affine_plain
+from mvs_tpu_torch.ops.warp_variance import (fused_variance_volume,
+                                             fused_variance_volume_plain)
+from mvs_tpu_torch.utils.platform import resolve_device
+from mvs_tpu_torch.utils.synthetic import make_plane_scene
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
+# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+HEIGHT, WIDTH, VIEWS = 864, 1152, 5
+NDEPTHS = (48, 32, 8)
+BASE = 8
+LADDER = 192  # global hypothesis ladder of the DTU eval config
+# (stage, scale, channels of the stage's features)
+STAGES = ((1, 4, 4 * BASE), (2, 2, 2 * BASE), (3, 1, BASE))
+
+# Tolerances, as a fraction of the plain output's largest magnitude.
+# f32 warp: kernel and plain compute the projected coordinates with the same
+# roundings in the same order, so they sample the same corners with the same
+# weights; only the order of the blend and of the sums over 5 views differs,
+# a few f32 ulps.
+# f32 conv: 27*Cin products summed in another order.
+# bf16: both sum in f32 and round once to bf16; one rounding step near the
+# maximum is up to 2^-7 of it, allow two.
+TOL = {("warp", torch.float32): 1e-4, ("conv", torch.float32): 1e-4,
+       ("warp", torch.bfloat16): 2.0 ** -6,
+       ("conv", torch.bfloat16): 2.0 ** -6}
+# Whole model, card against CPU: each stage's pre-softmax score volume may
+# differ by this fraction of its spread (max - min on the CPU). Images
+# perturbed by 1e-7 of their size, about one f32 rounding, move the scores of
+# the phase-3 model by 2e-7 to 6e-7 of their spread, while a warp that samples
+# one source pixel off moves them by 2e-3 (stage 1) to 4e-2 (stage 3) of it.
+SCORE_TOL = 1e-4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of fn() over `iters` launches, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(kind: str, got: torch.Tensor, want: torch.Tensor, what: str):
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{what}: kernel output not finite")
+    err = (g - w).abs()
+    scale = max(w.abs().max().item(), 1e-6)
+    tol = TOL[(kind, got.dtype)] * scale
+    max_err = err.max().item()
+    log(f"  {what}: max_abs_err {max_err:.3e} mean_abs_err "
+        f"{err.mean().item():.3e} (tol {tol:.3e}, scale {scale:.3e})")
+    if max_err > tol:
+        fail(f"{what}: max_abs_err {max_err} > {tol}")
+    return max_err
+
+
+def stage_geometry(scene, scale: int, device, batch: int = 1):
+    """rel projections (B, V-1, 4, 4) of `scene` at 1/scale resolution."""
+    k = scene.intrinsics.astype(np.float64).copy()
+    k[:, :2] /= scale
+    proj = scene.extrinsics.astype(np.float64).copy()
+    proj[:, :3, :4] = k @ scene.extrinsics[:, :3, :4]
+    rel = proj[1:] @ np.linalg.inv(proj[0])
+    return torch.tensor(rel, dtype=torch.float32,
+                        device=device)[None].repeat(batch, 1, 1, 1)
+
+
+def warp_inputs(scene, stage, scale, c, d, dtype, device, batch=1, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    h, w = HEIGHT // scale, WIDTH // scale
+    feats = torch.randn((batch, VIEWS, h, w, c), generator=g).to(device,
+                                                                 dtype)
+    depth = torch.tensor(scene.depths[0][::scale, ::scale], device=device)
+    if stage == 1:
+        hyp = torch.linspace(8.0, 12.0, d, device=device)[:, None, None]
+        hyp = hyp.expand(d, h, w)
+    else:  # a per-pixel window around a noisy depth, as stages 2-3 sweep
+        noise = torch.randn((h, w), generator=g).to(device) * 0.05
+        steps = torch.arange(d, device=device)[:, None, None] - d / 2
+        hyp = depth + noise + steps * (0.0208 * (4 - stage))
+    hyp = hyp[None].expand(batch, d, h, w).contiguous()
+    rel = stage_geometry(scene, scale, device, batch)
+    return (feats[:, 0].contiguous(), feats[:, 1:].contiguous(), rel, hyp)
+
+
+def warp_bound(b, v, d, h, w, c, itemsize):
+    """Least time: each input read once, the volume written once; the least
+    f32 work at the f32 peak. Per (pixel, view) the rotation (3 rows of two
+    multiply-adds, 12 flops); per (depth, pixel, view) the depth
+    multiply-adds (6), a reciprocal and two products (3), the fractions and
+    four corner weights (7); per (channel, view) the blend from the four
+    weights (7) and the two sums (3); per channel the variance (4)."""
+    nbytes = (b * (1 + v) * h * w * c * itemsize + b * d * h * w * 4
+              + b * v * 12 * 4 + b * d * h * w * c * itemsize)
+    ops = b * h * w * v * 12 + b * d * h * w * (v * (16 + 10 * c) + 4 * c)
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / PEAK_FLOPS[torch.float32] * 1e3)
+
+
+def conv_bound(b, d, h, w, cin, cout, dtype):
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    vox = b * d * h * w
+    nbytes = vox * (cin + cout) * itemsize + 27 * cin * cout * 4 + 8 * cout
+    ops = 2 * 27 * cin * cout * vox
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
+
+
+def phase_warp(scene, device):
+    log("phase 2a: warp_variance kernel vs plain")
+    rows = []
+    for stage, scale, c in STAGES:
+        d = NDEPTHS[stage - 1]
+        for dtype in (torch.bfloat16, torch.float32):
+            args = warp_inputs(scene, stage, scale, c, d, dtype, device)
+            what = (f"stage{stage} B=1 D={d} {HEIGHT // scale}x"
+                    f"{WIDTH // scale} C={c} {str(dtype)[6:]}")
+            err = compare("warp", fused_variance_volume(*args),
+                          fused_variance_volume_plain(*args), what)
+            if dtype is torch.bfloat16:  # the main path's type: time it
+                ms = cuda_ms(lambda: fused_variance_volume(*args))
+                plain_ms = cuda_ms(lambda: fused_variance_volume_plain(*args),
+                                   iters=3, warmup=1)
+                by, ops = warp_bound(1, VIEWS - 1, d, HEIGHT // scale,
+                                     WIDTH // scale, c, 2)
+                log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {max(by, ops):.4f} ms (bytes {by:.4f}, "
+                    f"ops {ops:.4f})")
+                rows.append(dict(err=err, ms=ms, plain_ms=plain_ms,
+                                 bytes_ms=by, ops_ms=ops))
+    args = warp_inputs(scene, 1, 4, 32, 48, torch.float32, device, batch=2,
+                       seed=1)
+    compare("warp", fused_variance_volume(*args),
+            fused_variance_volume_plain(*args), "stage1 shape B=2 f32")
+    # Off-image and behind-camera samples, C not a multiple of the
+    # kernel's 8-channel chunk, ragged sizes.
+    g = torch.Generator(device="cpu").manual_seed(2)
+    b, v, d, h, w, c = 2, 3, 7, 37, 53, 12
+    feats = torch.randn((b, v + 1, h, w, c), generator=g).to(device)
+    rel = torch.eye(4).repeat(b, v, 1, 1)
+    rel[:, :, :3, :3] += torch.randn((b, v, 3, 3), generator=g) * 0.05
+    rel[:, :, :3, 3] = torch.randn((b, v, 3), generator=g) * torch.tensor(
+        [200.0, 200.0, 2.0])
+    rel = rel.to(device)
+    hyp = torch.linspace(-3.0, 12.0, d)[None, :, None, None].expand(
+        b, d, h, w) + torch.rand((b, d, h, w), generator=g)
+    hyp = hyp.contiguous().to(device)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (feats[:, 0].contiguous().to(dtype),
+                feats[:, 1:].contiguous().to(dtype), rel, hyp)
+        compare("warp", fused_variance_volume(*args),
+                fused_variance_volume_plain(*args),
+                f"off-image/behind-camera C=12 {str(dtype)[6:]}")
+    return rows
+
+
+def conv_shapes():
+    """(Cin, Cout, D, H, W, relu) of every stride-1 3x3x3 conv of one
+    depth map at full width, in launch order."""
+    shapes = []
+    for stage, scale, c in STAGES:
+        d, h, w = NDEPTHS[stage - 1], HEIGHT // scale, WIDTH // scale
+        for level, (cin, cout) in enumerate(
+                ((c, BASE), (2 * BASE, 2 * BASE), (4 * BASE, 4 * BASE),
+                 (8 * BASE, 8 * BASE))):
+            f = 2 ** level
+            shapes.append((cin, cout, d // f, h // f, w // f, True))
+        shapes.append((BASE, 1, d, h, w, False))  # the biased score conv
+    return shapes
+
+
+def phase_conv(device):
+    log("phase 2b: conv3d_affine kernel vs plain")
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def inputs(b, d, h, w, cin, cout, dtype):
+        x = torch.randn((b, d, h, w, cin), generator=g).to(device, dtype)
+        wt = (torch.randn((cout, cin, 3, 3, 3), generator=g)
+              / (27 * cin) ** 0.5).to(device)
+        sc = (torch.rand(cout, generator=g) + 0.5).to(device)
+        sh = (torch.randn(cout, generator=g) * 0.1).to(device)
+        return x, wt, sc, sh
+
+    pairs = sorted({(ci, co) for ci, co, *_ in conv_shapes()})
+    for i, (cin, cout) in enumerate(pairs):
+        for dtype in (torch.float32, torch.bfloat16):
+            relu = bool(i % 2)
+            x, wt, sc, sh = inputs(2, 5, 13, 37, cin, cout, dtype)
+            compare("conv", conv3d_affine(x, wt, sc, sh, relu),
+                    conv3d_affine_plain(x, wt, sc, sh, relu),
+                    f"({cin},{cout}) B=2 5x13x37 relu={relu} "
+                    f"{str(dtype)[6:]}")
+    rows = []
+    for cin, cout, d, h, w, relu in conv_shapes():
+        x, wt, sc, sh = inputs(1, d, h, w, cin, cout, torch.bfloat16)
+        err = compare("conv", conv3d_affine(x, wt, sc, sh, relu),
+                      conv3d_affine_plain(x, wt, sc, sh, relu),
+                      f"({cin},{cout}) {d}x{h}x{w} relu={relu} bf16")
+        # The library yardstick: cuDNN's conv over the same channels-last
+        # view, the affine folded into its weight and bias.
+        wf = (wt * sc[:, None, None, None, None]).to(torch.bfloat16)
+        bias = sh.to(torch.bfloat16)
+        xv = x.permute(0, 4, 1, 2, 3)
+
+        def library():
+            y = F.conv3d(xv, wf, bias, padding=1)
+            return torch.relu_(y) if relu else y
+
+        ms = cuda_ms(lambda: conv3d_affine(x, wt, sc, sh, relu))
+        plain_ms = cuda_ms(lambda: conv3d_affine_plain(x, wt, sc, sh, relu),
+                           iters=3, warmup=1)
+        lib_ms = cuda_ms(library)
+        by, ops = conv_bound(1, d, h, w, cin, cout, torch.bfloat16)
+        log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms, bound {max(by, ops):.4f} ms (bytes {by:.4f}, "
+            f"ops {ops:.4f})")
+        rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bytes_ms=by, ops_ms=ops))
+    return rows
+
+
+def model_inputs(scene, batch, device):
+    sample = dict(imgs=scene.images, intrinsics=scene.intrinsics,
+                  extrinsics=scene.extrinsics,
+                  depth_values=np.linspace(8.0, 12.0, LADDER,
+                                           dtype=np.float32))
+    return stack_model_inputs([sample] * batch, device)
+
+
+def phase_model_vs_cpu(device):
+    log("phase 3: CasMVSNet 128x160 f32, card (kernels) vs CPU (plain)")
+    scene = make_plane_scene(num_views=VIEWS, height=128, width=160,
+                             z0=10.0, tilt=(0.05, 0.02))
+    model = CasMVSNet(BASE, NDEPTHS,
+                      generator=torch.Generator().manual_seed(7))
+    # Random weights regress a near-constant depth, so depth alone hardly
+    # sees the volumes; the pre-softmax scores, which both kernels drive,
+    # are compared too.
+    scores = []
+    hooks = [getattr(model, f"cost_reg_stage{i + 1}").register_forward_hook(
+        lambda m, a, out: scores.append(out.float().cpu()))
+        for i in range(len(NDEPTHS))]
+    cpu = make_apply_fn(model, "cpu")(*model_inputs(scene, 1, "cpu"))
+    card = make_apply_fn(model, device)(*model_inputs(scene, 1, device))
+    for h in hooks:
+        h.remove()
+    n = len(NDEPTHS)
+    for stage, (s_cpu, s_card) in enumerate(zip(scores[:n], scores[n:]), 1):
+        spread = (s_cpu.max() - s_cpu.min()).item()
+        err = (s_card - s_cpu).abs().max().item()
+        log(f"  stage{stage} score {tuple(s_cpu.shape)}: |card-cpu| max "
+            f"{err:.3e} = {err / spread:.3e} of its spread {spread:.4f} "
+            f"(tol {SCORE_TOL:.0e})")
+        if not err <= SCORE_TOL * spread:
+            fail(f"stage{stage} card scores differ from CPU scores")
+    depth_cpu, conf_cpu = (t.float() for t in cpu)
+    depth_card, conf_card = (t.float().cpu() for t in card)
+    interval3 = (12.0 - 8.0) / LADDER  # stage-3 ratio 1
+    d_err = (depth_card - depth_cpu).abs() / interval3
+    c_err = (conf_card - conf_cpu).abs()
+    log(f"  depth |card-cpu| in stage-3 intervals: max "
+        f"{d_err.max().item():.3e} mean {d_err.mean().item():.3e}; "
+        f"confidence max {c_err.max().item():.3e} mean "
+        f"{c_err.mean().item():.3e}; depth range "
+        f"[{depth_cpu.min().item():.4f}, {depth_cpu.max().item():.4f}]")
+    # Depth is continuous in the volumes: f32 rounding differences stay far
+    # below one hypothesis interval. Confidence is not: it sums 4 taps around
+    # the truncated regressed index, which can step at pixels whose index sits
+    # on an integer; allow such steps on 0.1% of pixels.
+    if not (d_err.max() < 0.05 and d_err.mean() < 5e-3):
+        fail("card depth differs from CPU depth")
+    if (c_err > 1e-3).float().mean() > 1e-3 or c_err.mean() > 1e-3:
+        fail("card confidence differs from CPU confidence")
+
+
+def phase_full_width(scene, device):
+    log(f"phase 4: full width {WIDTH}x{HEIGHT}, {VIEWS} views, "
+        f"{'/'.join(map(str, NDEPTHS))} hypotheses, batch 1")
+    launches = None
+    for dtype in (torch.bfloat16, torch.float32):
+        model = CasMVSNet(BASE, NDEPTHS, compute_dtype=dtype,
+                          generator=torch.Generator().manual_seed(0))
+        apply_fn = make_apply_fn(model, device)
+        args = model_inputs(scene, 1, device)
+        apply_fn(*args)  # warm-up: cuDNN algorithm choice, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_variance_volume.launches = 0
+        conv3d_affine.launches = 0
+        depth, conf = apply_fn(*args)
+        torch.cuda.synchronize()
+        counts = {"warp_variance": fused_variance_volume.launches,
+                  "conv3d_affine": conv3d_affine.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        iters = 3
+        for _ in range(iters):
+            apply_fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        log(f"  {str(dtype)[6:]}: {ms:.2f} ms per depth map, peak "
+            f"{peak:.3f} GiB allocated, launches {json.dumps(counts)}")
+        if counts["warp_variance"] != 3 or counts["conv3d_affine"] < 12:
+            fail(f"main path launches {counts}: want 3 warp, >= 12 conv")
+        if depth.shape != (1, HEIGHT, WIDTH) or conf.shape != depth.shape:
+            fail(f"output shapes {tuple(depth.shape)} {tuple(conf.shape)}")
+        depth = depth.float()
+        # The final hypotheses stay within the global ladder widened by the
+        # refine stages' half-windows.
+        iv = (12.0 - 8.0) / LADDER
+        margin = sum(n / 2 * r * iv for n, r in zip(NDEPTHS[1:], (2.0, 1.0)))
+        if not torch.isfinite(depth).all() or not torch.isfinite(conf).all():
+            fail("full-width outputs not finite")
+        if depth.min() < 8.0 - margin or depth.max() > 12.0 + margin:
+            fail(f"depth outside [{8.0 - margin}, {12.0 + margin}]")
+        if dtype is torch.bfloat16:
+            launches = counts
+            log("  bf16 device ms by layer, one run: "
+                + json.dumps(layer_breakdown(model, apply_fn, args)))
+    return launches
+
+
+def layer_breakdown(model, apply_fn, args) -> dict:
+    """Device ms of the feature net and of each kind of cost-regularization
+    block (summed over stages), from CUDA events recorded around their
+    forward calls in one run; 'rest' is the remainder of the run: the warp,
+    hypotheses, regression and upsampling."""
+    spans, hooks = [], []
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    for name, module in model.named_modules():
+        parts = name.split(".")
+        if name == "CascadeFeatureNet_0" or (
+                len(parts) == 2 and parts[0].startswith("cost_reg")):
+            kind = parts[-1].rsplit("_", 1)[0]
+            hooks.append(module.register_forward_pre_hook(
+                lambda m, a, kind=kind: spans.append([kind, event(), None])))
+            hooks.append(module.register_forward_hook(
+                lambda m, a, out: spans[-1].__setitem__(2, event())))
+    start = event()
+    apply_fn(*args)
+    end = event()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    ms = {}
+    for kind, a, b in spans:
+        ms[kind] = ms.get(kind, 0.0) + a.elapsed_time(b)
+    ms["rest"] = start.elapsed_time(end) - sum(ms.values())
+    ms["total"] = start.elapsed_time(end)
+    return {k: round(v, 4) for k, v in ms.items()}
+
+
+def phase_batched(scene, device):
+    log("phase 5: run_batched_inference, batch 2 over 3 samples, bf16")
+    model = CasMVSNet(BASE, NDEPTHS, compute_dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0))
+    samples = []
+    for i in range(3):
+        if i:
+            scene = make_plane_scene(num_views=VIEWS, height=HEIGHT,
+                                     width=WIDTH, z0=10.0, seed=i)
+        samples.append(dict(
+            imgs=scene.images, intrinsics=scene.intrinsics,
+            extrinsics=scene.extrinsics, scan="scan1", ref_view=i,
+            depth_values=np.linspace(8.0, 12.0, LADDER, dtype=np.float32),
+            depth_min=8.0, depth_interval=4.0 / LADDER, depth_max=12.0))
+    with tempfile.TemporaryDirectory() as out:
+        results = list(run_batched_inference(model, samples, batch_size=2,
+                                             device=device))
+        if [r[0]["ref_view"] for r in results] != [0, 1, 2]:
+            fail("batched inference lost or reordered samples")
+        for sample, depth, conf in results:
+            if depth.shape != (HEIGHT, WIDTH) or not np.isfinite(depth).all():
+                fail(f"batched depth {depth.shape} not finite")
+            write_depth_outputs(out, sample, depth, conf, num_depth=LADDER)
+        back, _ = read_pfm(f"{out}/scan1/depth_est/00000002.pfm")
+        if not np.array_equal(back, results[2][1].astype(np.float32)):
+            fail("PFM read back differs from the in-memory depth map")
+        log(f"  3 depth maps written and read back from {len(results)} "
+            f"outputs; tail map depth mean {results[2][1].mean():.4f}")
+
+
+def kernel_entry(name, source, replaces, rows, launches, library):
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["err"] for r in rows),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows),
+        "bound_by": ("bytes" if sum(r["bytes_ms"] for r in rows)
+                     >= sum(r["ops_ms"] for r in rows) else "operations"),
+        "library_ms": (sum(r["library_ms"] for r in rows) if library
+                       else None),
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    device = resolve_device()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    log("phase 1: build")
+    t0 = time.perf_counter()
+    built = _build.build()
+    log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+
+    scene = make_plane_scene(num_views=VIEWS, height=HEIGHT, width=WIDTH,
+                             z0=10.0)
+    warp_rows = phase_warp(scene, device)
+    conv_rows = phase_conv(device)
+    phase_model_vs_cpu(device)
+    launches = phase_full_width(scene, device)
+    phase_batched(scene, device)
+
+    kernels = [
+        kernel_entry("warp_variance", "mvs_tpu_torch/csrc/warp_variance.cu",
+                     "mvs_tpu/ops/warp_pallas.py:288", warp_rows,
+                     launches["warp_variance"], library=False),
+        kernel_entry("conv3d_affine", "mvs_tpu_torch/csrc/conv3d_affine.cu",
+                     "mvs_tpu/ops/conv3d_pallas.py:259", conv_rows,
+                     launches["conv3d_affine"], library=True),
+    ]
+    log(smi.stdout.strip())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

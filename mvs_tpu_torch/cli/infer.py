@@ -1,0 +1,107 @@
+"""Batched depth-map inference (counterpart of mvs_tpu.cli.infer's
+make_apply_fn / run_batched_inference and its output writer).
+
+Samples are grouped into shape buckets and run ``batch_size`` reference
+views per call; a ragged tail is padded by repeating its last sample and the
+padded outputs are dropped. Outputs go to disk in the layout the fusion stage
+reads: ``<scan>/depth_est/<ref>.pfm``, ``<scan>/confidence/<ref>.pfm`` and
+``<scan>/cams/<ref>_cam.txt`` with the intrinsics at depth-map resolution.
+
+A sample is a dict as the JAX eval dataset yields it: imgs (V, H, W, 3),
+intrinsics (V, 3, 3), extrinsics (V, 4, 4), depth_values (D,), and scan,
+ref_view, depth_min, depth_interval, depth_max for the writer.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mvs_tpu_torch.geometry.projection import (compose_projection,
+                                               scale_intrinsics)
+from mvs_tpu_torch.io.cams import CameraParams, write_cam_file
+from mvs_tpu_torch.io.pfm import write_pfm
+from mvs_tpu_torch.utils.platform import resolve_device
+
+__all__ = ["make_apply_fn", "stack_model_inputs", "run_batched_inference",
+           "write_depth_outputs"]
+
+
+def stack_model_inputs(samples, device) -> tuple:
+    """Stack same-shaped samples into CasMVSNet's (imgs, proj, depth_values)."""
+    def stack(key):
+        return torch.from_numpy(
+            np.stack([np.asarray(s[key], np.float32) for s in samples])
+        ).to(device)
+
+    intr, extr = stack("intrinsics"), stack("extrinsics")
+    proj = {f"stage{i + 1}": compose_projection(scale_intrinsics(intr, f), extr)
+            for i, f in enumerate((0.25, 0.5, 1.0))}
+    return stack("imgs"), proj, stack("depth_values")
+
+
+def make_apply_fn(model, device=None):
+    """The inference program: (imgs, proj, depth_values) -> (depth, conf).
+
+    Moves `model` to `device` (the CUDA card unless the caller passes
+    device='cpu') and runs it in eval mode without autograd.
+    """
+    device = resolve_device(device)
+    model.to(device).eval()
+
+    @torch.inference_mode()
+    def apply(imgs, proj_matrices, depth_values):
+        out = model(imgs.to(device),
+                    {k: p.to(device) for k, p in proj_matrices.items()},
+                    depth_values.to(device))
+        return out["depth"], out["photometric_confidence"]
+
+    return apply
+
+
+def run_batched_inference(model, samples_iter, batch_size: int, device=None):
+    """Yield (sample, depth (H, W), conf (H, W)) numpy maps per sample."""
+    device = resolve_device(device)
+    apply_fn = make_apply_fn(model, device)
+    pending: dict[tuple, list] = {}
+
+    def flush(bucket):
+        batch = pending.pop(bucket)
+        padded = batch + [batch[-1]] * (batch_size - len(batch))
+        depth, conf = apply_fn(*stack_model_inputs(padded, device))
+        depth = depth.float().cpu().numpy()
+        conf = conf.float().cpu().numpy()
+        for j, s in enumerate(batch):
+            yield s, depth[j], conf[j]
+
+    for sample in samples_iter:
+        key = np.asarray(sample["imgs"]).shape
+        pending.setdefault(key, []).append(sample)
+        if len(pending[key]) == batch_size:
+            yield from flush(key)
+    for key in list(pending):
+        yield from flush(key)
+
+
+def write_depth_outputs(out_root, sample, depth: np.ndarray, conf: np.ndarray,
+                        num_depth: int) -> None:
+    """Write one sample's depth/confidence PFMs and its cam file, with the
+    reference intrinsics rescaled to the depth map's resolution."""
+    scan_dir = Path(out_root) / sample["scan"]
+    ref = sample["ref_view"]
+    write_pfm(scan_dir / "depth_est" / f"{ref:08d}.pfm", depth)
+    write_pfm(scan_dir / "confidence" / f"{ref:08d}.pfm", conf)
+    img_h, img_w = np.asarray(sample["imgs"][0]).shape[:2]
+    k = np.array(sample["intrinsics"][0], np.float64).copy()
+    k[0] *= depth.shape[1] / img_w
+    k[1] *= depth.shape[0] / img_h
+    cam = CameraParams(
+        intrinsics=k.astype(np.float32),
+        extrinsics=np.asarray(sample["extrinsics"][0], np.float32),
+        depth_min=float(sample["depth_min"]),
+        depth_interval=float(sample["depth_interval"]),
+        num_depth=num_depth, depth_max=float(sample["depth_max"]),
+    )
+    write_cam_file(scan_dir / "cams" / f"{ref:08d}_cam.txt", cam)

@@ -1,0 +1,94 @@
+"""CasMVSNet inference: a 3-stage cascade of narrowing plane sweeps
+(counterpart of mvs_tpu.models.cas_mvsnet.CasMVSNet, eval mode, FPN
+features, one cost regularizer per stage).
+
+Stage 1 sweeps the global range at 1/4 resolution; stages 2 and 3 sweep
+per-pixel windows (+-D/2 * ratio * base interval) centred on the bilinearly
+upsampled previous depth. Each stage builds its variance volume with the
+fused warp-variance kernel, regularizes it with a 3D U-Net whose stride-1
+convs run on the fused conv3d kernel, and regresses depth and confidence in
+f32.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mvs_tpu_torch.geometry.depth import cascade_depth_samples
+from mvs_tpu_torch.nn.blocks import init_random_
+from mvs_tpu_torch.nn.cost_reg import UNetCostRegNet
+from mvs_tpu_torch.nn.feature_nets import CascadeFeatureNet
+from mvs_tpu_torch.ops.regression import regress_depth_and_confidence
+from mvs_tpu_torch.ops.warp_variance import fused_variance_volume
+
+__all__ = ["CasMVSNet"]
+
+
+class CasMVSNet(nn.Module):
+    def __init__(self, base_channels: int = 8,
+                 ndepths: Sequence[int] = (48, 32, 8),
+                 depth_interval_ratios: Sequence[float] = (4.0, 2.0, 1.0),
+                 compute_dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        """Parameters are drawn from `generator` (seed 0 when None) by
+        nn.blocks.init_random_; load converted weights to replace them."""
+        super().__init__()
+        self.ndepths = tuple(ndepths)
+        self.depth_interval_ratios = tuple(depth_interval_ratios)
+        self.compute_dtype = compute_dtype
+        num_stages = len(self.ndepths)
+        self.CascadeFeatureNet_0 = CascadeFeatureNet(base_channels, num_stages)
+        for i in range(num_stages):
+            stage_channels = base_channels * 4 // 2 ** i
+            setattr(self, f"cost_reg_stage{i + 1}",
+                    UNetCostRegNet(stage_channels, base_channels))
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_random_(self, generator)
+
+    def forward(self, imgs: torch.Tensor, proj_matrices: dict,
+                depth_values: torch.Tensor) -> dict:
+        """imgs (B, V, H, W, 3); proj_matrices {'stageK': (B, V, 4, 4)} at
+        stage resolution; depth_values (B, D_total), the global ladder that
+        sets the range and the base interval."""
+        b, v, h, w, _ = imgs.shape
+        depth_values = depth_values.float()
+        # Divided by D, not D - 1, as the JAX model does.
+        depth_interval = ((depth_values[:, -1] - depth_values[:, 0])
+                          / depth_values.shape[1])
+        feats = self.CascadeFeatureNet_0(
+            imgs.reshape(b * v, h, w, 3).to(self.compute_dtype))
+
+        outputs = {}
+        depth = None
+        for i, ndepth in enumerate(self.ndepths):
+            stage = f"stage{i + 1}"
+            f = feats[stage]
+            f = f.reshape(b, v, *f.shape[1:])
+            sh, sw = f.shape[2:4]
+            proj = proj_matrices[stage].float()
+            rel_projs = proj[:, 1:] @ torch.linalg.inv(proj[:, 0])[:, None]
+            if depth is None:
+                cur_depth = depth_values
+            else:
+                cur_depth = F.interpolate(depth[:, None], size=(sh, sw),
+                                          mode="bilinear",
+                                          align_corners=False)[:, 0]
+            interval = self.depth_interval_ratios[i] * depth_interval
+            hyp = cascade_depth_samples(cur_depth, ndepth, interval, sh,
+                                        sw).contiguous()
+            volume = fused_variance_volume(
+                f[:, 0].contiguous(), f[:, 1:].contiguous(),
+                rel_projs.contiguous(), hyp)
+            score = getattr(self, f"cost_reg_{stage}")(volume)
+            depth, conf, prob = regress_depth_and_confidence(score.float(),
+                                                             hyp)
+            outputs[stage] = {"depth": depth, "photometric_confidence": conf,
+                              "prob_volume": prob}
+        outputs["depth"] = depth
+        outputs["photometric_confidence"] = conf
+        return outputs

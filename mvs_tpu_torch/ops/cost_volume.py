@@ -1,0 +1,46 @@
+"""Variance cost volume, exact 'gather' sampler (counterpart of
+mvs_tpu.ops.cost_volume with sampler='gather', batch written out).
+
+This is the plain PyTorch form of the fused warp-variance kernel
+(ops.warp_variance): it materializes one warped volume per source view and
+accumulates sum(f) and sum(f^2) over ref + V views. Sums are taken in f32
+whatever the input dtype, as the kernel (and the TPU kernel) does; the JAX
+gather path sums in the input dtype, which only differs in bf16.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mvs_tpu_torch.geometry.homography import warp_src_feature
+
+__all__ = ["variance_cost_volume", "variance_from_partials"]
+
+
+def variance_cost_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
+                         rel_projs: torch.Tensor,
+                         depth_values: torch.Tensor) -> torch.Tensor:
+    """(B, D, H, W, C) variance over ref + V source views.
+
+    ref_feat (B, H, W, C); src_feats (B, V, H, W, C); rel_projs (B, V, 4, 4)
+    src @ ref^-1; depth_values (B, D) shared ladder or (B, D, H, W).
+    Returns the volume in ref_feat's dtype.
+    """
+    b, h, w, c = ref_feat.shape
+    d = depth_values.shape[1]
+    num_views = src_feats.shape[1] + 1
+    sum_f = ref_feat.float()[:, None].expand(b, d, h, w, c)
+    sum_sq = sum_f * sum_f
+    for v in range(num_views - 1):
+        warped = warp_src_feature(src_feats[:, v].float(), rel_projs[:, v],
+                                  depth_values)
+        sum_f = sum_f + warped
+        sum_sq = sum_sq + warped * warped
+    return variance_from_partials(sum_f, sum_sq, num_views).to(ref_feat.dtype)
+
+
+def variance_from_partials(sum_f: torch.Tensor, sum_sq: torch.Tensor,
+                           num_views) -> torch.Tensor:
+    """variance = E[f^2] - E[f]^2 given additive partial sums."""
+    mean = sum_f / num_views
+    return sum_sq / num_views - mean * mean

@@ -1,0 +1,88 @@
+"""Fused warp + variance volume: wrapper of the CUDA kernel
+``csrc/warp_variance.cu`` (counterpart of mvs_tpu.ops.warp_pallas).
+
+``fused_variance_volume`` launches the kernel for CUDA tensors and runs the
+plain PyTorch version (``fused_variance_volume_plain``, the exact gather
+path of ops.cost_volume) only for CPU tensors; it never falls back from one
+to the other. ``fused_variance_volume.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mvs_tpu_torch.ops import _build
+from mvs_tpu_torch.ops.cost_volume import variance_cost_volume
+
+__all__ = ["fused_variance_volume", "fused_variance_volume_plain"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURES = {
+    "mvs_warp_variance": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                          + [ctypes.c_void_p], ctypes.c_int),
+}
+
+fused_variance_volume_plain = variance_cost_volume
+
+
+def fused_variance_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
+                          rel_projs: torch.Tensor,
+                          depth_values: torch.Tensor) -> torch.Tensor:
+    """Variance volume (B, D, H, W, C) over ref + V views, exact bilinear.
+
+    ref_feat (B, H, W, C) and src_feats (B, V, H, W, C), f32 or bf16,
+    contiguous; rel_projs (B, V, 4, 4) src @ ref^-1; depth_values
+    (B, D, H, W) f32 contiguous per-pixel hypotheses. Output in the
+    features' dtype.
+    """
+    if ref_feat.device.type == "cpu":
+        return fused_variance_volume_plain(ref_feat, src_feats, rel_projs,
+                                           depth_values)
+    if ref_feat.device.type != "cuda":
+        raise ValueError(f"unsupported device {ref_feat.device}")
+    b, h, w, c = ref_feat.shape
+    if src_feats.ndim != 5 or src_feats.shape[0] != b or \
+            src_feats.shape[2:] != ref_feat.shape[1:]:
+        raise ValueError(f"src_feats {tuple(src_feats.shape)} does not match "
+                         f"ref_feat {tuple(ref_feat.shape)}")
+    nv = src_feats.shape[1]
+    if rel_projs.shape != (b, nv, 4, 4):
+        raise ValueError(f"rel_projs {tuple(rel_projs.shape)}, want "
+                         f"{(b, nv, 4, 4)}")
+    if depth_values.ndim != 4 or depth_values.shape[0] != b or \
+            depth_values.shape[2:] != (h, w):
+        raise ValueError(f"depth_values {tuple(depth_values.shape)}, want "
+                         f"(B, D, {h}, {w})")
+    if ref_feat.dtype not in _DTYPES or src_feats.dtype != ref_feat.dtype:
+        raise TypeError(f"features must share dtype float32 or bfloat16, got "
+                        f"{ref_feat.dtype} and {src_feats.dtype}")
+    if depth_values.dtype != torch.float32:
+        raise TypeError(f"depth_values must be float32, got "
+                        f"{depth_values.dtype}")
+    for name, t in (("ref_feat", ref_feat), ("src_feats", src_feats),
+                    ("depth_values", depth_values), ("rel_projs", rel_projs)):
+        if t.device != ref_feat.device:
+            raise ValueError(f"{name} on {t.device}, ref_feat on "
+                             f"{ref_feat.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    d = depth_values.shape[1]
+    geom = torch.cat([rel_projs[..., :3, :3].reshape(b, nv, 9),
+                      rel_projs[..., :3, 3]], dim=-1).float().contiguous()
+    out = torch.empty((b, d, h, w, c), dtype=ref_feat.dtype,
+                      device=ref_feat.device)
+    lib = _build.load("warp_variance", _SIGNATURES)
+    with torch.cuda.device(ref_feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.mvs_warp_variance(
+            ref_feat.data_ptr(), src_feats.data_ptr(), geom.data_ptr(),
+            depth_values.data_ptr(), out.data_ptr(), b, nv, d, h, w, c,
+            _DTYPES[ref_feat.dtype], stream)
+    _build.check(status, "warp_variance")
+    fused_variance_volume.launches += 1
+    return out
+
+
+fused_variance_volume.launches = 0
