@@ -1,4 +1,4 @@
-// Direct 3x3x3 stride-1 SAME convolution over NDHWC volumes with a fused
+// 3x3x3 stride-1 SAME convolution over NDHWC volumes with a fused
 // per-channel affine (the eval-mode BatchNorm fold, or a bias) and optional
 // ReLU, for Hopper (sm_90a).
 //
@@ -6,62 +6,78 @@
 // (mvs_tpu/ops/conv3d_pallas.py, kernel body _conv_kernel; entry
 // conv3d_folded). The TPU kernel folds W into the 128-lane dimension so that
 // 8-64 channel convs fill the MXU; that fold is a TPU layout device and is not
-// carried over: this kernel reads the plain (B, D, H, W, C) layout.
+// carried over: both kernels here read the plain (B, D, H, W, C) layout.
 //
 // Computes y[b,z,y,x,o] = act(scale[o] * sum_{tap,i} x[..neighbour.., i] *
-// w[tap, i, o] + shift[o]) with f32 accumulation; x and y are f32 or bf16.
+// w[tap*Cin + i, o] + shift[o]) with f32 sums, the affine and ReLU on the f32
+// sum, and one rounding to the output type.
 //
-// What bounds it on the card: at the cost-regularization widths the conv is
-// close to the H100's bf16 ridge (the full-resolution 8- and 16-channel blocks
-// sit below it, the 32/64-channel blocks above it), so the tensor cores and
-// device memory both matter. This first form does neither optimally: it runs
-// on the CUDA cores (f32 FMA, 67 TFLOP/s peak) and relies on L1/L2 for the
-// 27-fold reuse of each input voxel. One thread computes one output voxel for
-// a block of kCob output channels; the block's (27, Cin, kCob) weight slice
-// sits in shared memory and is read as broadcasts, and the input is read once
-// per tap from cache. Implicit GEMM on tensor cores (mma/wgmma over halo tiles
-// staged by TMA) is the planned replacement.
+// What bounds it on the card: bytes. At the cost-regularization widths the
+// GEMM view (M = voxels, N = Cout, K = 27*Cin) does 108-173 flop per byte of
+// input and output at (8,8)-(32,8), under the H100's bf16 ridge of ~295, and
+// the wider blocks run at 1/2-1/8 resolution, where the work is small. So the
+// aim is to read each input plane from device memory about once and keep the
+// tensor cores fed from shared memory.
+//
+// conv3d_mma_kernel (bf16, Cin in {8, 16, 32, 64}, Cout a multiple of 8 or 1):
+// an implicit GEMM on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
+// sums). mma.sync rather than wgmma: the N of these layers is 8-32, far below
+// wgmma's 64-row M by a useful N, and the kernel is bound by memory, not by
+// the MMA rate. A CTA owns an 8x16 (H x W) output tile and a run of up to 8
+// z planes, and marches along z with a ring of four (8+2)x(16+2)xCin halo
+// planes in shared memory, filled by 16-byte cp.async with zero fill at the
+// volume's border (the SAME padding costs nothing). Plane z+2 is copied while
+// plane z's 27 taps run on the tensor cores, and each input plane is read once
+// per CTA instead of three times. Octets (8 channels, 16 bytes) of a halo
+// pixel are XOR-swizzled by the pixel index so that ldmatrix, which gathers
+// one 16-byte row per (output voxel, tap, octet) straight from the halo, is
+// free of bank conflicts at every Cin. K runs tap-major, channel-minor; at
+// Cin = 8 one k16 step spans two taps, and the 28th (padding) tap reads a
+// zero row. The weights are packed once, (Kpad, Npad) bf16 with zero padding
+// (pack_conv3d_taps in mvs_tpu_torch/ops/conv3d.py), and each CTA stages an
+// N slice of 8-32 columns, sized so that K x N stays within 56 KB (Cout is
+// split over blockIdx.z for the 64-channel blocks). Each of the 4 warps
+// computes 2 tile rows (two m16 tiles) by the CTA's N slice. The epilogue
+// applies the affine and ReLU in f32, rounds once to bf16, gathers a voxel's 8
+// channels in one lane by quad shuffles and stores them as one 16-byte store;
+// the 1-channel score conv (N padded to 8) stores channel 0 only.
+//
+// conv3d_direct_kernel (f32, and bf16 with Cin not a multiple of 8): the direct
+// form on the CUDA cores. One thread computes one voxel for a block of kCob
+// output channels from a (27, Cin, kCob) f32 weight slice in shared memory.
+// TF32 would break the f32 tolerance, and f32 is not the serving type.
 //
 // C interface (loaded with ctypes, see mvs_tpu_torch/ops/conv3d.py); every
 // pointer is a device pointer to contiguous memory,
 //   x      (B, D, H, W, Cin)   T
-//   w      (27, Cin, Cout)     f32, taps ordered (dz, dy, dx) row-major
+//   w      (Kpad, ldw)         T, rows tap*Cin + i with tap = (dz*3+dy)*3+dx,
+//                              zero past 27*Cin rows and Cout columns
 //   scale  (Cout,)             f32
 //   shift  (Cout,)             f32
 //   y      (B, D, H, W, Cout)  T
-// with T = float (dtype 0) or __nv_bfloat16 (dtype 1). Launches on `stream`
-// and returns cudaGetLastError().
+// with T = float (dtype 0) or __nv_bfloat16 (dtype 1; the only type of the
+// MMA entry). Each entry launches on `stream` and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mvs_common.cuh"
 
 namespace {
+
+using mvs::from_f32;
+using mvs::to_f32;
+
+// --------------------------------------------------------------------------
+// Direct kernel.
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 4096;  // grid-stride beyond this: weights load once
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
 template <typename T, int kCob>
 __global__ void __launch_bounds__(kThreads)
-conv3d_affine_kernel(const T* __restrict__ x, const float* __restrict__ w,
+conv3d_direct_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const float* __restrict__ scale,
                      const float* __restrict__ shift, T* __restrict__ y,
-                     int D, int H, int W, int Cin, int Cout, int relu,
-                     int64_t nvox) {
+                     int D, int H, int W, int Cin, int Cout, int ldw,
+                     int relu, int64_t nvox) {
   extern __shared__ float sw[];  // (27, Cin, kCob) slice of this block
   const int co0 = blockIdx.y * kCob;
   const int ncol = min(kCob, Cout - co0);
@@ -69,7 +85,7 @@ conv3d_affine_kernel(const T* __restrict__ x, const float* __restrict__ w,
   for (int i = threadIdx.x; i < nw; i += blockDim.x) {
     const int co = i % kCob;
     const int row = i / kCob;  // tap * Cin + ci
-    sw[i] = co < ncol ? w[(int64_t)row * Cout + co0 + co] : 0.f;
+    sw[i] = co < ncol ? to_f32(w[(int64_t)row * ldw + co0 + co]) : 0.f;
   }
   float sc[kCob], sh[kCob];
 #pragma unroll
@@ -127,51 +143,373 @@ conv3d_affine_kernel(const T* __restrict__ x, const float* __restrict__ w,
 }
 
 template <typename T, int kCob>
-int launch_cob(const void* x, const void* w, const void* scale,
-               const void* shift, void* y, int B, int D, int H, int W,
-               int Cin, int Cout, int relu, cudaStream_t stream) {
+int launch_direct_cob(const void* x, const void* w, const void* scale,
+                      const void* shift, void* y, int B, int D, int H, int W,
+                      int Cin, int Cout, int ldw, int relu,
+                      cudaStream_t stream) {
   const int64_t nvox = (int64_t)B * D * H * W;
   if (nvox == 0) return cudaSuccess;
   const size_t smem = sizeof(float) * 27 * (size_t)Cin * kCob;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3d_affine_kernel<T, kCob>,
+      conv3d_direct_kernel<T, kCob>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t want = (nvox + kThreads - 1) / kThreads;
   dim3 grid((unsigned)(want < kMaxBlocks ? want : kMaxBlocks),
             (unsigned)((Cout + kCob - 1) / kCob));
-  conv3d_affine_kernel<T, kCob><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
+  conv3d_direct_kernel<T, kCob><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<T*>(y), D, H, W, Cin, Cout, relu, nvox);
+      static_cast<T*>(y), D, H, W, Cin, Cout, ldw, relu, nvox);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* x, const void* w, const void* scale, const void* shift,
-           void* y, int B, int D, int H, int W, int Cin, int Cout, int relu,
-           cudaStream_t stream) {
+int launch_direct(const void* x, const void* w, const void* scale,
+                  const void* shift, void* y, int B, int D, int H, int W,
+                  int Cin, int Cout, int ldw, int relu, cudaStream_t stream) {
   // The score conv has one output channel: a block of 8 would idle 7/8 of
   // its FMAs.
   if (Cout == 1)
-    return launch_cob<T, 1>(x, w, scale, shift, y, B, D, H, W, Cin, Cout,
-                            relu, stream);
-  return launch_cob<T, 8>(x, w, scale, shift, y, B, D, H, W, Cin, Cout, relu,
-                          stream);
+    return launch_direct_cob<T, 1>(x, w, scale, shift, y, B, D, H, W, Cin,
+                                   Cout, ldw, relu, stream);
+  return launch_direct_cob<T, 8>(x, w, scale, shift, y, B, D, H, W, Cin,
+                                 Cout, ldw, relu, stream);
+}
+
+// --------------------------------------------------------------------------
+// Tensor-core implicit GEMM.
+
+constexpr int kTH = 8;                    // output tile rows (H)
+constexpr int kTW = 16;                   // output tile columns (W): one m16
+constexpr int kHaloW = kTW + 2;
+constexpr int kHaloPix = (kTH + 2) * kHaloW;
+constexpr int kMmaThreads = 128;          // 4 warps x 2 tile rows
+constexpr int kRing = 4;                  // halo planes: 3 in use, 1 in flight
+constexpr int kMaxZRun = 8;               // z planes per CTA at most
+constexpr int kWeightBytes = 56 * 1024;   // K x N-slice budget in shared
+
+template <int kCin>
+struct Halo {
+  static constexpr int kOct = kCin / 8;  // 16-byte octets per pixel
+  static constexpr int kPixBytes = kCin * 2;
+  static constexpr int kPlaneBytes =
+      (kHaloPix * kPixBytes + 127) / 128 * 128;
+  // Octet o of pixel p sits at o ^ ((p >> kShift) & (kOct - 1)): 8
+  // consecutive pixels at one octet then fall in 8 distinct 16-byte bank
+  // groups (the rows of one ldmatrix phase).
+  static constexpr int kShift =
+      kOct == 1 ? 3 : kOct == 2 ? 2 : kOct == 4 ? 1 : 0;
+  static __device__ __forceinline__ int offset(int p, int o) {
+    return p * kPixBytes + ((o ^ ((p >> kShift) & (kOct - 1))) << 4);
+  }
+};
+
+template <int kCin>
+__host__ __device__ constexpr int k_steps() {
+  return (27 * (kCin / 8) + 1) / 2;
+}
+
+template <int kCin, int kNs>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return kRing * Halo<kCin>::kPlaneBytes + (kNs / 8) * k_steps<kCin>() * 256 +
+         16;
+}
+
+// Shared-memory address of the 16-byte A row this lane hands to ldmatrix at
+// k-octet q (tap q / kOct, octet q % kOct), for output column `col` of tile
+// row r. q is a compile-time constant once the k loop is unrolled.
+template <int kCin>
+__device__ __forceinline__ uint32_t a_row(const uint32_t* plane,
+                                          uint32_t zero, int q, int r,
+                                          int col) {
+  constexpr int kOct = kCin / 8;
+  const int tap = q / kOct;
+  if (tap >= 27) return zero;
+  const int dz = tap / 9, dy = (tap / 3) % 3, dx = tap % 3;
+  const int p = (r + dy) * kHaloW + col + dx;
+  return plane[dz] + Halo<kCin>::offset(p, q % kOct);
+}
+
+template <int kCin, int kNs>
+__global__ void __launch_bounds__(kMmaThreads)
+conv3d_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ w,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ shift,
+                  __nv_bfloat16* __restrict__ y, int D, int H, int W,
+                  int Cout, int ldw, int relu, int zrun, int nzrun, int nns) {
+  using L = Halo<kCin>;
+  constexpr int kOct = L::kOct;
+  constexpr int kSteps = k_steps<kCin>();
+  constexpr int kKpad = kSteps * 16;
+  constexpr int kNt = kNs / 8;  // n8 tiles of this CTA's N slice
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  unsigned char* wsm = smem + kRing * L::kPlaneBytes;  // [kNt][kKpad][8] bf16
+  unsigned char* zero = wsm + kNt * kKpad * 16;        // one zero A row
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int w0 = blockIdx.x * kTW, h0 = blockIdx.y * kTH;
+  const int ns = blockIdx.z % nns;
+  const int zi = (blockIdx.z / nns) % nzrun;
+  const int b = blockIdx.z / (nns * nzrun);
+  const int co0 = ns * kNs;
+  const int z0 = zi * zrun;
+  const int nz = min(zrun, D - z0);
+
+  // The CTA's weight slice, n8 tile by n8 tile: 16-byte rows, so that
+  // ldmatrix.trans reads 8 consecutive k rows without bank conflicts.
+  for (int i = tid; i < kKpad * kNt; i += kMmaThreads) {
+    const int nt = i % kNt, k = i / kNt;
+    mvs::cp_async16(mvs::smem_u32(wsm + (nt * kKpad + k) * 16),
+                    w + (int64_t)k * ldw + co0 + nt * 8, 16);
+  }
+  if (tid == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0, 0, 0, 0);
+
+  // Input plane z0 - 1 + iz into ring slot iz % kRing, zero outside.
+  auto load_plane = [&](int iz) {
+    const int z = z0 - 1 + iz;
+    const bool zok = z >= 0 && z < D;
+    unsigned char* dst = ring + (iz % kRing) * L::kPlaneBytes;
+    const int64_t zrow = ((int64_t)b * D + (zok ? z : 0)) * H;
+    for (int i = tid; i < kHaloPix * kOct; i += kMmaThreads) {
+      const int p = i / kOct, o = i % kOct;
+      const int hr = p / kHaloW, hc = p - hr * kHaloW;
+      const int ih = h0 - 1 + hr, iw = w0 - 1 + hc;
+      const bool ok = zok && ih >= 0 && ih < H && iw >= 0 && iw < W;
+      const __nv_bfloat16* src =
+          ok ? x + ((zrow + ih) * W + iw) * kCin + o * 8 : x;
+      mvs::cp_async16(mvs::smem_u32(dst + L::offset(p, o)), src,
+                      ok ? 16 : 0);
+    }
+  };
+  load_plane(0);
+  mvs::cp_async_commit();  // with the weights
+  load_plane(1);
+  mvs::cp_async_commit();
+  load_plane(2);
+  mvs::cp_async_commit();
+
+  // ldmatrix.x4 of A: lanes 0-15 address rows (output columns) 0-15 at the
+  // step's first k-octet, lanes 16-31 the same rows at its second.
+  const int acol = lane & 15, ahalf = lane >> 4;
+  // ldmatrix.trans of B: lanes 0-15 address k rows 0-15 of n8 tile nt,
+  // lanes 16-31 those of tile nt + 1 (x4 only).
+  const int brow = lane & 15, bnt = kNt > 1 ? lane >> 4 : 0;
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator row, column pair
+
+  float sc[kNt][2], sh[kNt][2];
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = co0 + nt * 8 + t4 * 2 + e;
+      sc[nt][e] = c < Cout ? scale[c] : 0.f;
+      sh[nt][e] = c < Cout ? shift[c] : 0.f;
+    }
+
+  const uint32_t ring0 = mvs::smem_u32(ring);
+  const uint32_t wbase = mvs::smem_u32(wsm);
+  const uint32_t zaddr = mvs::smem_u32(zero);
+
+  for (int j = 0; j < nz; ++j) {
+    if (j + 3 <= nz + 1) load_plane(j + 3);
+    mvs::cp_async_commit();
+    mvs::cp_async_wait<1>();  // planes j .. j+2 have landed
+    __syncthreads();
+
+    uint32_t plane[3];
+#pragma unroll
+    for (int dz = 0; dz < 3; ++dz)
+      plane[dz] = ring0 + ((j + dz) % kRing) * L::kPlaneBytes;
+
+    float acc[2][kNt][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = warp * 2 + mt;
+        const uint32_t lo = a_row<kCin>(plane, zaddr, 2 * s, r, acol);
+        const uint32_t hi = a_row<kCin>(plane, zaddr, 2 * s + 1, r, acol);
+        mvs::ldsm_x4(ahalf ? hi : lo, a[mt]);
+      }
+      const uint32_t brow_addr = wbase + (bnt * kKpad + s * 16 + brow) * 16;
+      if constexpr (kNt == 1) {
+        uint32_t bf[2];
+        mvs::ldsm_x2_trans(brow_addr, bf);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mvs::mma_bf16_16816(acc[mt][0], a[mt], bf);
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < kNt; nt += 2) {
+          uint32_t bf[4];
+          mvs::ldsm_x4_trans(brow_addr + nt * kKpad * 16, bf);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mvs::mma_bf16_16816(acc[mt][nt], a[mt], bf);
+            mvs::mma_bf16_16816(acc[mt][nt + 1], a[mt], bf + 2);
+          }
+        }
+      }
+    }
+
+    // Epilogue: lane (g, t4) holds channels 2*t4, 2*t4+1 of columns g and
+    // g + 8 of each n8 tile.
+    const int oz = z0 + j;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int oh = h0 + warp * 2 + mt;
+      const int64_t row = ((int64_t)b * D + oz) * H + oh;
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[e] = __fadd_rn(__fmul_rn(acc[mt][nt][e], sc[nt][e & 1]),
+                           sh[nt][e & 1]);
+          if (relu) v[e] = fmaxf(v[e], 0.f);
+        }
+        if (Cout == 1) {  // the score conv: channel 0 of columns g, g + 8
+          if (t4 == 0 && oh < H) {
+            if (w0 + g < W) y[row * W + w0 + g] = __float2bfloat16(v[0]);
+            if (w0 + g + 8 < W)
+              y[row * W + w0 + g + 8] = __float2bfloat16(v[2]);
+          }
+          continue;
+        }
+        // Gather the quad's 8 channels of column g in lane t4 = 0 and of
+        // column g + 8 in lane t4 = 1, then one 16-byte store each.
+        const uint32_t lo = mvs::pack_bf16x2(v[0], v[1]);
+        const uint32_t hi = mvs::pack_bf16x2(v[2], v[3]);
+        const int quad = lane & ~3;
+        uint32_t q[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t l = __shfl_sync(0xffffffffu, lo, quad + i);
+          const uint32_t h = __shfl_sync(0xffffffffu, hi, quad + i);
+          q[i] = t4 == 0 ? l : h;
+        }
+        const int ow = w0 + g + (t4 == 1 ? 8 : 0);
+        if (t4 < 2 && oh < H && ow < W)
+          *reinterpret_cast<uint4*>(y + (row * W + ow) * Cout + co0 +
+                                    nt * 8) =
+              make_uint4(q[0], q[1], q[2], q[3]);
+      }
+    }
+    __syncthreads();  // slot j % kRing is refilled next iteration
+  }
+}
+
+template <int kCin, int kNs>
+int launch_mma_ns(const void* x, const void* w, const void* scale,
+                  const void* shift, void* y, int B, int D, int H, int W,
+                  int Cout, int ldw, int relu, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<kCin, kNs>();
+  static_assert(smem <= 227 * 1024, "shared memory");
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv3d_mma_kernel<kCin, kNs>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int nns = ldw / kNs;
+  const int64_t tiles =
+      (int64_t)((W + kTW - 1) / kTW) * ((H + kTH - 1) / kTH) * nns * B;
+  // Runs of up to 8 planes; shorter when that leaves under 2 CTAs per SM.
+  int zrun = D < kMaxZRun ? D : kMaxZRun;
+  while (zrun > 1 && tiles * ((D + zrun - 1) / zrun) < 2 * (int64_t)sms)
+    zrun = (zrun + 1) / 2;
+  const int nzrun = (D + zrun - 1) / zrun;
+  const int64_t gz = (int64_t)B * nzrun * nns;
+  if (gz > 65535 || (H + kTH - 1) / kTH > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, (unsigned)gz);
+  conv3d_mma_kernel<kCin, kNs><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(y), D, H,
+      W, Cout, ldw, relu, zrun, nzrun, nns);
+  return (int)cudaGetLastError();
+}
+
+// The widest N slice (32, 16 or 8 columns) that divides the padded Cout and
+// keeps K x N within kWeightBytes.
+template <int kCin>
+int launch_mma(const void* x, const void* w, const void* scale,
+               const void* shift, void* y, int B, int D, int H, int W,
+               int Cout, int ldw, int relu, cudaStream_t stream) {
+  constexpr int kRowBytes = k_steps<kCin>() * 16 * 2;
+  if constexpr (kRowBytes * 32 <= kWeightBytes) {
+    if (ldw % 32 == 0)
+      return launch_mma_ns<kCin, 32>(x, w, scale, shift, y, B, D, H, W, Cout,
+                                     ldw, relu, stream);
+  }
+  if constexpr (kRowBytes * 16 <= kWeightBytes) {
+    if (ldw % 16 == 0)
+      return launch_mma_ns<kCin, 16>(x, w, scale, shift, y, B, D, H, W, Cout,
+                                     ldw, relu, stream);
+  }
+  return launch_mma_ns<kCin, 8>(x, w, scale, shift, y, B, D, H, W, Cout, ldw,
+                                relu, stream);
 }
 
 }  // namespace
 
-extern "C" int mvs_conv3d_affine(const void* x, const void* w,
+extern "C" int mvs_conv3d_direct(const void* x, const void* w,
                                  const void* scale, const void* shift,
                                  void* y, int B, int D, int H, int W, int Cin,
-                                 int Cout, int relu, int dtype, void* stream) {
+                                 int Cout, int ldw, int relu, int dtype,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, w, scale, shift, y, B, D, H, W, Cin, Cout, relu,
-                         s);
+    return launch_direct<float>(x, w, scale, shift, y, B, D, H, W, Cin, Cout,
+                                ldw, relu, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, scale, shift, y, B, D, H, W, Cin, Cout,
-                                 relu, s);
+    return launch_direct<__nv_bfloat16>(x, w, scale, shift, y, B, D, H, W,
+                                        Cin, Cout, ldw, relu, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int mvs_conv3d_mma(const void* x, const void* w, const void* scale,
+                              const void* shift, void* y, int B, int D, int H,
+                              int W, int Cin, int Cout, int ldw, int relu,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((B * (int64_t)D * H * W) == 0) return cudaSuccess;
+  if (ldw % 8 != 0 || (Cout != 1 && Cout % 8 != 0) || Cout > ldw)
+    return (int)cudaErrorInvalidValue;
+  switch (Cin) {
+    case 8:
+      return launch_mma<8>(x, w, scale, shift, y, B, D, H, W, Cout, ldw, relu,
+                           s);
+    case 16:
+      return launch_mma<16>(x, w, scale, shift, y, B, D, H, W, Cout, ldw,
+                            relu, s);
+    case 32:
+      return launch_mma<32>(x, w, scale, shift, y, B, D, H, W, Cout, ldw,
+                            relu, s);
+    case 64:
+      return launch_mma<64>(x, w, scale, shift, y, B, D, H, W, Cout, ldw,
+                            relu, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -20,11 +20,40 @@
 // rotation is per pixel and view): ~14-20 flops per byte of a bf16 volume
 // with its features and hypotheses, under the H100's f32 ridge of
 // 67 TFLOP/s / 3.35 TB/s = 20 (chip_smoke.py computes both least times).
-// The design keeps the one unavoidable write and reads the (small,
-// cache-resident) feature maps through L1/L2: one thread owns one output
-// pixel and a chunk of kChunk channels, so neighbouring threads write
-// neighbouring addresses and the corner gathers of a warp hit a few cache
-// lines.
+//
+// Design: the work per output element is cut to what the arithmetic needs
+// and the one unavoidable write runs at full width. The grid is (16x8 pixel
+// tile, depth group x tile row, batch) with 32-bit pixel indices and no
+// division per output. Each warp owns an 8x4 patch of 32 pixels:
+//   * once per depth group, lane l rotates pixel l into each view (R @ [x,
+//     y, 1]) and keeps the result in shared memory across the group's depths
+//     (it does not depend on depth);
+//   * once per (pixel, depth, view), lane l finishes the projection (depth
+//     multiply-add, the two IEEE divides), floors the coordinates, and writes
+//     a 16-byte record (corner offset, wx, wy, corner-validity bits) to
+//     shared memory;
+//   * then the warp walks the patch's 8-channel chunks with consecutive lanes
+//     on consecutive 16-byte chunks: each lane reads its pixel's record,
+//     gathers each valid corner as one 16-byte load (8 bf16; two for f32),
+//     blends with the four corner weights, and writes its chunk of the
+//     variance as one 16-byte streaming store (evict-first, so the volume
+//     does not push the feature maps out of L2).
+// The coordinates are computed with __fmul_rn/__fadd_rn/__fdiv_rn in the
+// order of plane_sweep_coords, so nvcc cannot contract them and they agree
+// with the plain PyTorch version to the bit; corner validity is tested in
+// float space, so a coordinate pushed behind the camera or far off the image
+// never reaches an int conversion. The vector loads need C % 8 == 0 and
+// 16-byte-aligned rows; other C (the ragged case) run the same kernel with
+// masked scalar loads and stores (kVec = false), chosen by the wrapper.
+//
+// What is left is instruction issue, not memory: on an H100 80GB HBM3 at
+// 700 W (chip_smoke.py) the three bf16 stages of a 1152x864 map (D =
+// 48/32/8, C = 32/16/8) take 0.427 / 0.627 / 0.379 ms against byte bounds of
+// 0.067 / 0.098 / 0.071 ms (a thread per chunk that recomputed its
+// coordinates took 1.641 / 2.515 / 1.258 ms), and the same kernel with every
+// gather sent to one cached address is no faster. Per channel and view it
+// issues four bf16 unpacks, four multiply-adds of the blend and two of the
+// sums, in f32 on the CUDA cores.
 //
 // C interface (loaded with ctypes, see mvs_tpu_torch/ops/warp_variance.py):
 // every pointer is a device pointer to contiguous memory,
@@ -33,148 +62,270 @@
 //   geom (B, V, 12)        f32: rows of R (9 values) then t (3) of src @ ref^-1
 //   hyp  (B, D, H, W)      f32 per-pixel depth hypotheses
 //   out  (B, D, H, W, C)   T
-// with T = float (dtype 0) or __nv_bfloat16 (dtype 1). Launches on `stream`
+// with T = float (dtype 0) or __nv_bfloat16 (dtype 1); vec = 1 selects the
+// 16-byte path (C % 8 == 0, 16-byte-aligned pointers). Launches on `stream`
 // and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mvs_common.cuh"
 
 namespace {
 
-constexpr int kChunk = 8;     // channels per thread
-constexpr int kThreads = 256;
+using mvs::from_f32;
+using mvs::to_f32;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;  // one pixel per thread per tile
+constexpr int kMinBlocksPerSm = 8;     // split depths until this many blocks
+constexpr int kTileW = 16, kTileH = 8;  // block tile: 2 x 2 warps of 8 x 4
+
+__device__ __forceinline__ void vec_load8(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T>
-__device__ __forceinline__ void load_chunk(const T* p, bool ok, int nc,
-                                           float* v) {
+__device__ __forceinline__ void vec_load8(const __nv_bfloat16* p, float* v) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-  for (int k = 0; k < kChunk; ++k) v[k] = (ok && k < nc) ? to_f32(p[k]) : 0.f;
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
 }
 
-template <typename T>
+// Stores stream past L2 (evict first), which keeps the features resident.
+__device__ __forceinline__ void vec_store8(float* p, const float* v) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  __stcs(reinterpret_cast<float4*>(p) + 1,
+         make_float4(v[4], v[5], v[6], v[7]));
+}
+
+__device__ __forceinline__ void vec_store8(__nv_bfloat16* p, const float* v) {
+  __stcs(reinterpret_cast<uint4*>(p),
+         make_uint4(mvs::pack_bf16x2(v[0], v[1]), mvs::pack_bf16x2(v[2], v[3]),
+                    mvs::pack_bf16x2(v[4], v[5]),
+                    mvs::pack_bf16x2(v[6], v[7])));
+}
+
+// Channels c0 .. c0+7 of one feature row (the first nc of them when !kVec),
+// zero where `ok` is false.
+template <bool kVec, typename T>
+__device__ __forceinline__ void load8(const T* p, bool ok, int nc, float* v) {
+  if constexpr (kVec) {
+    if (ok) {
+      vec_load8(p, v);
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = (ok && k < nc) ? to_f32(p[k]) : 0.f;
+}
+
+template <bool kVec, typename T>
+__device__ __forceinline__ void store8(T* p, int nc, const float* v) {
+  if constexpr (kVec) {
+    vec_store8(p, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < nc) p[k] = from_f32<T>(v[k]);
+  }
+}
+
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
                      const float* __restrict__ geom,
                      const float* __restrict__ hyp, T* __restrict__ out,
-                     int V, int D, int H, int W, int C, int64_t total) {
-  const int nchunk = (C + kChunk - 1) / kChunk;
-  const int64_t hw = (int64_t)H * W;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    const int chunk = (int)(t % nchunk);
-    int64_t bd = t / nchunk;  // flat (b, d, y, x), reduced to (b, d) below
-    const int x = (int)(bd % W);
-    bd /= W;
-    const int y = (int)(bd % H);
-    bd /= H;
-    const int b = (int)(bd / D);
-    const int c0 = chunk * kChunk;
-    const int nc = min(kChunk, C - c0);
-    const int64_t yx = (int64_t)y * W + x;
-    const float dep = hyp[bd * hw + yx];
-    const float px = (float)x;
-    const float py = (float)y;
+                     int V, int D, int H, int W, int C, int dgroup,
+                     int ngroups) {
+  // Per warp: [V][32] sample records (corner offset, wx, wy, corner
+  // validity bits), [V][3][32] rotated pixels; then the batch's (V, 12)
+  // geometry.
+  extern __shared__ int4 smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int4* rec = smem + warp * V * 32;
+  float* rot = reinterpret_cast<float*>(smem + kWarps * V * 32) +
+               warp * V * 96;
+  float* sgeom = reinterpret_cast<float*>(smem + kWarps * V * 32) +
+                 kWarps * V * 96;
 
-    float sf[kChunk], sq[kChunk], v00[kChunk], v01[kChunk], v10[kChunk],
-        v11[kChunk];
-    load_chunk(ref + ((int64_t)b * hw + yx) * C + c0, true, nc, sf);
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) sq[k] = sf[k] * sf[k];
+  const int b = blockIdx.z;
+  const int grp = blockIdx.y % ngroups;
+  const int d0 = grp * dgroup;
+  const int d1 = min(D, d0 + dgroup);
+  const int hw = H * W;
+  // The warp's pixels: an 8 x 4 (W x H) patch of the block's 16 x 8 tile.
+  const int wx0 = blockIdx.x * kTileW + (warp & 1) * 8;
+  const int wy0 = (blockIdx.y / ngroups) * kTileH + (warp >> 1) * 4;
 
-    for (int v = 0; v < V; ++v) {
-      const float* g = geom + ((int64_t)b * V + v) * 12;
-      // Same order as plane_sweep_coords: rotate the pixel, then multiply-add
-      // depth and translation, then divide. The _rn intrinsics keep nvcc from
-      // contracting these into fused multiply-adds, so every step rounds once
-      // as the elementwise PyTorch version does and the coordinates agree to
-      // the bit.
-      const float rx = __fadd_rn(__fadd_rn(__fmul_rn(g[0], px),
-                                           __fmul_rn(g[1], py)), g[2]);
-      const float ry = __fadd_rn(__fadd_rn(__fmul_rn(g[3], px),
-                                           __fmul_rn(g[4], py)), g[5]);
-      const float rz = __fadd_rn(__fadd_rn(__fmul_rn(g[6], px),
-                                           __fmul_rn(g[7], py)), g[8]);
-      const float qx = __fadd_rn(__fmul_rn(rx, dep), g[9]);
-      const float qy = __fadd_rn(__fmul_rn(ry, dep), g[10]);
-      const float qz = __fadd_rn(__fmul_rn(rz, dep), g[11]);
-      float xs, ys;
-      if (qz > 1e-3f) {
-        xs = __fdiv_rn(qx, qz);
-        ys = __fdiv_rn(qy, qz);
-      } else {  // behind the source camera: far outside, every corner drops
-        xs = -2.f * (float)W;
-        ys = -2.f * (float)H;
-      }
-      const float x0f = floorf(xs);
-      const float y0f = floorf(ys);
-      const float wx = xs - x0f;
-      const float wy = ys - y0f;
-      // Corner validity in float space, so huge coordinates cannot overflow
-      // an int before they are rejected.
-      const bool okx0 = x0f >= 0.f && x0f <= (float)(W - 1);
-      const bool okx1 = x0f >= -1.f && x0f <= (float)(W - 2);
-      const bool oky0 = y0f >= 0.f && y0f <= (float)(H - 1);
-      const bool oky1 = y0f >= -1.f && y0f <= (float)(H - 2);
-      const int xi = (okx0 || okx1) ? (int)x0f : 0;
-      const int yi = (oky0 || oky1) ? (int)y0f : 0;
-      const T* sv = src + ((int64_t)b * V + v) * hw * C + c0;
-      const int64_t r0 = (int64_t)yi * W;
-      const int64_t r1 = (int64_t)(yi + 1) * W;
-      load_chunk(sv + (r0 + xi) * C, oky0 && okx0, nc, v00);
-      load_chunk(sv + (r0 + xi + 1) * C, oky0 && okx1, nc, v01);
-      load_chunk(sv + (r1 + xi) * C, oky1 && okx0, nc, v10);
-      load_chunk(sv + (r1 + xi + 1) * C, oky1 && okx1, nc, v11);
+  for (int i = threadIdx.x; i < V * 12; i += kThreads)
+    sgeom[i] = geom[(int64_t)b * V * 12 + i];
+  __syncthreads();
+
+  // Lane l computes the coordinates of pixel l of the patch. Same order as
+  // plane_sweep_coords: rotate the pixel, then multiply-add depth and
+  // translation, then divide. The _rn intrinsics keep nvcc from contracting
+  // these into fused multiply-adds, so every step rounds once as the
+  // elementwise PyTorch version does.
+  const int px = wx0 + (lane & 7), py = wy0 + (lane >> 3);
+  const bool pix_ok = px < W && py < H;
+  const int pix = py * W + px;
+  for (int v = 0; v < V; ++v) {
+    const float* g = sgeom + v * 12;
 #pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        const float top = v00[k] * (1.f - wx) + v01[k] * wx;
-        const float bot = v10[k] * (1.f - wx) + v11[k] * wx;
-        const float f = top * (1.f - wy) + bot * wy;
-        sf[k] += f;
-        sq[k] += f * f;
+    for (int i = 0; i < 3; ++i)
+      rot[v * 96 + i * 32 + lane] =
+          __fadd_rn(__fadd_rn(__fmul_rn(g[3 * i], (float)px),
+                              __fmul_rn(g[3 * i + 1], (float)py)),
+                    g[3 * i + 2]);
+  }
+
+  // Pass k of the chunk walk gives lane l chunk (32k + l) % nch of pixel
+  // (32k + l) / nch: consecutive lanes on consecutive 16-byte chunks.
+  const int nch = (C + 7) >> 3;
+  const bool even = 32 % nch == 0;  // then a lane keeps its chunk
+  const int lane_pl = lane / nch, lane_c0 = (lane - lane_pl * nch) * 8;
+  const int vstride = hw * C;  // < 2^31, checked at launch
+  const int rowc = W * C;
+  const T* refb = ref + (int64_t)b * vstride;
+  const T* srcb = src + (int64_t)b * V * vstride;
+  // variance = sq / n - (sf / n)^2, each quotient as a product with the
+  // rounded 1/n (within an ulp of the division, at a fraction of its cost).
+  const float rn = __frcp_rn((float)(V + 1));
+
+  for (int d = d0; d < d1; ++d) {
+    const int64_t plane = ((int64_t)b * D + d) * hw;
+    if (pix_ok) {
+      const float dep = __ldcs(hyp + plane + pix);
+      for (int v = 0; v < V; ++v) {
+        const float* g = sgeom + v * 12;
+        const float qx = __fadd_rn(__fmul_rn(rot[v * 96 + lane], dep), g[9]);
+        const float qy =
+            __fadd_rn(__fmul_rn(rot[v * 96 + 32 + lane], dep), g[10]);
+        const float qz =
+            __fadd_rn(__fmul_rn(rot[v * 96 + 64 + lane], dep), g[11]);
+        float xs, ys;
+        if (qz > 1e-3f) {
+          xs = __fdiv_rn(qx, qz);
+          ys = __fdiv_rn(qy, qz);
+        } else {  // behind the source camera: far outside, every corner drops
+          xs = -2.f * (float)W;
+          ys = -2.f * (float)H;
+        }
+        const float x0f = floorf(xs);
+        const float y0f = floorf(ys);
+        const bool okx0 = x0f >= 0.f && x0f <= (float)(W - 1);
+        const bool okx1 = x0f >= -1.f && x0f <= (float)(W - 2);
+        const bool oky0 = y0f >= 0.f && y0f <= (float)(H - 1);
+        const bool oky1 = y0f >= -1.f && y0f <= (float)(H - 2);
+        const int xi = (okx0 || okx1) ? (int)x0f : 0;
+        const int yi = (oky0 || oky1) ? (int)y0f : 0;
+        const int mask = (oky0 && okx0) | (oky0 && okx1) << 1 |
+                         (oky1 && okx0) << 2 | (oky1 && okx1) << 3;
+        rec[v * 32 + lane] =
+            make_int4((yi * W + xi) * C, __float_as_int(xs - x0f),
+                      __float_as_int(ys - y0f), mask);
       }
     }
+    __syncwarp();
 
-    const float n = (float)(V + 1);
-    T* op = out + (bd * hw + yx) * C + c0;
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      if (k < nc) {
-        const float mean = sf[k] / n;
-        op[k] = from_f32<T>(sq[k] / n - mean * mean);
+    for (int pass = 0; pass < nch; ++pass) {
+      int pl = pass * (32 / nch) + lane_pl, c0 = lane_c0;
+      if (!even) {
+        pl = (pass * 32 + lane) / nch;
+        c0 = (pass * 32 + lane - pl * nch) * 8;
       }
+      const int x = wx0 + (pl & 7), y = wy0 + (pl >> 3);
+      if (x >= W || y >= H) continue;
+      const int p = y * W + x;
+      const int nc = min(8, C - c0);
+      float sf[8], sq[8];
+      load8<kVec>(refb + p * C + c0, true, nc, sf);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sq[k] = sf[k] * sf[k];
+#pragma unroll 4
+      for (int v = 0; v < V; ++v) {
+        const int4 r = rec[v * 32 + pl];
+        const float wx = __int_as_float(r.y), wy = __int_as_float(r.z);
+        // A corner off the image is not loaded: it reads as zero.
+        const float w00 = (1.f - wx) * (1.f - wy), w01 = wx * (1.f - wy);
+        const float w10 = (1.f - wx) * wy, w11 = wx * wy;
+        const T* sv = srcb + (int64_t)v * vstride + c0 + r.x;
+        float v00[8], v01[8], v10[8], v11[8];
+        load8<kVec>(sv, r.w & 1, nc, v00);
+        load8<kVec>(sv + C, r.w & 2, nc, v01);
+        load8<kVec>(sv + rowc, r.w & 4, nc, v10);
+        load8<kVec>(sv + rowc + C, r.w & 8, nc, v11);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float f =
+              v00[k] * w00 + v01[k] * w01 + v10[k] * w10 + v11[k] * w11;
+          sf[k] += f;
+          sq[k] += f * f;
+        }
+      }
+      float o[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float mean = sf[k] * rn;
+        o[k] = sq[k] * rn - mean * mean;
+      }
+      store8<kVec>(out + plane * C + p * C + c0, nc, o);
     }
+    __syncwarp();  // records are rewritten for the next depth
   }
 }
 
-template <typename T>
+template <typename T, bool kVec>
 int launch(const void* ref, const void* src, const void* geom,
            const void* hyp, void* out, int B, int V, int D, int H, int W,
            int C, cudaStream_t stream) {
-  const int64_t total =
-      (int64_t)B * D * H * W * ((C + kChunk - 1) / kChunk);
-  if (total == 0) return cudaSuccess;
-  const int64_t want = (total + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < 65536 ? want : 65536);
-  warp_variance_kernel<T><<<blocks, kThreads, 0, stream>>>(
+  const int64_t hw = (int64_t)H * W;
+  if (B == 0 || V == 0 || D == 0 || hw == 0 || C == 0) return cudaSuccess;
+  if ((hw + W + 1) * C > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)V * (kWarps * 32 * 16 + kWarps * 96 * 4 + 48);
+  if (smem > 48 * 1024) {  // many views: opt in to more shared memory
+    cudaError_t err = cudaFuncSetAttribute(
+        warp_variance_kernel<T, kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int64_t tx = (W + kTileW - 1) / kTileW, ty = (H + kTileH - 1) / kTileH;
+  // All depths in one block unless that leaves too few blocks to fill the
+  // card: each split recomputes the rotation once more.
+  int dgroup = D;
+  while (dgroup > 1 &&
+         tx * ty * B * ((D + dgroup - 1) / dgroup) < kMinBlocksPerSm * sms)
+    dgroup = (dgroup + 1) / 2;
+  const int64_t groups = (D + dgroup - 1) / dgroup;
+  if (tx > INT32_MAX || ty * groups > 65535 || B > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)tx, (unsigned)(ty * groups), (unsigned)B);
+  warp_variance_kernel<T, kVec><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(ref), static_cast<const T*>(src),
       static_cast<const float*>(geom), static_cast<const float*>(hyp),
-      static_cast<T*>(out), V, D, H, W, C, total);
+      static_cast<T*>(out), V, D, H, W, C, dgroup, (int)groups);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_t(const void* ref, const void* src, const void* geom,
+             const void* hyp, void* out, int B, int V, int D, int H, int W,
+             int C, int vec, cudaStream_t stream) {
+  if (vec)
+    return launch<T, true>(ref, src, geom, hyp, out, B, V, D, H, W, C,
+                           stream);
+  return launch<T, false>(ref, src, geom, hyp, out, B, V, D, H, W, C, stream);
 }
 
 }  // namespace
@@ -182,12 +333,14 @@ int launch(const void* ref, const void* src, const void* geom,
 extern "C" int mvs_warp_variance(const void* ref, const void* src,
                                  const void* geom, const void* hyp, void* out,
                                  int B, int V, int D, int H, int W, int C,
-                                 int dtype, void* stream) {
+                                 int dtype, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec && C % 8 != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(ref, src, geom, hyp, out, B, V, D, H, W, C, s);
+    return launch_t<float>(ref, src, geom, hyp, out, B, V, D, H, W, C, vec,
+                           s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(ref, src, geom, hyp, out, B, V, D, H, W, C,
-                                 s);
+    return launch_t<__nv_bfloat16>(ref, src, geom, hyp, out, B, V, D, H, W, C,
+                                   vec, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/mvs_tpu_torch/`` at the repository root and loaded with ``ctypes``;
 no PyTorch headers are compiled, so a build takes seconds. The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded. Importing this module needs
-neither CUDA nor ``nvcc``: nothing is built until a kernel is first called
-(or ``build`` is called).
+file name carries a hash of its source, of every ``csrc`` header it includes
+(directly or through another header) and of the flags, so an edited source
+or shared header is rebuilt and a stale library is never loaded. Importing
+this module needs neither CUDA nor ``nvcc``: nothing is built until a kernel
+is first called (or ``build`` is called).
 """
 
 from __future__ import annotations
@@ -15,12 +16,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "nvcc_command", "build", "load", "check"]
+__all__ = ["SOURCES", "BUILD_DIR", "nvcc_command", "source_files", "build",
+           "load", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mvs_tpu_torch"
@@ -49,8 +52,27 @@ def _find_nvcc() -> str:
                        "or set CUDA_HOME")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[Path]:
+    """csrc/<name>.cu and every csrc header it includes, transitively."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -1,15 +1,27 @@
 """3x3x3 stride-1 SAME conv with a fused affine (+ReLU) epilogue: wrapper of
-the CUDA kernel ``csrc/conv3d_affine.cu`` (counterpart of
+the CUDA kernels in ``csrc/conv3d_affine.cu`` (counterpart of
 mvs_tpu.ops.conv3d_pallas.conv3d_folded / conv3d_lane_folded).
 
-``conv3d_affine`` launches the kernel for CUDA tensors and runs the plain
+``conv3d_affine`` launches a kernel for CUDA tensors and runs the plain
 PyTorch version (``conv3d_affine_plain``: F.conv3d, affine, ReLU) only for
-CPU tensors; it never falls back from one to the other.
-``conv3d_affine.launches`` counts kernel launches. The TPU kernel's lane
-fold (fold_factor, fold_volume, fold_conv3d_weights) is a TPU layout device
-and has no counterpart here.
+CPU tensors; it never falls back from one to the other. Two kernels serve
+CUDA tensors:
 
-Numerics of both versions follow the JAX path: the weights are rounded to
+* the tensor-core implicit GEMM (``mvs_conv3d_mma``) for bf16 with Cin a
+  multiple of 8: every conv of the bf16 main path. It takes Cin in
+  {8, 16, 32, 64}, Cout a multiple of 8 or 1, and x 16-byte aligned; other
+  such calls raise;
+* the direct kernel (``mvs_conv3d_direct``) for f32, and for bf16 with Cin
+  not a multiple of 8 (Cin up to 256).
+
+``conv3d_affine.launches`` counts launches of either kernel and
+``conv3d_affine.mma_launches`` those of the tensor-core one. Both read the
+weights as ``pack_conv3d_taps`` lays them out, packed once per weight tensor
+and kept on it until the weight changes. The TPU kernel's lane fold
+(fold_factor, fold_volume, fold_conv3d_weights) is a TPU layout device and
+has no counterpart here.
+
+Numerics of every version follow the JAX path: the weights are rounded to
 the input dtype, products accumulate in f32, the affine and ReLU run in f32,
 and the result is rounded once to the input dtype.
 """
@@ -23,14 +35,55 @@ import torch.nn.functional as F
 
 from mvs_tpu_torch.ops import _build
 
-__all__ = ["conv3d_affine", "conv3d_affine_plain"]
+__all__ = ["conv3d_affine", "conv3d_affine_plain", "pack_conv3d_taps"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    "mvs_conv3d_affine": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    "mvs_conv3d_direct": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p], ctypes.c_int),
+    "mvs_conv3d_mma": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p], ctypes.c_int),
 }
-_MAX_CIN = 256  # the (27, Cin, 8) f32 weight slice must fit shared memory
+_MAX_CIN = 256  # the direct kernel's (27, Cin, 8) f32 slice in shared memory
+_MMA_CIN = (8, 16, 32, 64)  # the implicit GEMM's halo ring fits up to 64
+
+
+def pack_conv3d_taps(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The kernels' weight matrix: (Kpad, Npad) in `dtype`.
+
+    weight (Cout, Cin, 3, 3, 3) is rounded to `dtype` and laid out K x N
+    with K = 27 * Cin in tap-major, channel-minor order (row
+    ((dz * 3 + dy) * 3 + dx) * Cin + i) and N = Cout; K is zero-padded to a
+    multiple of 16 (the MMA's k step) and N to a multiple of 8 (its n tile).
+    """
+    cout, cin = weight.shape[:2]
+    k = 27 * cin
+    taps = weight.detach().to(dtype).permute(2, 3, 4, 1, 0).reshape(k, cout)
+    packed = torch.zeros((-(-k // 16) * 16, -(-cout // 8) * 8), dtype=dtype,
+                         device=weight.device)
+    packed[:k, :cout] = taps
+    return packed
+
+
+def _packed(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """pack_conv3d_taps(weight, dtype), kept on `weight` while its storage,
+    version and dtype stay the same (an inference tensor has no version and
+    is packed on every call).
+
+    In-place writes to `weight` itself (``load_state_dict``, ``copy_`` or
+    ``mul_`` under ``torch.no_grad()``, an optimizer step) bump its version
+    and repack. A write through ``weight.data`` does not: ``.data`` is a
+    tensor with a version counter of its own, so such a write leaves the
+    old packed weights in use.
+    """
+    if weight.is_inference():
+        return pack_conv3d_taps(weight, dtype)
+    key = (dtype, weight.device, weight.data_ptr(), weight._version)
+    hit = getattr(weight, "_mvs_conv3d_packed", None)
+    if hit is None or hit[0] != key:
+        hit = (key, pack_conv3d_taps(weight, dtype))
+        weight._mvs_conv3d_packed = hit
+    return hit[1]
 
 
 def conv3d_affine_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -68,8 +121,6 @@ def conv3d_affine(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                          f"({cout}, {cin}, 3, 3, 3)")
     if scale.shape != (cout,) or shift.shape != (cout,):
         raise ValueError(f"scale/shift must be ({cout},)")
-    if cin > _MAX_CIN:
-        raise ValueError(f"Cin {cin} > {_MAX_CIN}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
@@ -77,21 +128,34 @@ def conv3d_affine(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
     for name, t in (("weight", weight), ("scale", scale), ("shift", shift)):
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
-    taps = (weight.to(x.dtype).float().permute(2, 3, 4, 1, 0)
-            .reshape(27, cin, cout).contiguous())
+    mma = x.dtype == torch.bfloat16 and cin % 8 == 0
+    if mma:
+        if cin not in _MMA_CIN or not (cout % 8 == 0 or cout == 1):
+            raise ValueError(f"bf16 (Cin, Cout) = ({cin}, {cout}): the "
+                             f"tensor-core kernel takes Cin in {_MMA_CIN} "
+                             f"and Cout a multiple of 8 or 1")
+        if x.data_ptr() % 16:
+            raise ValueError("bf16 x must be 16-byte aligned")
+    elif cin > _MAX_CIN:
+        raise ValueError(f"Cin {cin} > {_MAX_CIN}")
+    taps = _packed(weight, x.dtype)
     sc = scale.float().contiguous()
     sh = shift.float().contiguous()
     y = torch.empty((b, d, h, w, cout), dtype=x.dtype, device=x.device)
     lib = _build.load("conv3d_affine", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.mvs_conv3d_affine(
-            x.data_ptr(), taps.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-            y.data_ptr(), b, d, h, w, cin, cout, int(relu), _DTYPES[x.dtype],
-            stream)
+        args = (x.data_ptr(), taps.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+                y.data_ptr(), b, d, h, w, cin, cout, taps.shape[1], int(relu))
+        if mma:
+            status = lib.mvs_conv3d_mma(*args, stream)
+        else:
+            status = lib.mvs_conv3d_direct(*args, _DTYPES[x.dtype], stream)
     _build.check(status, "conv3d_affine")
     conv3d_affine.launches += 1
+    conv3d_affine.mma_launches += int(mma)
     return y
 
 
 conv3d_affine.launches = 0
+conv3d_affine.mma_launches = 0

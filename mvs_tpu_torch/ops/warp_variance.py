@@ -4,7 +4,12 @@
 ``fused_variance_volume`` launches the kernel for CUDA tensors and runs the
 plain PyTorch version (``fused_variance_volume_plain``, the exact gather
 path of ops.cost_volume) only for CPU tensors; it never falls back from one
-to the other. ``fused_variance_volume.launches`` counts kernel launches.
+to the other. The kernel reads and writes 8 channels as one 16-byte access
+when C % 8 == 0 and every feature pointer is 16-byte aligned (the vector
+variant, every launch of the main path); otherwise the same kernel runs
+with masked scalar accesses. ``fused_variance_volume.launches`` counts
+kernel launches and ``fused_variance_volume.vector_launches`` those of the
+vector variant.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ __all__ = ["fused_variance_volume", "fused_variance_volume_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    "mvs_warp_variance": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    "mvs_warp_variance": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                           + [ctypes.c_void_p], ctypes.c_int),
 }
 
@@ -73,16 +78,20 @@ def fused_variance_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
                       rel_projs[..., :3, 3]], dim=-1).float().contiguous()
     out = torch.empty((b, d, h, w, c), dtype=ref_feat.dtype,
                       device=ref_feat.device)
+    vec = c % 8 == 0 and all(t.data_ptr() % 16 == 0
+                             for t in (ref_feat, src_feats, out))
     lib = _build.load("warp_variance", _SIGNATURES)
     with torch.cuda.device(ref_feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.mvs_warp_variance(
             ref_feat.data_ptr(), src_feats.data_ptr(), geom.data_ptr(),
             depth_values.data_ptr(), out.data_ptr(), b, nv, d, h, w, c,
-            _DTYPES[ref_feat.dtype], stream)
+            _DTYPES[ref_feat.dtype], int(vec), stream)
     _build.check(status, "warp_variance")
     fused_variance_volume.launches += 1
+    fused_variance_volume.vector_launches += int(vec)
     return out
 
 
 fused_variance_volume.launches = 0
+fused_variance_volume.vector_launches = 0

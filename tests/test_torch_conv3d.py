@@ -6,7 +6,10 @@ ReLU); the CUDA kernel is held against it on the card by chip_smoke.py. Here
 it is held against the Pallas kernel conv3d_folded(..., interpret=True) at
 the shapes and bound of tests/test_conv3d_pallas.py (rtol/atol 2e-4: f32
 sums of 27*Cin products in another order), and FusedConvBlock3D against the
-Flax module through converted weights with non-trivial BatchNorm.
+Flax module through converted weights with non-trivial BatchNorm. The
+kernels' weight layout (pack_conv3d_taps) is held to the same bound as the
+GEMM the tensor-core kernel computes: an im2col of the input in its K order
+times the packed matrix, with the affine and ReLU.
 """
 
 import jax
@@ -14,12 +17,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mvs_tpu.nn.blocks import FusedConvBlock3D as JaxFusedConvBlock3D
 from mvs_tpu.ops.conv3d_pallas import conv3d_folded
 from mvs_tpu_torch.convert import flax_to_state_dict
 from mvs_tpu_torch.nn.blocks import FusedConvBlock3D
-from mvs_tpu_torch.ops.conv3d import conv3d_affine
+from mvs_tpu_torch.ops.conv3d import _packed, conv3d_affine, pack_conv3d_taps
 from test_torch_blocks import perturb_batch_norm
 
 
@@ -69,3 +73,70 @@ def test_wrapper_rejects_other_devices():
     w = torch.empty((8, 8, 3, 3, 3))
     with pytest.raises(ValueError, match="unsupported device"):
         conv3d_affine(x, w, torch.ones(8), torch.zeros(8), relu=False)
+
+
+def _im2col(x):
+    """(B, D, H, W, C) -> (B*D*H*W, 27*C), columns tap-major
+    ((dz * 3 + dy) * 3 + dx), channel-minor: the kernels' K order."""
+    b, d, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    cols = [xp[:, dz:dz + d, dy:dy + h, dx:dx + w]
+            for dz in range(3) for dy in range(3) for dx in range(3)]
+    return torch.stack(cols, dim=-2).reshape(b * d * h * w, 27 * c)
+
+
+@pytest.mark.parametrize("c_in,c_out,reference", [
+    (8, 1, "lax"), (8, 8, "lax"), (32, 8, "pallas"), (64, 64, "lax")])
+def test_packed_taps_are_the_kernels_gemm(c_in, c_out, reference):
+    rng = np.random.default_rng(5)
+    shape = (1, 4, 8, 8) if reference == "pallas" else (2, 3, 5, 6)
+    x = rng.standard_normal((*shape, c_in)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, 3, c_in, c_out)) * 0.1).astype(np.float32)
+    scale = rng.uniform(0.5, 2.0, c_out).astype(np.float32)
+    shift = rng.standard_normal(c_out).astype(np.float32)
+    if reference == "pallas":
+        want = conv3d_folded(jnp.asarray(x), jnp.asarray(k),
+                             jnp.asarray(scale), jnp.asarray(shift),
+                             relu=True, interpret=True)
+    else:
+        want = jax.lax.conv_general_dilated(
+            jnp.asarray(x), jnp.asarray(k), (1, 1, 1), "SAME",
+            dimension_numbers=("NDHWC", "DHWIO", "NDHWC"),
+            precision=jax.lax.Precision.HIGHEST)
+        want = jnp.maximum(want * scale + shift, 0.0)
+    weight = _t(k.transpose(4, 3, 0, 1, 2))
+    packed = pack_conv3d_taps(weight, torch.float32)
+    kk = 27 * c_in
+    # K padded to the MMA's k step of 16, N to its n tile of 8, with zeros.
+    assert packed.shape == (-(-kk // 16) * 16, -(-c_out // 8) * 8)
+    assert not packed[kk:].any() and not packed[:, c_out:].any()
+    y = _im2col(_t(x)) @ packed[:kk, :c_out]
+    y = torch.relu(y * _t(scale) + _t(shift)).reshape(*shape, c_out)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    # bf16: the weights are rounded to the input dtype, then laid out.
+    assert torch.equal(pack_conv3d_taps(weight, torch.bfloat16),
+                       packed.to(torch.bfloat16))
+
+
+def test_packed_weights_are_kept_until_the_weight_changes():
+    weight = torch.nn.Parameter(torch.randn(8, 16, 3, 3, 3))
+    first = _packed(weight, torch.bfloat16)
+    assert _packed(weight, torch.bfloat16) is first
+    assert _packed(weight, torch.float32).dtype == torch.float32
+    with torch.no_grad():
+        weight.mul_(2.0)
+    again = _packed(weight, torch.bfloat16)
+    assert again is not first
+    assert torch.equal(again, pack_conv3d_taps(weight, torch.bfloat16))
+
+
+def test_packed_weights_follow_load_state_dict():
+    block = FusedConvBlock3D(8, 8)
+    first = _packed(block.kernel, torch.bfloat16)
+    state = {k: v.clone() for k, v in block.state_dict().items()}
+    state["kernel"] = torch.randn_like(state["kernel"])
+    block.load_state_dict(state)
+    assert torch.equal(_packed(block.kernel, torch.bfloat16),
+                       pack_conv3d_taps(state["kernel"], torch.bfloat16))
+    assert not torch.equal(_packed(block.kernel, torch.bfloat16), first)

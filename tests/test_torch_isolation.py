@@ -104,3 +104,20 @@ def test_ctypes_signature_matches_c_entry(module, source):
                     for t in argtypes]
         assert declared == kinds, (fn, params)
         assert restype.__name__ == "c_int"
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """An edit to a csrc header gives every source that includes it, even
+    through another header, a new library name: no stale build loads."""
+    for name in _build.SOURCES:
+        assert [p.name for p in _build.source_files(name)] == [
+            f"{name}.cu", "mvs_common.cuh"]
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint f();\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.source_files("k")] == ["k.cu", "a.cuh",
+                                                           "b.cuh"]
+    before = _build._library_path("k")
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    assert _build._library_path("k") != before
