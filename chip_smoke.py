@@ -19,7 +19,25 @@ Phases, in order; any failure exits non-zero:
      torch.profiler, its top kernels and the device's idle share;
   5. run_batched_inference at batch 2 over 3 samples (a padded tail), PFM
      and cam files written and one read back;
-then one JSON line listing the kernels, and last
+  6. the user's path from a DTU scan on disk to a fused cloud and its score:
+     (a) a synthetic DTU eval scan written by utils.make_synthetic_dtu, 11
+         views at 1152x864, tilted plane, 192-hypothesis ladder, every ref
+         with 10 ranked sources;
+     (b) `infer` (cli.infer.main) over it from a seeded bf16 CasMVSNet
+         saved as .pt, batch 2: 11 maps, with the launch counts of that run
+         (exact: 6 x 3 warp, all vector; 6 x 15 conv, all tensor-core),
+         maps/s through the CLI, one map's host load and writes, and the
+         PNG write at zlib level 1 (io.png's) against level 6;
+     (c) fusion.fuse_scene on the card against the CPU on noisy analytic
+         depths at 288x216, 11 views x 10 sources;
+     (d) the scan's analytic depths ("oracle" maps) at full width through
+         `fuse` and `evaluate` (cli.fuse.main, cli.evaluate.main): the CLI's
+         own fuse_scene call in device ms and its compaction + PLY write in
+         host ms, evaluation seconds, acc / comp within limits;
+     (e) `fuse` over the model's maps of (b) with configs/cas_eval_dtu.yaml's
+         thresholds: a valid PLY;
+then one JSON line listing the kernels (launches: per map, phase 4's run;
+cli_launches: phase 6b's run), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -30,19 +48,27 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mvs_tpu_torch.cli import evaluate as cli_evaluate
+from mvs_tpu_torch.cli import fuse as cli_fuse
+from mvs_tpu_torch.cli import infer as cli_infer
 from mvs_tpu_torch.cli.infer import (make_apply_fn, run_batched_inference,
                                      stack_model_inputs, write_depth_outputs)
-from mvs_tpu_torch.io import read_pfm
+from mvs_tpu_torch.fusion import FusionConfig, fuse_scene
+from mvs_tpu_torch.io import png as png_codec
+from mvs_tpu_torch.io import read_pfm, read_ply, write_pfm, write_ply
+from mvs_tpu_torch.io.dtu import DTUEvalDataset
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
 from mvs_tpu_torch.ops import _build
 from mvs_tpu_torch.ops.conv3d import conv3d_affine, conv3d_affine_plain
 from mvs_tpu_torch.ops.warp_variance import (fused_variance_volume,
                                              fused_variance_volume_plain)
+from mvs_tpu_torch.utils.make_synthetic_dtu import generate
 from mvs_tpu_torch.utils.platform import resolve_device
 from mvs_tpu_torch.utils.synthetic import make_plane_scene
 
@@ -85,6 +111,20 @@ TOL = {("warp", torch.float32): 1e-4, ("conv", torch.float32): 1e-4,
 # one tap or channel out of place moves the mean by orders of magnitude more.
 SCORE_TOL = {torch.float32: (1e-4, None), torch.bfloat16: (3e-2, 2e-3)}
 DEPTH_TOL = {torch.float32: (0.05, 5e-3), torch.bfloat16: (0.1, 1e-2)}
+
+
+def reset_counts() -> None:
+    fused_variance_volume.launches = 0
+    fused_variance_volume.vector_launches = 0
+    conv3d_affine.launches = 0
+    conv3d_affine.mma_launches = 0
+
+
+def read_counts() -> dict:
+    return {"warp_variance": fused_variance_volume.launches,
+            "warp_variance.vector": fused_variance_volume.vector_launches,
+            "conv3d_affine": conv3d_affine.launches,
+            "conv3d_affine.mma": conv3d_affine.mma_launches}
 
 
 def log(msg: str) -> None:
@@ -401,7 +441,7 @@ def model_vs_cpu(scene, dtype, device):
 def phase_full_width(scene, device):
     log(f"phase 4: full width {WIDTH}x{HEIGHT}, {VIEWS} views, "
         f"{'/'.join(map(str, NDEPTHS))} hypotheses, batch 1")
-    launches = None
+    launches = bf16_ms = None
     for dtype in (torch.bfloat16, torch.float32):
         model = CasMVSNet(BASE, NDEPTHS, compute_dtype=dtype,
                           generator=torch.Generator().manual_seed(0))
@@ -410,16 +450,10 @@ def phase_full_width(scene, device):
         apply_fn(*args)  # warm-up: cuDNN algorithm choice, allocator
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fused_variance_volume.launches = 0
-        fused_variance_volume.vector_launches = 0
-        conv3d_affine.launches = 0
-        conv3d_affine.mma_launches = 0
+        reset_counts()
         depth, conf = apply_fn(*args)
         torch.cuda.synchronize()
-        counts = {"warp_variance": fused_variance_volume.launches,
-                  "warp_variance.vector": fused_variance_volume.vector_launches,
-                  "conv3d_affine": conv3d_affine.launches,
-                  "conv3d_affine.mma": conv3d_affine.mma_launches}
+        counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         t0 = time.perf_counter()
         iters = 3
@@ -446,11 +480,11 @@ def phase_full_width(scene, device):
         if depth.min() < 8.0 - margin or depth.max() > 12.0 + margin:
             fail(f"depth outside [{8.0 - margin}, {12.0 + margin}]")
         if dtype is torch.bfloat16:
-            launches = counts
+            launches, bf16_ms = counts, ms
             log("  bf16 device ms by layer, one run: "
                 + json.dumps(layer_breakdown(model, apply_fn, args)))
             profile_run(apply_fn, args)
-    return launches
+    return launches, bf16_ms
 
 
 def profile_run(apply_fn, args, top: int = 12) -> None:
@@ -547,10 +581,292 @@ def phase_batched(scene, device):
             f"outputs; tail map depth mean {results[2][1].mean():.4f}")
 
 
-def kernel_entry(name, source, replaces, rows, launches, library):
+# Phase 6. The scan: 11 views at full width, a plane tilted so that its
+# depth (8.6 to 11.9 at focal 100) stays inside the 7.2-12.8 ladder.
+SCAN_VIEWS, SCAN_TILT = 11, (0.02, 0.01)
+# configs/cas_eval_dtu.yaml's fusion thresholds.
+EVAL_FUSION = ["fusion.conf_thresh=0.9", "fusion.num_consistent=5",
+               "fusion.pixel_thresh=1.0", "fusion.depth_thresh=0.01"]
+# Card against CPU fusion (6c): both run the same f32 arithmetic in another
+# order (matrix products, inverses), so a mask flips only where a tested
+# quantity (reprojection distance, relative depth error, consistent-source
+# count) lies within ~1e-6 of its threshold; with 0.4% depth noise far
+# fewer than 1e-3 of the pixels do. World points agree to ~1e-6 of their
+# coordinates (< 15 units) except where one source's test flips without
+# flipping the pixel's mask, which moves the averaged depth by up to the
+# noise: allow 1e-4 units, and points beyond it on 1e-3 of the common mask.
+FUSE_MASK_SHARE, FUSE_POINT_TOL, FUSE_POINT_SHARE = 1e-3, 1e-4, 1e-3
+# GT window of utils.make_synthetic_dtu (its grid on the plane): the oracle
+# cloud is evaluated inside it. Oracle points lie on the plane, so acc is the
+# in-plane distance to the 0.05-unit GT grid (0.019 on average for points
+# spread uniformly, 0.035 at most) and comp the distance from a GT point to
+# the cloud decimated at 0.2 units (0.07-0.1 on average). A CPU rehearsal of
+# this phase at 288x216 (the same point density inside the window) gave acc
+# 0.0208 and comp 0.0955; the limits are twice those. Off the plane, 99% of
+# the oracle points sat within 2.9e-6 (f32 rounding of coordinates ~10):
+# allow 1e-4.
+GT_HALF = (5.0, 4.0)
+ACC_LIMIT, COMP_LIMIT, OFF_PLANE_P99 = 0.042, 0.19, 1e-4
+
+
+def check_files(scan_dir: Path, views: int, height: int, width: int):
+    for v in range(views):
+        for rel in (f"depth_est/{v:08d}.pfm", f"confidence/{v:08d}.pfm",
+                    f"cams/{v:08d}_cam.txt", f"images/{v:08d}.png"):
+            if not (scan_dir / rel).is_file():
+                fail(f"{scan_dir / rel} not written")
+        depth, _ = read_pfm(scan_dir / "depth_est" / f"{v:08d}.pfm")
+        if depth.shape != (height, width) or not np.isfinite(depth).all():
+            fail(f"depth map {v}: {depth.shape}, finite "
+                 f"{np.isfinite(depth).all()}")
+
+
+def phase_scan_from_disk(work: Path, device, apply_ms: float,
+                         height=HEIGHT, width=WIDTH):
+    log(f"phase 6a: synthetic DTU eval scan, {SCAN_VIEWS} views at "
+        f"{width}x{height}, {LADDER}-hypothesis ladder, 10 sources per ref")
+    t0 = time.perf_counter()
+    root = generate(work / "dtu", num_scans=1, num_views=SCAN_VIEWS,
+                    height=height, width=width, num_depth=LADDER,
+                    tilt=SCAN_TILT, train_layout=False)
+    log(f"  written in {time.perf_counter() - t0:.2f} s")
+    log("phase 6b: cli infer from disk, bf16, batch 2")
+    ckpt = work / "cas_bf16.pt"
+    torch.save(CasMVSNet(BASE, NDEPTHS, compute_dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(0)
+                         ).state_dict(), ckpt)
+    out = work / "out"
+    reset_counts()
+    result = cli_infer.main([
+        "--ckpt", str(ckpt), "--out", str(out), "--device", str(device),
+        "model.compute_dtype=bfloat16", f"data.eval_root={root}",
+        f"data.eval_list={root / 'lists' / 'test.txt'}",
+        f"data.num_views={VIEWS}", f"data.num_depth={LADDER}",
+        f"data.max_h={height}", f"data.max_w={width}", "data.batch_size=2"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    batches = -(-SCAN_VIEWS // 2)
+    want = {"warp_variance": 3 * batches,
+            "warp_variance.vector": 3 * batches,
+            "conv3d_affine": 15 * batches, "conv3d_affine.mma": 15 * batches}
+    log(f"  launches {json.dumps(counts)} over {batches} batches")
+    if counts != want:
+        fail(f"cli infer launches {counts}, want {want}")
+    if result["maps"] != SCAN_VIEWS:
+        fail(f"cli infer wrote {result['maps']} maps")
+    check_files(out / "scan1", SCAN_VIEWS, height, width)
+    # Where the CLI's host time goes: one sample's load and one map's writes.
+    t0 = time.perf_counter()
+    sample = DTUEvalDataset(root, ["scan1"], num_views=VIEWS,
+                            num_depth=LADDER, max_h=height, max_w=width)[0]
+    load_ms = (time.perf_counter() - t0) * 1e3
+    depth, _ = read_pfm(out / "scan1" / "depth_est" / "00000000.pfm")
+    t0 = time.perf_counter()
+    write_depth_outputs(work / "writes", sample, depth, depth, LADDER)
+    pfm_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  host, one map: sample load {load_ms:.1f} ms ({VIEWS} PNG "
+        f"decodes + resize), 2 PFMs + cam {pfm_ms:.1f} ms, "
+        + png_levels(work, sample["imgs"][0]))
+    log(f"  {result['maps']} maps in {result['seconds']:.4f} s through the "
+        f"CLI (first batch's warm-up, PNG reads, inference, PFM/cam/PNG "
+        f"writes): {result['maps'] / result['seconds']:.4f} maps/s; apply "
+        f"only (phase 4, batch 1): {apply_ms:.2f} ms per map = "
+        f"{1e3 / apply_ms:.2f} maps/s")
+    return counts, root, out
+
+
+def png_levels(work: Path, image) -> str:
+    """The reference image's PNG write at io.png's zlib level and at the
+    other candidate, host ms and bytes."""
+    img8 = (np.clip(image, 0, 1) * 255).astype(np.uint8)
+    chosen, parts = png_codec.ZLIB_LEVEL, []
+    try:
+        for level in (1, 6):
+            png_codec.ZLIB_LEVEL = level
+            path = work / "writes" / f"ref_level{level}.png"
+            t0 = time.perf_counter()
+            png_codec.write_png(path, img8)
+            ms = (time.perf_counter() - t0) * 1e3
+            parts.append(f"PNG at zlib level {level}"
+                         f"{' (io.png)' if level == chosen else ''} "
+                         f"{ms:.1f} ms, {path.stat().st_size} bytes")
+    finally:
+        png_codec.ZLIB_LEVEL = chosen
+    return "; ".join(parts)
+
+
+def scan_pairs(views: int):
+    """Every other view as a source, ranked by index distance."""
+    return [(r, sorted((v for v in range(views) if v != r),
+                       key=lambda v: abs(v - r))) for r in range(views)]
+
+
+def phase_fusion_card_vs_cpu(device, height=216, width=288):
+    log(f"phase 6c: fuse_scene card vs CPU, {width}x{height}, {SCAN_VIEWS} "
+        f"views x {SCAN_VIEWS - 1} sources, depth noise 0.4%")
+    scene = make_plane_scene(num_views=SCAN_VIEWS, height=height,
+                             width=width, z0=10.0, tilt=SCAN_TILT)
+    rng = np.random.default_rng(0)
+    depths = (scene.depths * (1 + rng.normal(0, 0.004, scene.depths.shape))
+              ).astype(np.float32)
+    confs = rng.uniform(0, 1, depths.shape).astype(np.float32)
+    args = (depths, confs, scene.intrinsics, scene.extrinsics,
+            scan_pairs(SCAN_VIEWS),
+            FusionConfig(conf_thresh=0.3, num_consistent=3, pixel_thresh=1.0,
+                         depth_thresh=0.01))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mask, world = fuse_scene(*args, device=device)
+    peak = torch.cuda.max_memory_allocated()
+    cpu_mask, cpu_world = fuse_scene(*args, device="cpu")
+    stack = (SCAN_VIEWS - 1) * height * width * 4
+    log(f"  peak {peak / 2 ** 20:.2f} MiB allocated on the card (one (S, H, "
+        f"W) f32 stack: {stack / 2 ** 20:.2f} MiB)")
+    if peak < 3 * stack:
+        fail("card fusion did not hold its source stacks on the card")
+    both = mask & cpu_mask
+    diff = np.abs(world[both] - cpu_world[both]).max(axis=-1)
+    flips = (mask != cpu_mask).mean()
+    far = (diff > FUSE_POINT_TOL).mean()
+    log(f"  accepted {mask.mean():.4f} (card) / {cpu_mask.mean():.4f} (CPU) "
+        f"of pixels; masks differ on {(mask != cpu_mask).sum()} pixels = "
+        f"{flips:.2e} (limit {FUSE_MASK_SHARE}); points on the common mask: "
+        f"max |card-cpu| {diff.max():.3e}, beyond {FUSE_POINT_TOL} on "
+        f"{far:.2e} (limit {FUSE_POINT_SHARE})")
+    if not 0.05 < cpu_mask.mean() < 0.95:
+        fail("the thresholds do not bite on the noisy depths")
+    if (flips > FUSE_MASK_SHARE or far > FUSE_POINT_SHARE
+            or not np.isfinite(world[both]).all()):
+        fail("card fusion differs from CPU fusion")
+
+
+def write_oracle(root: Path, out: Path, height: int, width: int) -> None:
+    """The scan's analytic depths in the cli.infer layout, confidence 1,
+    with the scan's cams (depth maps at image size) and images."""
+    scene = make_plane_scene(num_views=SCAN_VIEWS, height=height,
+                             width=width, z0=10.0, seed=0, tilt=SCAN_TILT)
+    src, dst = root / "scan1", out / "scan1"
+    for v in range(SCAN_VIEWS):
+        write_pfm(dst / "depth_est" / f"{v:08d}.pfm", scene.depths[v])
+        write_pfm(dst / "confidence" / f"{v:08d}.pfm",
+                  np.ones_like(scene.depths[v]))
+        for rel in (f"cams/{v:08d}_cam.txt", f"images/{v:08d}.png"):
+            (dst / rel).parent.mkdir(parents=True, exist_ok=True)
+            (dst / rel).write_bytes((src / rel).read_bytes())
+
+
+def timed_cli_fuse(args):
+    """cli fuse over one scan, with its own fuse_scene call timed by CUDA
+    events (upload to readback) and its compaction + PLY write by the host
+    clock, through wrappers around the two calls for this run."""
+    times, fuse_fn, write_fn = {}, cli_fuse._fuse, cli_fuse.write_scan_cloud
+
+    def fuse(*a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = fuse_fn(*a)
+        end.record()
+        torch.cuda.synchronize()
+        times["fuse_ms"] = start.elapsed_time(end)
+        return result
+
+    def write(*a):
+        t0 = time.perf_counter()
+        path = write_fn(*a)
+        times["write_ms"] = (time.perf_counter() - t0) * 1e3
+        return path
+
+    cli_fuse._fuse, cli_fuse.write_scan_cloud = fuse, write
+    try:
+        t0 = time.perf_counter()
+        plys = cli_fuse.main(args)
+        times["cli_s"] = time.perf_counter() - t0
+    finally:
+        cli_fuse._fuse, cli_fuse.write_scan_cloud = fuse_fn, write_fn
+    return plys, times
+
+
+def phase_oracle(root: Path, work: Path, device, height=HEIGHT,
+                 width=WIDTH):
+    log(f"phase 6d: oracle maps at {width}x{height} through cli fuse and "
+        f"cli evaluate (thresholds of configs/cas_eval_dtu.yaml)")
+    out = work / "oracle"
+    write_oracle(root, out, height, width)
+    plys, times = timed_cli_fuse(["--out", str(out), "--device", str(device),
+                                  f"data.eval_root={root}", *EVAL_FUSION])
+    ply, pixels = plys[0], SCAN_VIEWS * height * width
+    cloud = read_ply(ply)
+    xyz = cloud["xyz"]
+    plane = 10.0 + SCAN_TILT[0] * xyz[:, 0] + SCAN_TILT[1] * xyz[:, 1]
+    off = np.abs(xyz[:, 2] - plane)
+    off_p99, off_max = np.quantile(off, [0.99, 1.0]) if len(xyz) else (
+        np.inf, np.inf)
+    log(f"  cli fuse {times['cli_s']:.3f} s host; in that run, fuse_scene "
+        f"{times['fuse_ms']:.4f} ms per scan ({SCAN_VIEWS} refs x "
+        f"{SCAN_VIEWS - 1} sources, upload to readback, CUDA events, one "
+        f"call) and compaction + PLY write {times['write_ms']:.2f} ms host; "
+        f"{len(xyz)} points ({len(xyz) / pixels:.4f} of the pixels), off "
+        f"the plane by {off_p99:.3e} (99th percentile) / {off_max:.3e} "
+        f"(max)")
+    # The fused depth averages round-trip depths, each read bilinearly from
+    # a source map (exact where the depth is linear in the pixel, zero-filled
+    # past the border) and admitted within depth_thresh (1%) of the ref
+    # depth, so a point may sit up to 1% of its depth (< 0.13) off the plane.
+    if (len(xyz) < 0.5 * pixels or not off_max < 0.13
+            or not off_p99 < OFF_PLANE_P99 or "rgb" not in cloud):
+        fail("oracle cloud too small, off the plane or without colour")
+    keep = (np.abs(xyz[:, 0]) <= GT_HALF[0]) & (np.abs(xyz[:, 1])
+                                                <= GT_HALF[1])
+    write_ply(ply.parent / "fused_crop.ply", xyz[keep],
+              rgb=cloud["rgb"][keep])
+    t0 = time.perf_counter()
+    report = cli_evaluate.main(["--out", str(out), "--gt", str(root),
+                                "--ply-name", "fused_crop.ply"])
+    eval_s = time.perf_counter() - t0
+    if report is None:
+        fail("cli evaluate scored no scan")
+    acc = report["aggregate"]["mean_acc"]
+    comp = report["aggregate"]["mean_comp"]
+    log(f"  evaluated {int(keep.sum())} points inside the GT window "
+        f"|x| <= {GT_HALF[0]}, |y| <= {GT_HALF[1]}: acc {acc:.6f}, comp "
+        f"{comp:.6f} (limits {ACC_LIMIT}, {COMP_LIMIT}), cli evaluate "
+        f"{eval_s:.3f} s host")
+    if not (acc < ACC_LIMIT and comp < COMP_LIMIT):
+        fail("oracle acc / comp over their limits")
+
+
+def phase_model_fusion(root: Path, out: Path, device):
+    log("phase 6e: cli fuse over the model's maps of phase 6b "
+        "(thresholds of configs/cas_eval_dtu.yaml)")
+    ply = cli_fuse.main(["--out", str(out), "--device", str(device),
+                         f"data.eval_root={root}", *EVAL_FUSION])[0]
+    cloud = read_ply(ply)
+    n = len(cloud["xyz"])
+    if (cloud["xyz"].shape != (n, 3) or not np.isfinite(cloud["xyz"]).all()
+            or cloud["rgb"].shape != (n, 3)):
+        fail(f"{ply}: not a valid coloured cloud")
+    log(f"  {ply.name}: {n} points, finite, coloured")
+
+
+def phase_user_path(device, apply_ms: float):
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        counts, root, out = phase_scan_from_disk(work, device, apply_ms)
+        phase_fusion_card_vs_cpu(device)
+        phase_oracle(root, work, device)
+        phase_model_fusion(root, out, device)
+    return counts
+
+
+def kernel_entry(name, source, replaces, rows, launches, cli_launches,
+                 library):
+    """Times and bounds are sums over one bf16 map's launches (phase 2);
+    launches are per map (phase 4), cli_launches over phase 6b's 11 maps."""
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
+        "cli_launches": cli_launches,
         "max_abs_err": max(r["err"] for r in rows),
         "ms": sum(r["ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -573,8 +889,6 @@ def main() -> int:
     log(smi.stdout.strip())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -586,16 +900,19 @@ def main() -> int:
     warp_rows = phase_warp(scene, device)
     conv_rows = phase_conv(device)
     phase_model_vs_cpu(device)
-    launches = phase_full_width(scene, device)
+    launches, apply_ms = phase_full_width(scene, device)
     phase_batched(scene, device)
+    cli_launches = phase_user_path(device, apply_ms)
 
     kernels = [
         kernel_entry("warp_variance", "mvs_tpu_torch/csrc/warp_variance.cu",
                      "mvs_tpu/ops/warp_pallas.py:288", warp_rows,
-                     launches["warp_variance"], library=False),
+                     launches["warp_variance"],
+                     cli_launches["warp_variance"], library=False),
         kernel_entry("conv3d_affine", "mvs_tpu_torch/csrc/conv3d_affine.cu",
                      "mvs_tpu/ops/conv3d_pallas.py:259", conv_rows,
-                     launches["conv3d_affine"], library=True),
+                     launches["conv3d_affine"],
+                     cli_launches["conv3d_affine"], library=True),
     ]
     log(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))

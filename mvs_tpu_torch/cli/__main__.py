@@ -1,0 +1,33 @@
+"""CLI dispatcher: python -m mvs_tpu_torch.cli <infer|fuse|evaluate> ...
+
+The JAX package's `train` and `profile` commands are not ported yet; they
+raise and name the ROADMAP.md item (queue 1) that ports them.
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+
+_COMMANDS = ("infer", "fuse", "evaluate")
+_NOT_PORTED = {"train": "item 8, CasMVSNet training",
+               "profile": "item 13, the torch.profiler table"}
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(f"usage: python -m mvs_tpu_torch.cli "
+              f"{{{'|'.join(_COMMANDS)}}} [args...]")
+        raise SystemExit(0 if argv else 1)
+    cmd, rest = argv[0], argv[1:]
+    if cmd in _NOT_PORTED:
+        raise NotImplementedError(f"{cmd!r} is not ported yet (ROADMAP.md "
+                                  f"queue 1, {_NOT_PORTED[cmd]})")
+    if cmd not in _COMMANDS:
+        raise SystemExit(f"unknown command {cmd!r}; options: {_COMMANDS}")
+    importlib.import_module(f"mvs_tpu_torch.cli.{cmd}").main(rest)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,13 @@
-"""Batched depth-map inference (counterpart of mvs_tpu.cli.infer's
-make_apply_fn / run_batched_inference and its output writer).
+"""Depth-map inference over a DTU eval split (counterpart of
+mvs_tpu.cli.infer).
+
+    python -m mvs_tpu_torch.cli infer --ckpt weights.pt --out outputs/ \
+        [--config cfg.yaml] [--device cpu] [section.key=value ...]
+
+`--ckpt` is the port's state_dict (.pt) or the JAX variables exported to
+.npz (convert.load_weights). Besides the depth outputs, each reference image
+is written as ``<scan>/images/<ref>.png`` (lossless, no PIL needed; the JAX
+CLI writes JPEG).
 
 Samples are grouped into shape buckets and run ``batch_size`` reference
 views per call; a ragged tail is padded by repeating its last sample and the
@@ -14,19 +22,26 @@ ref_view, depth_min, depth_interval, depth_max for the writer.
 
 from __future__ import annotations
 
+import argparse
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from mvs_tpu_torch.convert import load_weights
 from mvs_tpu_torch.geometry.projection import (compose_projection,
                                                scale_intrinsics)
 from mvs_tpu_torch.io.cams import CameraParams, write_cam_file
+from mvs_tpu_torch.io.dtu import DTUEvalDataset
 from mvs_tpu_torch.io.pfm import write_pfm
-from mvs_tpu_torch.utils.platform import resolve_device
+from mvs_tpu_torch.io.png import write_png
+from mvs_tpu_torch.models.registry import build_model
+from mvs_tpu_torch.utils.config import load_config
+from mvs_tpu_torch.utils.platform import full_f32, resolve_device
 
-__all__ = ["make_apply_fn", "stack_model_inputs", "run_batched_inference",
-           "write_depth_outputs"]
+__all__ = ["main", "make_apply_fn", "stack_model_inputs",
+           "run_batched_inference", "write_depth_outputs"]
 
 
 def stack_model_inputs(samples, device) -> tuple:
@@ -46,16 +61,18 @@ def make_apply_fn(model, device=None):
     """The inference program: (imgs, proj, depth_values) -> (depth, conf).
 
     Moves `model` to `device` (the CUDA card unless the caller passes
-    device='cpu') and runs it in eval mode without autograd.
+    device='cpu') and runs it in eval mode without autograd. Its float32
+    convolutions run in float32, not TF32 (utils.platform.full_f32).
     """
     device = resolve_device(device)
     model.to(device).eval()
 
     @torch.inference_mode()
     def apply(imgs, proj_matrices, depth_values):
-        out = model(imgs.to(device),
-                    {k: p.to(device) for k, p in proj_matrices.items()},
-                    depth_values.to(device))
+        with full_f32():
+            out = model(imgs.to(device),
+                        {k: p.to(device) for k, p in proj_matrices.items()},
+                        depth_values.to(device))
         return out["depth"], out["photometric_confidence"]
 
     return apply
@@ -105,3 +122,59 @@ def write_depth_outputs(out_root, sample, depth: np.ndarray, conf: np.ndarray,
         num_depth=num_depth, depth_max=float(sample["depth_max"]),
     )
     write_cam_file(scan_dir / "cams" / f"{ref:08d}_cam.txt", cam)
+
+
+def _eval_scans(cfg) -> list[str]:
+    """The scans of data.eval_list, else every directory of data.eval_root."""
+    if cfg.data.eval_list:
+        with open(cfg.data.eval_list) as f:
+            return [line.strip() for line in f if line.strip()]
+    return sorted(p.name for p in Path(cfg.data.eval_root).iterdir()
+                  if p.is_dir())
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns {"maps": n, "seconds": s}, the count and the
+    host time of the inference loop (disk reads and writes included)."""
+    p = argparse.ArgumentParser(prog="mvs_tpu_torch infer")
+    p.add_argument("--config", default=None)
+    p.add_argument("--ckpt", required=True,
+                   help="state_dict .pt, or JAX variables exported to .npz")
+    p.add_argument("--out", default="outputs")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the first CUDA card)")
+    p.add_argument("overrides", nargs="*")
+    args = p.parse_args(argv)
+    cfg = load_config(args.config, args.overrides)
+    device = resolve_device(args.device)
+
+    model = build_model(cfg)
+    model.load_state_dict(load_weights(args.ckpt))
+    ds = DTUEvalDataset(
+        cfg.data.eval_root, _eval_scans(cfg), num_views=cfg.data.num_views,
+        num_depth=cfg.data.num_depth, interval_scale=cfg.data.interval_scale,
+        max_h=cfg.data.max_h, max_w=cfg.data.max_w, align=cfg.data.align)
+
+    out_root = Path(args.out)
+    total = len(ds)
+    batch_size = max(1, cfg.data.batch_size)
+    t0 = time.perf_counter()
+    done = 0
+    for sample, depth, conf in run_batched_inference(
+            model, (ds[i] for i in range(total)), batch_size, device):
+        write_depth_outputs(out_root, sample, depth, conf, cfg.data.num_depth)
+        img8 = (np.clip(sample["imgs"][0], 0, 1) * 255).astype(np.uint8)
+        ref = sample["ref_view"]
+        write_png(out_root / sample["scan"] / "images" / f"{ref:08d}.png",
+                  img8)
+        done += 1
+        print(f"[{done}/{total}] {sample['scan']} view {ref}: "
+              f"depth {depth.shape} conf mean {conf.mean():.3f}")
+    dt = time.perf_counter() - t0
+    print(f"inference: {total} depth maps in {dt:.1f}s "
+          f"({total / dt:.2f} maps/s, batch {batch_size})")
+    return {"maps": total, "seconds": dt}
+
+
+if __name__ == "__main__":
+    main()

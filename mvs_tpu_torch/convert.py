@@ -13,14 +13,21 @@ on the way:
   * BatchNorm statistics are stored debiased: acc / (1 - 0.9**count), and
     identity statistics (mean 0, var 1) when count == 0, as the JAX modules
     read them in eval mode (mvs_tpu.nn.blocks.Norm).
+
+``load_flax_npz`` reads the JAX variables from an ``.npz`` whose keys are
+'/'-joined Flax paths (``params/...``, ``batch_stats/...``), the form a JAX
+checkpoint is exported to (README.md); ``load_weights`` reads either that
+or the port's own ``torch.save``d state_dict (``.pt``).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict"]
+__all__ = ["flax_to_state_dict", "load_flax_npz", "load_weights"]
 
 _MOMENTUM = np.float32(0.9)
 
@@ -63,3 +70,23 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
         state[".".join(scope + ("var",))] = var
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
             for k, v in state.items()}
+
+
+def load_flax_npz(path) -> dict:
+    """An .npz of '/'-joined Flax paths -> the nested variables dict."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *scopes, leaf = key.split("/")
+            node = tree
+            for scope in scopes:
+                node = node.setdefault(scope, {})
+            node[leaf] = data[key]
+    return tree
+
+
+def load_weights(path) -> dict[str, torch.Tensor]:
+    """A state_dict from a JAX-variables .npz or a torch .pt file."""
+    if Path(path).suffix == ".npz":
+        return flax_to_state_dict(load_flax_npz(path))
+    return torch.load(path, map_location="cpu", weights_only=True)

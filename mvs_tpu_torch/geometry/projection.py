@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["compose_projection", "scale_intrinsics", "relative_projection"]
+__all__ = ["compose_projection", "scale_intrinsics", "relative_projection",
+           "invert_rigid"]
 
 
 def compose_projection(intrinsics: torch.Tensor,
@@ -24,6 +25,13 @@ def scale_intrinsics(intrinsics: torch.Tensor, factor) -> torch.Tensor:
     scale = torch.tensor([[factor], [factor], [1.0]], dtype=intrinsics.dtype,
                          device=intrinsics.device)
     return intrinsics * scale
+
+
+def invert_rigid(extrinsics: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a rigid 4x4 [R|t; 0 1] transform."""
+    r_t = extrinsics[..., :3, :3].transpose(-1, -2)
+    top = torch.cat([r_t, -r_t @ extrinsics[..., :3, 3:4]], dim=-1)
+    return torch.cat([top, extrinsics[..., 3:4, :]], dim=-2)
 
 
 def relative_projection(src_proj: torch.Tensor,

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from mvs_tpu_torch.ops import _build
+from mvs_tpu_torch.utils.platform import full_f32
 
 __all__ = ["conv3d_affine", "conv3d_affine_plain", "pack_conv3d_taps"]
 
@@ -90,10 +91,11 @@ def conv3d_affine_plain(x: torch.Tensor, weight: torch.Tensor,
                         scale: torch.Tensor, shift: torch.Tensor,
                         relu: bool) -> torch.Tensor:
     """Plain PyTorch version: x (B, D, H, W, Cin), weight (Cout, Cin, 3, 3, 3)
-    -> (B, D, H, W, Cout) in x's dtype."""
+    -> (B, D, H, W, Cout) in x's dtype, with float32 sums (not TF32)."""
     w = weight.to(x.dtype).float()
     # NDHWC viewed as NCDHW is a channels_last_3d tensor: no copy.
-    y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), w, padding=1)
+    with full_f32():
+        y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), w, padding=1)
     y = y * scale.float()[:, None, None, None] \
         + shift.float()[:, None, None, None]
     if relu:

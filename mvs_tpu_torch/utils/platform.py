@@ -7,9 +7,11 @@ for the card cannot quietly measure the host instead.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "full_f32"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,3 +25,20 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run float32 convolutions and matrix products at float32 precision.
+
+    On the card, cuDNN runs a float32 convolution in TF32 (about three
+    decimal digits) unless told otherwise; the port's float32 path computes
+    in float32, as on the CPU. Both flags are set and restored on exit.
+    """
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

@@ -57,6 +57,24 @@ def test_no_jax_or_mvs_tpu_import(path):
                 f"{path.name}:{node.lineno} imports {name}")
 
 
+def test_every_module_imports_without_pil_cv2_or_yaml():
+    """The card's machine may lack PIL, cv2 and PyYAML: the port imports
+    them only when a JPEG or a YAML config is read."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "for name in ('PIL', 'cv2', 'yaml'):\n"
+        "    sys.modules[name] = None\n"
+        "import mvs_tpu_torch\n"
+        "for m in pkgutil.walk_packages(mvs_tpu_torch.__path__, "
+        "'mvs_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from mvs_tpu_torch.utils.config import load_config\n"
+        "assert load_config(None, ['data.batch_size=2']).data.batch_size == 2\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_every_module_imports_without_cuda():
     names = [m.name for m in pkgutil.walk_packages(mvs_tpu_torch.__path__,
                                                    "mvs_tpu_torch.")]
