@@ -1,5 +1,6 @@
-"""Drive the PyTorch port (mvs_tpu_torch) of CasMVSNet inference on one
-CUDA card, holding each hand-written kernel against its plain version.
+"""Drive the PyTorch port (mvs_tpu_torch) of CasMVSNet inference and
+training on one CUDA card, holding each hand-written kernel against its
+plain version.
 
     python3 chip_smoke.py
 
@@ -36,8 +37,26 @@ Phases, in order; any failure exits non-zero:
          host ms, evaluation seconds, acc / comp within limits;
      (e) `fuse` over the model's maps of (b) with configs/cas_eval_dtu.yaml's
          thresholds: a valid PLY;
-then one JSON line listing the kernels (launches: per map, phase 4's run;
-cli_launches: phase 6b's run), and last
+  7. CasMVSNet training at the shapes of the JAX training envelope
+     (bench.py --train: 640x512, 5 views, 48/32/8, bf16, batch 4, Adam):
+     (a) the warp's backward kernel against autograd through the plain
+         version at the three stage shapes, f32 and bf16 (timed in bf16:
+         kernel, plain, bound);
+     (b) one train step card against CPU in f32 at phase 3's size: loss,
+         every parameter's gradient, the new BatchNorm statistics and
+         count, the parameters after one Adam step;
+     (c) full width: launches per step (exact: 3 warp forward, 3 warp
+         backward, 0 conv3d_affine), 8 timed steps (ms per step, samples/s,
+         peak memory), forward ms by layer kind, forward / backward /
+         optimizer ms, device ms by kernel family (torch.profiler), then 30
+         steps on the same batch: finite losses that fall;
+     (d) `train` (cli.train.main) on a synthetic DTU training layout
+         (images 640x512, depths 160x128) for 2 epochs with a val split and
+         a checkpoint per epoch, with the launch counts of that run; then
+         `infer --step best` and `--step latest` from its checkpoints;
+then one JSON line listing the kernels (launches: per map, phase 4's run,
+and per train step for the backward kernel, phase 7c; cli_launches: phase
+6b's run and 7d's), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -57,17 +76,22 @@ import torch.nn.functional as F
 from mvs_tpu_torch.cli import evaluate as cli_evaluate
 from mvs_tpu_torch.cli import fuse as cli_fuse
 from mvs_tpu_torch.cli import infer as cli_infer
+from mvs_tpu_torch.cli import train as cli_train
 from mvs_tpu_torch.cli.infer import (make_apply_fn, run_batched_inference,
                                      stack_model_inputs, write_depth_outputs)
 from mvs_tpu_torch.fusion import FusionConfig, fuse_scene
 from mvs_tpu_torch.io import png as png_codec
 from mvs_tpu_torch.io import read_pfm, read_ply, write_pfm, write_ply
-from mvs_tpu_torch.io.dtu import DTUEvalDataset
+from mvs_tpu_torch.io.dtu import DTUEvalDataset, collate_cascade
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
 from mvs_tpu_torch.ops import _build
 from mvs_tpu_torch.ops.conv3d import conv3d_affine, conv3d_affine_plain
-from mvs_tpu_torch.ops.warp_variance import (fused_variance_volume,
-                                             fused_variance_volume_plain)
+from mvs_tpu_torch.ops.warp_variance import (
+    fused_variance_volume, fused_variance_volume_grad,
+    fused_variance_volume_grad_plain, fused_variance_volume_plain)
+from mvs_tpu_torch.train.optim import OptaxChain
+from mvs_tpu_torch.train.state import make_train_step
+from mvs_tpu_torch.train.tasks import CascadeTask, batch_to_device
 from mvs_tpu_torch.utils.make_synthetic_dtu import generate
 from mvs_tpu_torch.utils.platform import resolve_device
 from mvs_tpu_torch.utils.synthetic import make_plane_scene
@@ -92,9 +116,15 @@ STAGES = ((1, 4, 4 * BASE), (2, 2, 2 * BASE), (3, 1, BASE))
 # f32 conv: 27*Cin products summed in another order.
 # bf16: both sum in f32 and round once to bf16; one rounding step near the
 # maximum is up to 2^-7 of it, allow two.
+# Warp backward (7a), f32: the recomputed samples and means round as the
+# forward's; dref sums D terms in another order and dsrc sums its scattered
+# contributions with atomics in no fixed order, a few f32 ulps of the
+# largest partial sums. bf16: both sum in f32 and round once.
 TOL = {("warp", torch.float32): 1e-4, ("conv", torch.float32): 1e-4,
+       ("warp_grad", torch.float32): 1e-4,
        ("warp", torch.bfloat16): 2.0 ** -6,
-       ("conv", torch.bfloat16): 2.0 ** -6}
+       ("conv", torch.bfloat16): 2.0 ** -6,
+       ("warp_grad", torch.bfloat16): 2.0 ** -6}
 # Whole model, card against CPU: each stage's pre-softmax score volume may
 # differ by this fraction of its spread (max - min on the CPU). Images
 # perturbed by 1e-7 of their size, about one f32 rounding, move the scores of
@@ -116,6 +146,7 @@ DEPTH_TOL = {torch.float32: (0.05, 5e-3), torch.bfloat16: (0.1, 1e-2)}
 def reset_counts() -> None:
     fused_variance_volume.launches = 0
     fused_variance_volume.vector_launches = 0
+    fused_variance_volume_grad.launches = 0
     conv3d_affine.launches = 0
     conv3d_affine.mma_launches = 0
 
@@ -123,6 +154,7 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     return {"warp_variance": fused_variance_volume.launches,
             "warp_variance.vector": fused_variance_volume.vector_launches,
+            "warp_variance_grad": fused_variance_volume_grad.launches,
             "conv3d_affine": conv3d_affine.launches,
             "conv3d_affine.mma": conv3d_affine.mma_launches}
 
@@ -180,9 +212,10 @@ def stage_geometry(scene, scale: int, device, batch: int = 1):
                         device=device)[None].repeat(batch, 1, 1, 1)
 
 
-def warp_inputs(scene, stage, scale, c, d, dtype, device, batch=1, seed=0):
+def warp_inputs(scene, stage, scale, c, d, dtype, device, batch=1, seed=0,
+                height=HEIGHT, width=WIDTH):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    h, w = HEIGHT // scale, WIDTH // scale
+    h, w = height // scale, width // scale
     feats = torch.randn((batch, VIEWS, h, w, c), generator=g).to(device,
                                                                  dtype)
     depth = torch.tensor(scene.depths[0][::scale, ::scale], device=device)
@@ -464,7 +497,7 @@ def phase_full_width(scene, device):
         log(f"  {str(dtype)[6:]}: {ms:.2f} ms per depth map, peak "
             f"{peak:.3f} GiB allocated, launches {json.dumps(counts)}")
         want = {"warp_variance": 3, "warp_variance.vector": 3,
-                "conv3d_affine": 15,
+                "warp_variance_grad": 0, "conv3d_affine": 15,
                 "conv3d_affine.mma": 15 if dtype is torch.bfloat16 else 0}
         if counts != want:
             fail(f"main path launches {counts}, want {want}")
@@ -487,23 +520,28 @@ def phase_full_width(scene, device):
     return launches, bf16_ms
 
 
-def profile_run(apply_fn, args, top: int = 12) -> None:
-    """One bf16 map under torch.profiler: device ms by kernel (top `top`),
-    and the device's idle share, 1 - (union of device activity) / (first
-    device start to last device end)."""
+def device_spans(fn) -> list:
+    """(start, end, name) of every device op of one call of fn, from
+    torch.profiler, in start order (microseconds)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        apply_fn(*args)
+        fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def log_spans(spans, top: int = 12) -> dict:
+    """Log the device's busy time and idle share, 1 - (union of device
+    activity) / (first device start to last device end), and the `top`
+    kernels by device ms; return device ms by name."""
     if not spans:
         log("  profiler: no device time recorded")
-        return
+        return {}
     by_name, busy, end = {}, 0.0, spans[0][0]
     for t0, t1, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3
@@ -514,6 +552,13 @@ def profile_run(apply_fn, args, top: int = 12) -> None:
         f"busy {busy / 1e3:.4f} ms, idle share {1 - busy / window:.4f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"    {ms:9.4f} ms  {name[:110]}")
+    return by_name
+
+
+def profile_run(apply_fn, args, top: int = 12) -> None:
+    """One bf16 map under torch.profiler: device ms by kernel (top `top`),
+    and the device's idle share."""
+    log_spans(device_spans(lambda: apply_fn(*args)), top)
 
 
 def layer_breakdown(model, apply_fn, args) -> dict:
@@ -647,7 +692,7 @@ def phase_scan_from_disk(work: Path, device, apply_ms: float,
     counts = read_counts()
     batches = -(-SCAN_VIEWS // 2)
     want = {"warp_variance": 3 * batches,
-            "warp_variance.vector": 3 * batches,
+            "warp_variance.vector": 3 * batches, "warp_variance_grad": 0,
             "conv3d_affine": 15 * batches, "conv3d_affine.mma": 15 * batches}
     log(f"  launches {json.dumps(counts)} over {batches} batches")
     if counts != want:
@@ -859,10 +904,362 @@ def phase_user_path(device, apply_ms: float):
     return counts
 
 
+# Phase 7. The JAX training envelope (bench.py --train): 640x512, 5 views,
+# 48/32/8 hypotheses over the 192-hypothesis ladder, bf16, batch 4, Adam.
+TRAIN_H, TRAIN_W, TRAIN_BATCH = 512, 640, 4
+TRAIN_STEPS, CURVE_STEPS = 8, 30
+TRAIN_LAUNCHES = {"warp_variance": 3, "warp_variance.vector": 3,
+                  "warp_variance_grad": 3, "conv3d_affine": 0,
+                  "conv3d_affine.mma": 0}
+# 7b, card against CPU, f32, TF32 off on both. The forward sums in another
+# order (cuDNN's convs, the kernels, the reductions of the batch moments):
+# loss to 1e-5 relative, the new statistics to 1e-4 of each vector's
+# largest magnitude (on an H100 80GB HBM3 one channel's batch mean, near
+# 0, differed by 1.1e-3 of its own value). The gradient of a BatchNorm
+# network amplifies such differences; a CPU run on images moved by one f32
+# rounding (x * (1 +- 2^-24)) measures that amplification for each
+# parameter. A gradient passes when it is within 1e-3 of its largest
+# magnitude, or within 30x what that one rounding moved it, and points the
+# same way (cosine > 0.999; on the H100 a gradient that one rounding moved
+# by 0.5% of its largest magnitude had cosine 0.99985). The score convs'
+# biases are left out: the softmax over depth is invariant to a constant
+# added to every score, so their exact gradient is 0 and both sides hold
+# rounding residue.
+STEP_LOSS_RTOL, STEP_STATS_RTOL = 1e-5, 1e-4
+GRAD_TOL, GRAD_NUDGE_FACTOR, GRAD_COSINE = 1e-3, 30.0, 0.999
+
+
+def warp_grad_bound(b, v, d, h, w, c, itemsize):
+    """Least time of the backward: G, ref, src and the hypotheses read once,
+    dsrc read-modify-written once in f32, dref written once; the least f32
+    work: per (pixel, view) the rotation (12), per (depth, pixel, view) the
+    coordinates and corner weights (16), per (channel, view) the blend (7),
+    the mean's sum (1), g (f - m) (2) and four weighted scatter-adds (8),
+    per channel the mean, g and the dref term (6)."""
+    nbytes = (b * d * h * w * c * itemsize + b * (1 + v) * h * w * c * itemsize
+              + b * d * h * w * 4 + b * v * 12 * 4 + 2 * b * v * h * w * c * 4
+              + b * h * w * c * itemsize)
+    ops = b * h * w * v * 12 + b * d * h * w * (v * (16 + 18 * c) + 6 * c)
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / PEAK_FLOPS[torch.float32] * 1e3)
+
+
+def phase_warp_grad(device):
+    log(f"phase 7a: warp_variance backward kernel vs plain autograd, batch "
+        f"{TRAIN_BATCH}, {VIEWS - 1} sources, {TRAIN_W}x{TRAIN_H} stages")
+    scene = make_plane_scene(num_views=VIEWS, height=TRAIN_H, width=TRAIN_W,
+                             z0=10.0)
+    rows = []
+    for stage, scale, c in STAGES:
+        d, h, w = NDEPTHS[stage - 1], TRAIN_H // scale, TRAIN_W // scale
+        for dtype in (torch.float32, torch.bfloat16):
+            args = warp_inputs(scene, stage, scale, c, d, dtype, device,
+                               batch=TRAIN_BATCH, seed=stage,
+                               height=TRAIN_H, width=TRAIN_W)
+            g = torch.Generator().manual_seed(10 + stage)
+            grad = torch.randn((TRAIN_BATCH, d, h, w, c), generator=g).to(
+                device, dtype)
+            what = (f"stage{stage} B={TRAIN_BATCH} D={d} {h}x{w} C={c} "
+                    f"{str(dtype)[6:]}")
+            n = fused_variance_volume_grad.launches
+            got = fused_variance_volume_grad(grad, *args)
+            if fused_variance_volume_grad.launches != n + 1:
+                fail(f"{what}: backward kernel not launched")
+            want = fused_variance_volume_grad_plain(grad, *args)
+            err = max(compare("warp_grad", a, b, f"{what} {name}")
+                      for a, b, name in zip(got, want, ("dref", "dsrc")))
+            if dtype is torch.bfloat16:  # the training path's type: time it
+                ms = cuda_ms(lambda: fused_variance_volume_grad(grad, *args))
+                plain_ms = cuda_ms(
+                    lambda: fused_variance_volume_grad_plain(grad, *args),
+                    iters=3, warmup=1)
+                by, ops = warp_grad_bound(TRAIN_BATCH, VIEWS - 1, d, h, w, c,
+                                          2)
+                log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{max(by, ops):.4f} ms (bytes {by:.4f}, ops {ops:.4f})")
+                rows.append(dict(err=err, ms=ms, plain_ms=plain_ms,
+                                 bytes_ms=by, ops_ms=ops))
+    return rows
+
+
+def train_batch(height, width, batch, seed=0):
+    """A collated cascade batch of `batch` plane scenes (tilted, seeds
+    seed..), as the DTU training split gives it: intrinsics and GT depth at
+    1/4 of the images, every pixel valid."""
+    samples = []
+    for i in range(batch):
+        scene = make_plane_scene(num_views=VIEWS, height=height, width=width,
+                                 z0=10.0, seed=seed + i, tilt=(0.05, 0.02))
+        intr = scene.intrinsics.copy()
+        intr[:, :2] /= 4.0
+        gt = np.ascontiguousarray(scene.depths[0][::4, ::4], np.float32)
+        samples.append(dict(
+            imgs=scene.images, intrinsics=intr, extrinsics=scene.extrinsics,
+            depth_values=np.linspace(8.0, 12.0, LADDER, dtype=np.float32),
+            depth_gt=gt, mask=np.ones_like(gt)))
+    return collate_cascade(samples)
+
+
+class RecordingChain(OptaxChain):
+    """The optimizer chain, keeping the gradients of its last step."""
+
+    def step(self, grads=None):
+        self.grads = [None if g is None else g.detach().clone()
+                      for g in grads]
+        return super().step(grads)
+
+
+def train_once(state, batch, device):
+    """One f32 train step from `state` on `device`: (metrics, gradients,
+    state_dict after), all on the CPU."""
+    model = CasMVSNet(BASE, NDEPTHS)
+    model.load_state_dict(state)
+    model.to(device)
+    opt = RecordingChain(model.parameters(), "adam", lambda step: 1e-3)
+    metrics = make_train_step(CascadeTask(model), opt)(
+        batch_to_device(batch, device))
+    names = [k for k, _ in model.named_parameters()]
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: g.cpu() for k, g in zip(names, opt.grads)},
+            {k: v.cpu() for k, v in model.state_dict().items()})
+
+
+def phase_train_card_vs_cpu(device):
+    log("phase 7b: one CasMVSNet train step, card vs CPU, 128x160, batch 2, "
+        "f32, Adam 1e-3")
+    state = CasMVSNet(BASE, NDEPTHS, generator=torch.Generator().manual_seed(
+        7)).state_dict()
+    batch = train_batch(128, 160, 2)
+    cpu = train_once(state, batch, "cpu")
+    card = train_once(state, batch, device)
+    sign = np.random.default_rng(0).choice([-1.0, 1.0],
+                                           size=batch["imgs"].shape)
+    nudged_batch = dict(batch, imgs=(batch["imgs"] * (1 + sign * 2.0 ** -24)
+                                     ).astype(np.float32))
+    nudged = train_once(state, nudged_batch, "cpu")
+    for k in ("loss", "last_stage_loss", "abs_depth_error"):
+        rel = abs(card[0][k] - cpu[0][k]) / abs(cpu[0][k])
+        log(f"  {k}: card {card[0][k]:.8f} CPU {cpu[0][k]:.8f} (rel "
+            f"{rel:.2e}, tol {STEP_LOSS_RTOL})")
+        if not rel <= STEP_LOSS_RTOL:
+            fail(f"train step {k} differs card vs CPU")
+    worst, n_tol, n_nudge = [], 0, 0
+    for k, g_cpu in cpu[1].items():
+        if k.endswith("FoldedConv_0.bias") and k.startswith("cost_reg"):
+            continue  # exact gradient 0 (see GRAD_TOL's note)
+        g_card = card[1][k]
+        scale = g_cpu.abs().max().item()
+        err = (g_card - g_cpu).abs().max().item()
+        moved = (nudged[1][k] - g_cpu).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(
+            g_card.flatten().double(), g_cpu.flatten().double(), dim=0).item()
+        ok_tol = err <= GRAD_TOL * scale
+        ok_nudge = err <= GRAD_NUDGE_FACTOR * moved
+        n_tol += ok_tol
+        n_nudge += ok_nudge and not ok_tol
+        worst.append((err / scale, k, moved / scale, cos))
+        if not (ok_tol or ok_nudge) or not cos > GRAD_COSINE:
+            fail(f"gradient of {k}: card vs CPU {err:.3e} of {scale:.3e}, "
+                 f"one rounding moved it {moved:.3e}, cosine {cos:.8f}")
+    worst.sort(reverse=True)
+    log(f"  gradients: {len(worst)} parameters, {n_tol} within "
+        f"{GRAD_TOL} of their largest magnitude, {n_nudge} more within "
+        f"{GRAD_NUDGE_FACTOR}x what one rounding of the images moved them; "
+        f"worst: " + "; ".join(f"{k} {e:.2e} (rounding {m:.2e}, cosine "
+                               f"{c:.8f})" for e, k, m, c in worst[:3]))
+    # Each statistic vector against its largest magnitude: a channel's batch
+    # mean near 0 carries the rounding of the whole vector's sums.
+    stats = [k for k in cpu[2] if k.rsplit(".", 1)[-1] in ("mean", "var",
+                                                          "count")]
+    err = max(((card[2][k] - cpu[2][k]).abs().max()
+               / cpu[2][k].abs().max()).item() for k in stats)
+    counts = {float(card[2][k]) for k in stats if k.endswith("count")}
+    log(f"  {len(stats)} statistics: card vs CPU within {err:.2e} of each "
+        f"vector's largest magnitude (tol {STEP_STATS_RTOL}); counts "
+        f"{sorted(counts)}")
+    if not err <= STEP_STATS_RTOL or counts != {1.0}:
+        fail("BatchNorm statistics differ card vs CPU")
+    # Adam's first step is lr * g / (|g| + eps), eps = 1e-8: equal to 1e-6
+    # where the gradient's sign is certain (|g| over twice the tensor's
+    # largest card vs CPU difference) and |g| > 1e-5 (so that eps moves it
+    # by under lr * eps / |g| = 1e-6), at most 2 lr apart elsewhere.
+    for k, g_cpu in cpu[1].items():
+        certain = ((g_cpu.abs() > 2 * (card[1][k] - g_cpu).abs().max())
+                   & (g_cpu.abs() > 1e-5))
+        diff = (card[2][k] - cpu[2][k]).abs()
+        worst = diff[certain].max() if certain.any() else diff.new_zeros(())
+        if worst > 1e-6 or diff.max() > 2e-3 * (1 + 1e-5):
+            i = int(torch.argmax(torch.where(certain, diff, 0.0)))
+            fail(f"{k} after the Adam step differs card vs CPU: "
+                 f"{worst.item():.3e} where |g| = "
+                 f"{g_cpu.flatten()[i].item():.3e}, largest {diff.max():.3e}")
+    log("  parameters after one Adam step agree (within 1e-6 where the "
+        "gradient's sign is certain)")
+
+
+def step_split(task, opt, batch) -> dict:
+    """Device ms of one make_train_step step's forward (loss), backward and
+    optimizer update, from CUDA events recorded at its marks."""
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    make_train_step(task, opt, mark)(batch)
+    torch.cuda.synchronize()
+    names = list(events)
+    return {b: round(events[a].elapsed_time(events[b]), 4)
+            for a, b in zip(names, names[1:])}
+
+
+def kernel_family(name: str) -> str:
+    low = name.lower()
+    if "warp_variance_grad" in low:
+        return "warp backward (kernel)"
+    if "warp_variance" in low:
+        return "warp forward (kernel)"
+    if "wgrad" in low:
+        return "conv weight grad (cuDNN)"
+    if "dgrad" in low:
+        return "conv input grad (cuDNN)"
+    if any(t in low for t in ("conv", "xmma", "cudnn", "gemm", "cutlass",
+                              "winograd", "implicit")):
+        return "conv forward / gemm (cuDNN, cuBLAS)"
+    if "reduce" in low:
+        return "reductions (BatchNorm moments, losses)"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    return "other"
+
+
+def phase_train_full_width(device):
+    log(f"phase 7c: CasMVSNet training at full width, {TRAIN_W}x{TRAIN_H}, "
+        f"{VIEWS} views, {'/'.join(map(str, NDEPTHS))} hypotheses, bf16, "
+        f"batch {TRAIN_BATCH}, Adam 1e-3")
+    model = CasMVSNet(BASE, NDEPTHS, compute_dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0),
+                      trained=False).to(device)
+    task = CascadeTask(model)
+    opt = OptaxChain(model.parameters(), "adam", lambda step: 1e-3)
+    step = make_train_step(task, opt)
+    batch = batch_to_device(train_batch(TRAIN_H, TRAIN_W, TRAIN_BATCH),
+                            device)
+    losses = [step(batch)["loss"]]  # warm-up: cuDNN's choices, allocator
+    torch.cuda.synchronize()
+    reset_counts()
+    losses.append(step(batch)["loss"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  launches per step {json.dumps(counts)}")
+    if counts != TRAIN_LAUNCHES:
+        fail(f"train step launches {counts}, want {TRAIN_LAUNCHES}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(step(batch)["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  {ms:.2f} ms per step ({TRAIN_STEPS} steps, host clock), "
+        f"{TRAIN_BATCH * 1e3 / ms:.3f} samples/s, peak {peak:.3f} GiB "
+        f"allocated")
+    log("  device ms of one step: "
+        + json.dumps(step_split(task, opt, batch)))
+    log("  forward device ms by layer kind, one step ('rest': the warp, "
+        "regression and loss, then the backward and the optimizer): "
+        + json.dumps(layer_breakdown(model, lambda: step(batch), ())))
+    by_name = log_spans(device_spans(lambda: step(batch)))
+    families = {}
+    for name, t in by_name.items():
+        families[kernel_family(name)] = families.get(
+            kernel_family(name), 0.0) + t
+    log("  device ms by kernel family, one step: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(families.items(),
+                                           key=lambda kv: -kv[1])}))
+    losses += [step(batch)["loss"] for _ in range(CURVE_STEPS)]
+    curve = [float(x) for x in losses[-CURVE_STEPS:]]
+    first, last = np.mean(curve[:5]), np.mean(curve[-5:])
+    log(f"  {CURVE_STEPS} more steps on the same batch: loss "
+        + " ".join(f"{x:.4f}" for x in curve)
+        + f"; mean of the first 5 {first:.5f}, of the last 5 {last:.5f}")
+    if not np.isfinite([float(x) for x in losses]).all():
+        fail("non-finite training loss")
+    if not last < first:
+        fail("the training loss did not fall")
+    return counts, ms, peak
+
+
+def phase_cli_train(device):
+    log(f"phase 7d: cli train on a synthetic DTU training layout (images "
+        f"{TRAIN_W}x{TRAIN_H}, depths {TRAIN_W // 4}x{TRAIN_H // 4}), then "
+        f"cli infer --step best / latest")
+    config = Path(__file__).resolve().parent / "configs" / "cas_train_dtu.yaml"
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        root = generate(work / "dtu", num_scans=2, num_views=VIEWS,
+                        height=TRAIN_H, width=TRAIN_W, num_depth=LADDER,
+                        num_lights=1, tilt=SCAN_TILT)
+        log(f"  written in {time.perf_counter() - t0:.2f} s")
+        reset_counts()
+        result = cli_train.main([
+            "--config", str(config), "--device", str(device),
+            f"data.root={root}", f"data.train_list={root}/lists/train.txt",
+            f"data.val_list={root}/lists/val.txt", "data.batch_size=2",
+            "train.epochs=2", "train.summary_every_steps=1",
+            f"train.log_dir={work / 'run'}"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        # 2 epochs x 2 steps of 3 + 3 warp launches; val 2 epochs x 2
+        # batches of 3 warp and 15 conv launches (eval mode, bf16).
+        want = {"warp_variance": 24, "warp_variance.vector": 24,
+                "warp_variance_grad": 12, "conv3d_affine": 60,
+                "conv3d_affine.mma": 60}
+        log(f"  {result['step']} steps, losses "
+            + " ".join(f"{x:.4f}" for x in result["losses"])
+            + f", {result['step'] * 2 / result['seconds']:.3f} samples/s "
+            f"through the CLI's steps; val {json.dumps(result['val'])}; "
+            f"launches {json.dumps(counts)}")
+        if counts != want:
+            fail(f"cli train launches {counts}, want {want}")
+        if result["step"] != 4 or not np.isfinite(result["losses"]).all():
+            fail("cli train did not take 4 finite steps")
+        (work / "val.txt").write_text("scan2\n")
+        loaded = {}
+        for which in ("best", "latest"):
+            out = work / f"out_{which}"
+            res = cli_infer.main([
+                "--ckpt", result["ckpt_dir"], "--step", which,
+                "--out", str(out), "--device", str(device),
+                "model.compute_dtype=bfloat16", f"data.eval_root={root}",
+                f"data.eval_list={work / 'val.txt'}",
+                f"data.num_views={VIEWS}", f"data.num_depth={LADDER}",
+                f"data.max_h={TRAIN_H}", f"data.max_w={TRAIN_W}",
+                "data.batch_size=2"])
+            check_files(out / "scan2", VIEWS, TRAIN_H, TRAIN_W)
+            loaded[which] = res["step"]
+        log(f"  cli infer loaded step {loaded['best']} for --step best and "
+            f"{loaded['latest']} for --step latest; 5 maps each written")
+        if loaded["latest"] != 4 or loaded["best"] not in (2, 4):
+            fail(f"cli infer loaded steps {loaded}")
+    return counts
+
+
+def phase_training(device):
+    rows = phase_warp_grad(device)
+    phase_train_card_vs_cpu(device)
+    counts, _, _ = phase_train_full_width(device)
+    cli_counts = phase_cli_train(device)
+    return rows, counts, cli_counts
+
+
 def kernel_entry(name, source, replaces, rows, launches, cli_launches,
                  library):
-    """Times and bounds are sums over one bf16 map's launches (phase 2);
-    launches are per map (phase 4), cli_launches over phase 6b's 11 maps."""
+    """Times and bounds are sums over one bf16 map's launches (phase 2; 7a
+    for the backward: one train step's three); launches are per map (phase
+    4) or per train step (7c), cli_launches over phase 6b's 11 maps or 7d's
+    cli train run."""
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
@@ -903,6 +1300,7 @@ def main() -> int:
     launches, apply_ms = phase_full_width(scene, device)
     phase_batched(scene, device)
     cli_launches = phase_user_path(device, apply_ms)
+    grad_rows, train_counts, cli_train_counts = phase_training(device)
 
     kernels = [
         kernel_entry("warp_variance", "mvs_tpu_torch/csrc/warp_variance.cu",
@@ -913,6 +1311,14 @@ def main() -> int:
                      "mvs_tpu/ops/conv3d_pallas.py:259", conv_rows,
                      launches["conv3d_affine"],
                      cli_launches["conv3d_affine"], library=True),
+        # The backward has no Pallas counterpart (JAX trains through XLA's
+        # gather path); it is the gradient of the kernel above. launches:
+        # per train step (7c); cli_launches: 7d's cli train run.
+        kernel_entry("warp_variance_grad",
+                     "mvs_tpu_torch/csrc/warp_variance.cu",
+                     "mvs_tpu/ops/warp_pallas.py:288", grad_rows,
+                     train_counts["warp_variance_grad"],
+                     cli_train_counts["warp_variance_grad"], library=False),
     ]
     log(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
-"""CLI dispatcher: python -m mvs_tpu_torch.cli <infer|fuse|evaluate> ...
+"""CLI dispatcher: python -m mvs_tpu_torch.cli <train|infer|fuse|evaluate> ...
 
-The JAX package's `train` and `profile` commands are not ported yet; they
-raise and name the ROADMAP.md item (queue 1) that ports them.
+The JAX package's `profile` command is not ported yet; it raises and names
+the ROADMAP.md item (queue 1) that ports it.
 """
 
 from __future__ import annotations
@@ -9,9 +9,8 @@ from __future__ import annotations
 import importlib
 import sys
 
-_COMMANDS = ("infer", "fuse", "evaluate")
-_NOT_PORTED = {"train": "item 8, CasMVSNet training",
-               "profile": "item 13, the torch.profiler table"}
+_COMMANDS = ("train", "infer", "fuse", "evaluate")
+_NOT_PORTED = {"profile": "item 13, the torch.profiler table"}
 
 
 def main(argv=None):

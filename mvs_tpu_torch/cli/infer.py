@@ -2,12 +2,16 @@
 mvs_tpu.cli.infer).
 
     python -m mvs_tpu_torch.cli infer --ckpt weights.pt --out outputs/ \
-        [--config cfg.yaml] [--device cpu] [section.key=value ...]
+        [--step latest|best|N] [--config cfg.yaml] [--device cpu] \
+        [section.key=value ...]
 
-`--ckpt` is the port's state_dict (.pt) or the JAX variables exported to
-.npz (convert.load_weights). Besides the depth outputs, each reference image
-is written as ``<scan>/images/<ref>.png`` (lossless, no PIL needed; the JAX
-CLI writes JPEG).
+`--ckpt` is the port's state_dict (.pt), the JAX variables exported to .npz
+(convert.load_weights), or a checkpoint directory of `train`
+(train.checkpoint), from which `--step` picks the latest step, the best by
+validation abs_depth_error (the latest when no step is ranked) or step N.
+Besides the depth outputs, each reference image is written as
+``<scan>/images/<ref>.png`` (lossless, no PIL needed; the JAX CLI writes
+JPEG).
 
 Samples are grouped into shape buckets and run ``batch_size`` reference
 views per call; a ragged tail is padded by repeating its last sample and the
@@ -37,6 +41,7 @@ from mvs_tpu_torch.io.dtu import DTUEvalDataset
 from mvs_tpu_torch.io.pfm import write_pfm
 from mvs_tpu_torch.io.png import write_png
 from mvs_tpu_torch.models.registry import build_model
+from mvs_tpu_torch.train.checkpoint import CheckpointManager
 from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.platform import full_f32, resolve_device
 
@@ -133,13 +138,30 @@ def _eval_scans(cfg) -> list[str]:
                   if p.is_dir())
 
 
+def load_checkpoint_weights(path, step="latest"):
+    """(state_dict, step): a checkpoint directory's `step` (latest | best |
+    N), or a .pt / .npz file (step None)."""
+    if not Path(path).is_dir():
+        return load_weights(path), None
+    ckpt = CheckpointManager(path, best_metric="abs_depth_error")
+    which = ckpt.resolve(step)
+    if which is None:
+        raise FileNotFoundError(f"no checkpoint under {path}")
+    return ckpt.restore(which)["model"], which
+
+
 def main(argv=None) -> dict:
-    """Run the CLI; returns {"maps": n, "seconds": s}, the count and the
-    host time of the inference loop (disk reads and writes included)."""
+    """Run the CLI; returns {"maps": n, "seconds": s, "step": the
+    checkpoint step loaded or None}, with the count and the host time of
+    the inference loop (disk reads and writes included)."""
     p = argparse.ArgumentParser(prog="mvs_tpu_torch infer")
     p.add_argument("--config", default=None)
     p.add_argument("--ckpt", required=True,
-                   help="state_dict .pt, or JAX variables exported to .npz")
+                   help="state_dict .pt, JAX variables exported to .npz, or "
+                        "a checkpoint directory of `train`")
+    p.add_argument("--step", default="latest",
+                   help="with a checkpoint directory: latest | best (lowest "
+                        "val abs_depth_error) | <int>")
     p.add_argument("--out", default="outputs")
     p.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA card)")
@@ -149,7 +171,10 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
 
     model = build_model(cfg)
-    model.load_state_dict(load_weights(args.ckpt))
+    weights, step = load_checkpoint_weights(args.ckpt, args.step)
+    model.load_state_dict(weights)
+    if step is not None:
+        print(f"using checkpoint step {step} ({args.step})")
     ds = DTUEvalDataset(
         cfg.data.eval_root, _eval_scans(cfg), num_views=cfg.data.num_views,
         num_depth=cfg.data.num_depth, interval_scale=cfg.data.interval_scale,
@@ -173,7 +198,7 @@ def main(argv=None) -> dict:
     dt = time.perf_counter() - t0
     print(f"inference: {total} depth maps in {dt:.1f}s "
           f"({total / dt:.2f} maps/s, batch {batch_size})")
-    return {"maps": total, "seconds": dt}
+    return {"maps": total, "seconds": dt, "step": step}
 
 
 if __name__ == "__main__":

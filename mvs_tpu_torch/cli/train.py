@@ -1,0 +1,187 @@
+"""CasMVSNet training (counterpart of mvs_tpu.cli.train, one card).
+
+    python -m mvs_tpu_torch.cli train --config configs/cas_train_dtu.yaml \
+        [--resume] [--device cpu] [section.key=value ...]
+
+One loop: the preprocessed-DTU training split (io.dtu.DTUTrainDataset
+through the threaded io.pipeline.DataLoader), the train step (forward in
+train mode, cascade loss, backward, the optimizer chain of train.optim with
+the schedule of train.schedule), JSONL/TensorBoard scalars every
+``train.summary_every_steps``, then per epoch: optional BatchNorm
+recalibration (``train.bn_recal_batches``), a validation pass in eval mode
+over ``data.val_list`` (lights (3,), as the JAX CLI), and every
+``train.ckpt_every_epochs`` a checkpoint under <log_dir>/ckpt ranked by the
+validation abs_depth_error (train.checkpoint). ``--resume`` restores the
+latest checkpoint. The run is on the card unless --device names another;
+the model starts from the Flax modules' initial state drawn from
+``train.seed``. Mesh fields above 1 wait for data-parallel training
+(ROADMAP.md queue 1, item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from mvs_tpu_torch.io.dtu import DTUTrainDataset, collate_cascade
+from mvs_tpu_torch.io.pipeline import DataLoader
+from mvs_tpu_torch.models.registry import build_model
+from mvs_tpu_torch.nn.blocks import BatchStats
+from mvs_tpu_torch.train.checkpoint import CheckpointManager
+from mvs_tpu_torch.train.optim import OptaxChain
+from mvs_tpu_torch.train.schedule import build_schedule
+from mvs_tpu_torch.train.state import make_eval_step, make_train_step
+from mvs_tpu_torch.train.tasks import CascadeTask, batch_to_device
+from mvs_tpu_torch.utils.config import load_config
+from mvs_tpu_torch.utils.meters import DictAverageMeter, ScalarLogger
+from mvs_tpu_torch.utils.platform import full_f32, resolve_device
+
+__all__ = ["main", "build_optimizer", "read_scan_list", "recalibrate_bn"]
+
+
+def read_scan_list(path) -> list[str]:
+    with open(path) as f:
+        return [ln.strip() for ln in f if ln.strip()]
+
+
+def build_optimizer(cfg, params, steps_per_epoch: int) -> OptaxChain:
+    """The chain mvs_tpu.cli.train.build_optimizer builds from cfg.train."""
+    t = cfg.train
+    return OptaxChain(params, t.optimizer, build_schedule(t, steps_per_epoch),
+                      grad_clip=t.grad_clip, weight_decay=t.weight_decay)
+
+
+@torch.no_grad()
+def recalibrate_bn(task, batches, device) -> int:
+    """Replace every BatchNorm's statistics by the equal-weight mean of the
+    batch moments of train-mode forwards over `batches`, under the current
+    parameters; count becomes 1 (the JAX CLI's recalibration from zero
+    statistics). Returns the number of batches used."""
+    norms = [m for m in task.model.modules() if isinstance(m, BatchStats)]
+    sums = [[torch.zeros_like(m.mean), torch.zeros_like(m.var)]
+            for m in norms]
+    n = 0
+    task.model.train()
+    for batch in batches:
+        for m in norms:
+            m.count.zero_()  # the next update takes the batch's moments
+        with full_f32():
+            task.forward(batch_to_device(batch, device))
+        for s, m in zip(sums, norms):
+            s[0] += m.mean
+            s[1] += m.var
+        n += 1
+    if n:
+        for (mean, var), m in zip(sums, norms):
+            m.mean.copy_(mean / n)
+            m.var.copy_(var / n)
+            m.count.fill_(1.0)
+    return n
+
+
+def _check_single_card(cfg) -> None:
+    t = cfg.train
+    if max(t.mesh_data, t.mesh_view, t.mesh_depth, t.mesh_space) > 1:
+        raise NotImplementedError(
+            "train.mesh_* > 1: data-parallel and view-sharded training are "
+            "not ported yet (ROADMAP.md queue 1, item 9)")
+
+
+def main(argv=None) -> dict:
+    """Run the CLI. Returns {"step", "losses" (every step's loss, host
+    floats), "val" (the last validation metrics or None), "ckpt_dir",
+    "seconds" (host time of the train steps)}."""
+    p = argparse.ArgumentParser(prog="mvs_tpu_torch train")
+    p.add_argument("--config", default=None)
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the first CUDA card)")
+    p.add_argument("overrides", nargs="*")
+    args = p.parse_args(argv)
+    cfg = load_config(args.config, args.overrides)
+    _check_single_card(cfg)
+    device = resolve_device(args.device)
+
+    d = cfg.data
+    train_ds = DTUTrainDataset(d.root, read_scan_list(d.train_list),
+                               num_views=d.num_views, num_depth=d.num_depth,
+                               interval_scale=d.interval_scale)
+    val_ds = DTUTrainDataset(
+        d.root, read_scan_list(d.val_list), num_views=d.num_views,
+        num_depth=d.num_depth, interval_scale=d.interval_scale,
+        lights=(3,)) if d.val_list else None
+    loader = DataLoader(train_ds, d.batch_size, collate_cascade,
+                        num_threads=d.num_threads, seed=cfg.train.seed)
+    steps_per_epoch = len(loader)
+    if steps_per_epoch == 0:
+        raise ValueError(f"{len(train_ds)} training samples make no batch of "
+                         f"{d.batch_size}")
+
+    model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed),
+                        trained=False).to(device)
+    task = CascadeTask(model)
+    optimizer = build_optimizer(cfg, model.parameters(), steps_per_epoch)
+    ckpt = CheckpointManager(
+        f"{cfg.train.log_dir}/ckpt",
+        best_metric="abs_depth_error" if val_ds is not None else None)
+    logger = ScalarLogger(cfg.train.log_dir)
+
+    start_epoch = 0
+    if args.resume:
+        restored = ckpt.restore("latest")
+        if restored is not None:
+            model.load_state_dict(restored["model"])
+            optimizer.load_state_dict(restored["optimizer"])
+            start_epoch = optimizer.count // steps_per_epoch
+            print(f"resumed at step {optimizer.count} (epoch {start_epoch})")
+
+    step_fn = make_train_step(task, optimizer)
+    eval_fn = make_eval_step(task)
+    losses, val_metrics, seconds = [], None, 0.0
+    for epoch in range(start_epoch, cfg.train.epochs):
+        meter = DictAverageMeter()
+        t0 = time.perf_counter()
+        for i, batch in enumerate(loader):
+            metrics = step_fn(batch_to_device(batch, device))
+            losses.append(metrics["loss"])
+            if (i + 1) % cfg.train.summary_every_steps == 0:
+                host = {k: float(v) for k, v in metrics.items()}
+                meter.update(host)
+                rate = (i + 1) * d.batch_size / (time.perf_counter() - t0)
+                logger.log(optimizer.count, host, prefix="train/")
+                print(f"epoch {epoch} step {i + 1}/{steps_per_epoch} loss "
+                      f"{host['loss']:.4f} ({rate:.2f} samples/s)")
+        seconds += time.perf_counter() - t0
+        logger.log(optimizer.count, meter.mean(), prefix="train_epoch/")
+
+        if cfg.train.bn_recal_batches > 0:
+            batches = (b for i, b in zip(range(cfg.train.bn_recal_batches),
+                                         loader))
+            recalibrate_bn(task, batches, device)
+
+        val_metrics = None
+        if val_ds is not None:
+            vmeter = DictAverageMeter()
+            for batch in DataLoader(val_ds, d.batch_size, collate_cascade,
+                                    shuffle=False, num_threads=d.num_threads):
+                vmeter.update({k: float(v) for k, v in eval_fn(
+                    batch_to_device(batch, device)).items()})
+            val_metrics = vmeter.mean()
+            logger.log(optimizer.count, val_metrics, prefix="val/")
+            print(f"epoch {epoch} val: {val_metrics}")
+
+        if (epoch + 1) % cfg.train.ckpt_every_epochs == 0:
+            ckpt.save(optimizer.count, {"model": model.state_dict(),
+                                        "optimizer": optimizer.state_dict()},
+                      metrics=val_metrics)
+    logger.close()
+    return {"step": optimizer.count, "losses": [float(x) for x in losses],
+            "val": val_metrics,
+            "ckpt_dir": str(ckpt.dir), "seconds": seconds}
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,8 @@ on the way:
     reproduces flax's dilated-input geometry (nn.blocks.ConvTranspose);
   * BatchNorm statistics are stored debiased: acc / (1 - 0.9**count), and
     identity statistics (mean 0, var 1) when count == 0, as the JAX modules
-    read them in eval mode (mvs_tpu.nn.blocks.Norm).
+    read them in eval mode (mvs_tpu.nn.blocks.Norm); ``count`` is carried
+    across, so train-mode updates continue the JAX EMA.
 
 ``load_flax_npz`` reads the JAX variables from an ``.npz`` whose keys are
 '/'-joined Flax paths (``params/...``, ``batch_stats/...``), the form a JAX
@@ -68,6 +69,7 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
         var = np.ones_like(s["var"]) if never else s["var"] / denom
         state[".".join(scope + ("mean",))] = mean
         state[".".join(scope + ("var",))] = var
+        state[".".join(scope + ("count",))] = count
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
             for k, v in state.items()}
 

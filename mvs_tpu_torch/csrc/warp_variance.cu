@@ -55,6 +55,24 @@
 // issues four bf16 unpacks, four multiply-adds of the blend and two of the
 // sums, in f32 on the CUDA cores.
 //
+// The backward kernel (warp_variance_grad_kernel) has no TPU counterpart:
+// the JAX package trains through XLA's gather path under jax.checkpoint,
+// which recomputes the warp in the backward pass. It does the same: given
+// G = dL/dvar it recomputes each (pixel, depth)'s V source samples with the
+// forward's records (the same coordinate rounding) and their mean m over
+// N = V + 1 views, and with g = 2 G / N
+//   * dref[p, c] = sum_d g (ref - m): a lane owns a pixel's 8-channel chunk
+//     across all depths and sums in shared memory, so no atomics;
+//   * dsrc[v, corner, c] += w_corner g (f_v - m), f_v the blended sample,
+//     scattered with f32 atomics into an f32 buffer (16-byte vector atomics
+//     on the 16-byte path), valid corners only (the forward's zero fill).
+// One block covers every depth of its tile. Its least time is bound by f32
+// operations at stages 1-2 and by bytes at stage 3 of a batch-4 640x512
+// step (chip_smoke.py computes both); what it pays on top is the scatter's
+// atomics. On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 7a) it takes
+// 6.7 / 8.0 / 4.0 ms per stage against bounds of 0.15 / 0.21 / 0.20 ms;
+// with scalar atomics it took 23.5 / 31.6 / 15.4 ms.
+//
 // C interface (loaded with ctypes, see mvs_tpu_torch/ops/warp_variance.py):
 // every pointer is a device pointer to contiguous memory,
 //   ref  (B, H, W, C)      T
@@ -63,8 +81,12 @@
 //   hyp  (B, D, H, W)      f32 per-pixel depth hypotheses
 //   out  (B, D, H, W, C)   T
 // with T = float (dtype 0) or __nv_bfloat16 (dtype 1); vec = 1 selects the
-// 16-byte path (C % 8 == 0, 16-byte-aligned pointers). Launches on `stream`
-// and returns cudaGetLastError().
+// 16-byte path (C % 8 == 0, 16-byte-aligned pointers). The backward entry
+// also takes
+//   grad (B, D, H, W, C)   T    dL/dvar
+//   dref (B, H, W, C)      T    written
+//   dsrc (B, V, H, W, C)   f32  zero-filled by the caller, accumulated
+// Each launches on `stream` and returns cudaGetLastError().
 
 #include "mvs_common.cuh"
 
@@ -135,6 +157,90 @@ __device__ __forceinline__ void store8(T* p, int nc, const float* v) {
   }
 }
 
+// The coordinate steps, shared by the forward and the backward kernel so
+// that both sample the same corners with the same weights.
+//
+// Lane l rotates pixel l of its warp's 8 x 4 patch into each view: rot[v *
+// 96 + i * 32 + l] = row i of R_v @ [x, y, 1]. Same order as
+// plane_sweep_coords: the _rn intrinsics keep nvcc from contracting these
+// into fused multiply-adds, so every step rounds once as the elementwise
+// PyTorch version does.
+__device__ __forceinline__ void rotate_pixel(const float* sgeom, float* rot,
+                                             int V, int px, int py,
+                                             int lane) {
+  for (int v = 0; v < V; ++v) {
+    const float* g = sgeom + v * 12;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      rot[v * 96 + i * 32 + lane] =
+          __fadd_rn(__fadd_rn(__fmul_rn(g[3 * i], (float)px),
+                              __fmul_rn(g[3 * i + 1], (float)py)),
+                    g[3 * i + 2]);
+  }
+}
+
+// The sample record of a rotated pixel (rot: its 3 rows, 32 apart) at depth
+// `dep` in the view with geometry g: (corner offset in elements, wx, wy,
+// corner validity bits). Multiply-add depth and translation, then divide,
+// as plane_sweep_coords does; validity is tested in float space, so a
+// coordinate pushed behind the camera or far off the image never reaches an
+// int conversion.
+__device__ __forceinline__ int4 sample_record(const float* rot,
+                                              const float* g, float dep,
+                                              int W, int H, int C) {
+  const float qx = __fadd_rn(__fmul_rn(rot[0], dep), g[9]);
+  const float qy = __fadd_rn(__fmul_rn(rot[32], dep), g[10]);
+  const float qz = __fadd_rn(__fmul_rn(rot[64], dep), g[11]);
+  float xs, ys;
+  if (qz > 1e-3f) {
+    xs = __fdiv_rn(qx, qz);
+    ys = __fdiv_rn(qy, qz);
+  } else {  // behind the source camera: far outside, every corner drops
+    xs = -2.f * (float)W;
+    ys = -2.f * (float)H;
+  }
+  const float x0f = floorf(xs);
+  const float y0f = floorf(ys);
+  const bool okx0 = x0f >= 0.f && x0f <= (float)(W - 1);
+  const bool okx1 = x0f >= -1.f && x0f <= (float)(W - 2);
+  const bool oky0 = y0f >= 0.f && y0f <= (float)(H - 1);
+  const bool oky1 = y0f >= -1.f && y0f <= (float)(H - 2);
+  const int xi = (okx0 || okx1) ? (int)x0f : 0;
+  const int yi = (oky0 || oky1) ? (int)y0f : 0;
+  const int mask = (oky0 && okx0) | (oky0 && okx1) << 1 |
+                   (oky1 && okx0) << 2 | (oky1 && okx1) << 3;
+  return make_int4((yi * W + xi) * C, __float_as_int(xs - x0f),
+                   __float_as_int(ys - y0f), mask);
+}
+
+// The four corner weights of a record, in bit order (00, 01, 10, 11).
+__device__ __forceinline__ void corner_weights(int4 r, float* w) {
+  const float wx = __int_as_float(r.y), wy = __int_as_float(r.z);
+  w[0] = (1.f - wx) * (1.f - wy);
+  w[1] = wx * (1.f - wy);
+  w[2] = (1.f - wx) * wy;
+  w[3] = wx * wy;
+}
+
+// f = the bilinear sample of channels c0 .. c0+7 at record r; sv points at
+// the view's features plus c0. A corner off the image is not loaded: it
+// reads as zero.
+template <bool kVec, typename T>
+__device__ __forceinline__ void blend(const T* sv, int4 r, int nc, int C,
+                                      int rowc, float* f) {
+  float w[4];
+  corner_weights(r, w);
+  sv += r.x;
+  float v00[8], v01[8], v10[8], v11[8];
+  load8<kVec>(sv, r.w & 1, nc, v00);
+  load8<kVec>(sv + C, r.w & 2, nc, v01);
+  load8<kVec>(sv + rowc, r.w & 4, nc, v10);
+  load8<kVec>(sv + rowc + C, r.w & 8, nc, v11);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    f[k] = v00[k] * w[0] + v01[k] * w[1] + v10[k] * w[2] + v11[k] * w[3];
+}
+
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
@@ -166,23 +272,11 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
     sgeom[i] = geom[(int64_t)b * V * 12 + i];
   __syncthreads();
 
-  // Lane l computes the coordinates of pixel l of the patch. Same order as
-  // plane_sweep_coords: rotate the pixel, then multiply-add depth and
-  // translation, then divide. The _rn intrinsics keep nvcc from contracting
-  // these into fused multiply-adds, so every step rounds once as the
-  // elementwise PyTorch version does.
+  // Lane l computes the coordinates of pixel l of the patch.
   const int px = wx0 + (lane & 7), py = wy0 + (lane >> 3);
   const bool pix_ok = px < W && py < H;
   const int pix = py * W + px;
-  for (int v = 0; v < V; ++v) {
-    const float* g = sgeom + v * 12;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      rot[v * 96 + i * 32 + lane] =
-          __fadd_rn(__fadd_rn(__fmul_rn(g[3 * i], (float)px),
-                              __fmul_rn(g[3 * i + 1], (float)py)),
-                    g[3 * i + 2]);
-  }
+  rotate_pixel(sgeom, rot, V, px, py, lane);
 
   // Pass k of the chunk walk gives lane l chunk (32k + l) % nch of pixel
   // (32k + l) / nch: consecutive lanes on consecutive 16-byte chunks.
@@ -201,35 +295,9 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
     const int64_t plane = ((int64_t)b * D + d) * hw;
     if (pix_ok) {
       const float dep = __ldcs(hyp + plane + pix);
-      for (int v = 0; v < V; ++v) {
-        const float* g = sgeom + v * 12;
-        const float qx = __fadd_rn(__fmul_rn(rot[v * 96 + lane], dep), g[9]);
-        const float qy =
-            __fadd_rn(__fmul_rn(rot[v * 96 + 32 + lane], dep), g[10]);
-        const float qz =
-            __fadd_rn(__fmul_rn(rot[v * 96 + 64 + lane], dep), g[11]);
-        float xs, ys;
-        if (qz > 1e-3f) {
-          xs = __fdiv_rn(qx, qz);
-          ys = __fdiv_rn(qy, qz);
-        } else {  // behind the source camera: far outside, every corner drops
-          xs = -2.f * (float)W;
-          ys = -2.f * (float)H;
-        }
-        const float x0f = floorf(xs);
-        const float y0f = floorf(ys);
-        const bool okx0 = x0f >= 0.f && x0f <= (float)(W - 1);
-        const bool okx1 = x0f >= -1.f && x0f <= (float)(W - 2);
-        const bool oky0 = y0f >= 0.f && y0f <= (float)(H - 1);
-        const bool oky1 = y0f >= -1.f && y0f <= (float)(H - 2);
-        const int xi = (okx0 || okx1) ? (int)x0f : 0;
-        const int yi = (oky0 || oky1) ? (int)y0f : 0;
-        const int mask = (oky0 && okx0) | (oky0 && okx1) << 1 |
-                         (oky1 && okx0) << 2 | (oky1 && okx1) << 3;
-        rec[v * 32 + lane] =
-            make_int4((yi * W + xi) * C, __float_as_int(xs - x0f),
-                      __float_as_int(ys - y0f), mask);
-      }
+      for (int v = 0; v < V; ++v)
+        rec[v * 32 + lane] = sample_record(rot + v * 96 + lane,
+                                           sgeom + v * 12, dep, W, H, C);
     }
     __syncwarp();
 
@@ -250,10 +318,9 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
 #pragma unroll 4
       for (int v = 0; v < V; ++v) {
         const int4 r = rec[v * 32 + pl];
-        const float wx = __int_as_float(r.y), wy = __int_as_float(r.z);
+        float w[4];
+        corner_weights(r, w);
         // A corner off the image is not loaded: it reads as zero.
-        const float w00 = (1.f - wx) * (1.f - wy), w01 = wx * (1.f - wy);
-        const float w10 = (1.f - wx) * wy, w11 = wx * wy;
         const T* sv = srcb + (int64_t)v * vstride + c0 + r.x;
         float v00[8], v01[8], v10[8], v11[8];
         load8<kVec>(sv, r.w & 1, nc, v00);
@@ -263,7 +330,7 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           const float f =
-              v00[k] * w00 + v01[k] * w01 + v10[k] * w10 + v11[k] * w11;
+              v00[k] * w[0] + v01[k] * w[1] + v10[k] * w[2] + v11[k] * w[3];
           sf[k] += f;
           sq[k] += f * f;
         }
@@ -277,6 +344,145 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
       store8<kVec>(out + plane * C + p * C + c0, nc, o);
     }
     __syncwarp();  // records are rewritten for the next depth
+  }
+}
+
+// dst[k] += w * dv[k] for the first nc channels, as f32 atomics: two
+// 16-byte vector atomics on the 16-byte path (sm_90), else scalar ones.
+template <bool kVec>
+__device__ __forceinline__ void scatter8(float* dst, float w, int nc,
+                                         const float* dv) {
+  if constexpr (kVec) {
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(w * dv[0], w * dv[1], w * dv[2], w * dv[3]));
+    atomicAdd(reinterpret_cast<float4*>(dst) + 1,
+              make_float4(w * dv[4], w * dv[5], w * dv[6], w * dv[7]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < nc) atomicAdd(dst + k, w * dv[k]);
+  }
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+warp_variance_grad_kernel(const T* __restrict__ ref,
+                          const T* __restrict__ src,
+                          const float* __restrict__ geom,
+                          const float* __restrict__ hyp,
+                          const T* __restrict__ grad, T* __restrict__ dref,
+                          float* __restrict__ dsrc, int V, int D, int H,
+                          int W, int C) {
+  // Per warp: [V][32] sample records and [V][3][32] rotated pixels as in
+  // the forward, then [32][C] f32 sums of dref; then the (V, 12) geometry.
+  extern __shared__ int4 smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int4* rec = smem + warp * V * 32;
+  float* fsm = reinterpret_cast<float*>(smem + kWarps * V * 32);
+  float* rot = fsm + warp * V * 96;
+  float* acc = fsm + kWarps * V * 96 + warp * 32 * C;
+  float* sgeom = fsm + kWarps * V * 96 + kWarps * 32 * C;
+
+  const int b = blockIdx.z;
+  const int hw = H * W;
+  const int wx0 = blockIdx.x * kTileW + (warp & 1) * 8;
+  const int wy0 = blockIdx.y * kTileH + (warp >> 1) * 4;
+
+  for (int i = threadIdx.x; i < V * 12; i += kThreads)
+    sgeom[i] = geom[(int64_t)b * V * 12 + i];
+  for (int i = lane; i < 32 * C; i += 32) acc[i] = 0.f;
+  __syncthreads();
+
+  const int px = wx0 + (lane & 7), py = wy0 + (lane >> 3);
+  const bool pix_ok = px < W && py < H;
+  const int pix = py * W + px;
+  rotate_pixel(sgeom, rot, V, px, py, lane);
+
+  // The forward's chunk walk; item (pixel pl, chunk c0) of pass k belongs to
+  // the same lane at every depth, so its dref sum in `acc` has one owner.
+  const int nch = (C + 7) >> 3;
+  const bool even = 32 % nch == 0;
+  const int lane_pl = lane / nch, lane_c0 = (lane - lane_pl * nch) * 8;
+  const int vstride = hw * C;
+  const int rowc = W * C;
+  const T* refb = ref + (int64_t)b * vstride;
+  const T* srcb = src + (int64_t)b * V * vstride;
+  float* dsrcb = dsrc + (int64_t)b * V * vstride;
+  const float rn = __frcp_rn((float)(V + 1));
+  const float g2 = 2.f * rn;  // dvar/df_i = (2 / N) (f_i - m)
+
+  for (int d = 0; d < D; ++d) {
+    const int64_t plane = ((int64_t)b * D + d) * hw;
+    if (pix_ok) {
+      const float dep = __ldg(hyp + plane + pix);
+      for (int v = 0; v < V; ++v)
+        rec[v * 32 + lane] = sample_record(rot + v * 96 + lane,
+                                           sgeom + v * 12, dep, W, H, C);
+    }
+    __syncwarp();
+
+    for (int pass = 0; pass < nch; ++pass) {
+      int pl = pass * (32 / nch) + lane_pl, c0 = lane_c0;
+      if (!even) {
+        pl = (pass * 32 + lane) / nch;
+        c0 = (pass * 32 + lane - pl * nch) * 8;
+      }
+      const int x = wx0 + (pl & 7), y = wy0 + (pl >> 3);
+      if (x >= W || y >= H) continue;
+      const int p = y * W + x;
+      const int nc = min(8, C - c0);
+      float g[8], r[8], m[8];
+      load8<kVec>(grad + plane * C + p * C + c0, true, nc, g);
+      load8<kVec>(refb + p * C + c0, true, nc, r);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) m[k] = r[k];
+      for (int v = 0; v < V; ++v) {
+        float f[8];
+        blend<kVec>(srcb + (int64_t)v * vstride + c0, rec[v * 32 + pl], nc, C,
+                    rowc, f);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) m[k] += f[k];
+      }
+      float* a = acc + pl * C + c0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        m[k] *= rn;
+        g[k] *= g2;
+        if (k < nc) a[k] += g[k] * (r[k] - m[k]);
+      }
+      // Each view's sample again (its corners are in L1 from the pass
+      // above), and its gradient scattered to the valid corners.
+      for (int v = 0; v < V; ++v) {
+        const int4 rv = rec[v * 32 + pl];
+        float f[8], w[4];
+        blend<kVec>(srcb + (int64_t)v * vstride + c0, rv, nc, C, rowc, f);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) f[k] = g[k] * (f[k] - m[k]);
+        corner_weights(rv, w);
+        float* dv = dsrcb + (int64_t)v * vstride + c0 + rv.x;
+        if (rv.w & 1) scatter8<kVec>(dv, w[0], nc, f);
+        if (rv.w & 2) scatter8<kVec>(dv + C, w[1], nc, f);
+        if (rv.w & 4) scatter8<kVec>(dv + rowc, w[2], nc, f);
+        if (rv.w & 8) scatter8<kVec>(dv + rowc + C, w[3], nc, f);
+      }
+    }
+    __syncwarp();  // records are rewritten for the next depth
+  }
+
+  // dref, rounded once to T.
+  for (int pass = 0; pass < nch; ++pass) {
+    int pl = pass * (32 / nch) + lane_pl, c0 = lane_c0;
+    if (!even) {
+      pl = (pass * 32 + lane) / nch;
+      c0 = (pass * 32 + lane - pl * nch) * 8;
+    }
+    const int x = wx0 + (pl & 7), y = wy0 + (pl >> 3);
+    if (x >= W || y >= H) continue;
+    const int nc = min(8, C - c0);
+    float o[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[k] = k < nc ? acc[pl * C + c0 + k] : 0.f;
+    store8<kVec>(dref + (int64_t)b * vstride + (y * W + x) * C + c0, nc, o);
   }
 }
 
@@ -328,6 +534,47 @@ int launch_t(const void* ref, const void* src, const void* geom,
   return launch<T, false>(ref, src, geom, hyp, out, B, V, D, H, W, C, stream);
 }
 
+template <typename T, bool kVec>
+int launch_grad(const void* ref, const void* src, const void* geom,
+                const void* hyp, const void* grad, void* dref, void* dsrc,
+                int B, int V, int D, int H, int W, int C,
+                cudaStream_t stream) {
+  const int64_t hw = (int64_t)H * W;
+  if (B == 0 || V == 0 || D == 0 || hw == 0 || C == 0) return cudaSuccess;
+  if ((hw + W + 1) * C > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)V * (kWarps * 32 * 16 + kWarps * 96 * 4 + 48) +
+                      (size_t)kWarps * 32 * C * 4;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        warp_variance_grad_kernel<T, kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t tx = (W + kTileW - 1) / kTileW, ty = (H + kTileH - 1) / kTileH;
+  if (tx > INT32_MAX || ty > 65535 || B > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)tx, (unsigned)ty, (unsigned)B);
+  warp_variance_grad_kernel<T, kVec><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(ref), static_cast<const T*>(src),
+      static_cast<const float*>(geom), static_cast<const float*>(hyp),
+      static_cast<const T*>(grad), static_cast<T*>(dref),
+      static_cast<float*>(dsrc), V, D, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_grad_t(const void* ref, const void* src, const void* geom,
+                  const void* hyp, const void* grad, void* dref, void* dsrc,
+                  int B, int V, int D, int H, int W, int C, int vec,
+                  cudaStream_t stream) {
+  if (vec)
+    return launch_grad<T, true>(ref, src, geom, hyp, grad, dref, dsrc, B, V,
+                                D, H, W, C, stream);
+  return launch_grad<T, false>(ref, src, geom, hyp, grad, dref, dsrc, B, V, D,
+                               H, W, C, stream);
+}
+
 }  // namespace
 
 extern "C" int mvs_warp_variance(const void* ref, const void* src,
@@ -342,5 +589,22 @@ extern "C" int mvs_warp_variance(const void* ref, const void* src,
   if (dtype == 1)
     return launch_t<__nv_bfloat16>(ref, src, geom, hyp, out, B, V, D, H, W, C,
                                    vec, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int mvs_warp_variance_grad(const void* ref, const void* src,
+                                      const void* geom, const void* hyp,
+                                      const void* grad, void* dref,
+                                      void* dsrc, int B, int V, int D, int H,
+                                      int W, int C, int dtype, int vec,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec && C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_grad_t<float>(ref, src, geom, hyp, grad, dref, dsrc, B, V,
+                                D, H, W, C, vec, s);
+  if (dtype == 1)
+    return launch_grad_t<__nv_bfloat16>(ref, src, geom, hyp, grad, dref, dsrc,
+                                        B, V, D, H, W, C, vec, s);
   return (int)cudaErrorInvalidValue;
 }

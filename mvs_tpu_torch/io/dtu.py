@@ -1,5 +1,10 @@
-"""DTU eval-layout reader (counterpart of mvs_tpu.io.dtu's read_image,
-_scale_to_fit and DTUEvalDataset).
+"""DTU readers (counterpart of mvs_tpu.io.dtu's read_image, _scale_to_fit,
+DTUTrainDataset, DTUEvalDataset and collate_cascade).
+
+Training layout (preprocessed DTU): Rectified/{scan}_train/
+rect_{v+1:03d}_{light}_r5000.png, Depths/{scan}_train/depth_map_{v:04d}.pfm
+with depth_visual_{v:04d}.png masks, Cameras/{v:08d}_cam.txt with the
+intrinsics at the depth maps' (1/4) resolution, and Cameras/pair.txt.
 
 Eval layout: {scan}/images/{v:08d}.jpg (or .png), {scan}/cams/{v:08d}_cam.txt
 with full-resolution intrinsics, and {scan}/pair.txt (or a shared
@@ -7,8 +12,7 @@ with full-resolution intrinsics, and {scan}/pair.txt (or a shared
 W multiples of `align`, and the intrinsics with them.
 
 PNG is decoded by io.png; JPEG by cv2, else PIL, as the JAX reader does,
-each imported only when a JPEG is read. The training split waits for
-training.
+each imported only when a JPEG is read.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ import torch.nn.functional as F
 
 from mvs_tpu_torch.io.cams import read_cam_file
 from mvs_tpu_torch.io.pairs import read_pair_file
+from mvs_tpu_torch.io.pfm import read_pfm
 from mvs_tpu_torch.io.png import PNG_SIGNATURE, read_png
 
-__all__ = ["read_image", "resize_bilinear", "image_path", "DTUEvalDataset"]
+__all__ = ["read_image", "resize_bilinear", "image_path", "DTUTrainDataset",
+           "DTUEvalDataset", "collate_cascade"]
 
 
 def _decode_jpeg(path) -> np.ndarray:
@@ -97,6 +103,78 @@ def image_path(scan_dir: Path, vid: int) -> Path:
 
 
 @dataclasses.dataclass
+class DTUTrainDataset:
+    """Preprocessed-DTU training split: one item = one (scan, light, ref
+    view)."""
+
+    root: str
+    scans: list
+    num_views: int = 3
+    num_depth: int = 192
+    interval_scale: float = 1.06
+    lights: tuple = tuple(range(7))
+
+    def __post_init__(self):
+        self.root = Path(self.root)
+        pairs = read_pair_file(self.root / "Cameras" / "pair.txt")
+        # Only the lights on disk (the official set has 7; a synthetic one
+        # may have fewer).
+        if self.scans:
+            probe = self.root / "Rectified" / f"{self.scans[0]}_train"
+            available = sorted(int(p.stem.split("_")[2])
+                               for p in probe.glob("rect_001_*_r5000.png"))
+            if available:
+                requested = [i for i in self.lights if i in available]
+                self.lights = tuple(requested or available)
+        self.metas = [(scan, light, ref, srcs)
+                      for scan in self.scans
+                      for light in self.lights
+                      for ref, srcs in pairs
+                      if len(srcs) >= self.num_views - 1]
+
+    def __len__(self):
+        return len(self.metas)
+
+    def __getitem__(self, idx: int) -> dict:
+        scan, light, ref_view, src_views = self.metas[idx]
+        view_ids = [ref_view] + list(src_views[: self.num_views - 1])
+        depths_dir = self.root / "Depths" / f"{scan}_train"
+
+        imgs, intr, extr = [], [], []
+        for vid in view_ids:
+            imgs.append(read_image(self.root / "Rectified" / f"{scan}_train"
+                                   / f"rect_{vid + 1:03d}_{light}_r5000.png"))
+            cam = read_cam_file(self.root / "Cameras" / f"{vid:08d}_cam.txt",
+                                self.interval_scale)
+            intr.append(cam.intrinsics)
+            extr.append(cam.extrinsics)
+            if vid == ref_view:
+                depth_min, depth_interval = cam.depth_min, cam.depth_interval
+        depth = np.asarray(read_pfm(
+            depths_dir / f"depth_map_{ref_view:04d}.pfm")[0], np.float32)
+        vis_path = depths_dir / f"depth_visual_{ref_view:04d}.png"
+        if vis_path.exists():
+            mask = (read_image(vis_path)[..., 0] > 0.5).astype(np.float32)
+        else:
+            mask = (depth > depth_min).astype(np.float32)
+
+        return {
+            "scan": scan, "light": light, "view_ids": view_ids,
+            "imgs": np.stack(imgs),  # (V, H, W, 3)
+            # Depth-resolution intrinsics as stored; collate scales them.
+            "intrinsics": np.stack(intr), "extrinsics": np.stack(extr),
+            "depth_values": (depth_min + np.arange(self.num_depth,
+                                                   dtype=np.float32)
+                             * depth_interval),
+            "depth_min": np.float32(depth_min),
+            "depth_max": np.float32(depth_min + (self.num_depth - 1)
+                                    * depth_interval),
+            "depth_interval": np.float32(depth_interval),
+            "depth_gt": depth, "mask": mask,  # at depth (1/4) resolution
+        }
+
+
+@dataclasses.dataclass
 class DTUEvalDataset:
     """Eval layout: one item = one reference view of one scan."""
 
@@ -155,3 +233,33 @@ class DTUEvalDataset:
                                     * depth_interval),
             "depth_interval": np.float32(depth_interval),
         }
+
+
+def _compose(intr: np.ndarray, extr: np.ndarray) -> np.ndarray:
+    proj = extr.copy()
+    proj[..., :3, :4] = intr @ extr[..., :3, :4]
+    return proj
+
+
+def collate_cascade(samples: list[dict]) -> dict:
+    """Train batch of the cascade task: stage projections at 1x / 2x / 4x
+    the stored (1/4-resolution) intrinsics, and the GT depth and mask at
+    each stage's resolution. The nearest x2 / x4 upsample of the GT is
+    np.repeat along both axes, which is what cv2.resize(INTER_NEAREST)
+    computes at an integer factor."""
+    def stack(key):
+        return np.stack([s[key] for s in samples])
+
+    intr, extr = stack("intrinsics"), stack("extrinsics")
+    gt, mask = stack("depth_gt"), stack("mask")
+    proj, gt_ms, mask_ms = {}, {}, {}
+    for i, s in enumerate((1, 2, 4)):
+        stage = f"stage{i + 1}"
+        k = intr.copy()
+        k[..., :2, :] *= s
+        proj[stage] = _compose(k, extr)
+        gt_ms[stage] = gt.repeat(s, axis=1).repeat(s, axis=2)
+        mask_ms[stage] = mask.repeat(s, axis=1).repeat(s, axis=2)
+    return {"imgs": stack("imgs"), "proj_matrices": proj,
+            "depth_values": stack("depth_values"),
+            "depth_gt": gt_ms, "mask": mask_ms}

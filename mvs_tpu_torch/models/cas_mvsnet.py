@@ -1,13 +1,16 @@
-"""CasMVSNet inference: a 3-stage cascade of narrowing plane sweeps
-(counterpart of mvs_tpu.models.cas_mvsnet.CasMVSNet, eval mode, FPN
-features, one cost regularizer per stage).
+"""CasMVSNet: a 3-stage cascade of narrowing plane sweeps (counterpart of
+mvs_tpu.models.cas_mvsnet.CasMVSNet with FPN features, one cost regularizer
+per stage and grad_method 'detach').
 
 Stage 1 sweeps the global range at 1/4 resolution; stages 2 and 3 sweep
 per-pixel windows (+-D/2 * ratio * base interval) centred on the bilinearly
 upsampled previous depth. Each stage builds its variance volume with the
-fused warp-variance kernel, regularizes it with a 3D U-Net whose stride-1
-convs run on the fused conv3d kernel, and regresses depth and confidence in
-f32.
+fused warp-variance kernel, regularizes it with a 3D U-Net, and regresses
+depth and confidence in f32. `model.eval()` runs the U-Nets' stride-1 convs
+on the fused conv3d kernel; `model.train()` runs the blocks' train paths
+(batch statistics, torch convs) and the warp's backward kernel, and each
+stage's depth is detached before it centres the next stage's hypotheses,
+as the JAX model does in training.
 """
 
 from __future__ import annotations
@@ -33,9 +36,11 @@ class CasMVSNet(nn.Module):
                  ndepths: Sequence[int] = (48, 32, 8),
                  depth_interval_ratios: Sequence[float] = (4.0, 2.0, 1.0),
                  compute_dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 trained: bool = True):
         """Parameters are drawn from `generator` (seed 0 when None) by
-        nn.blocks.init_random_; load converted weights to replace them."""
+        nn.blocks.init_random_ (trained=False: the Flax initial state, to
+        train from); load converted weights to replace them."""
         super().__init__()
         self.ndepths = tuple(ndepths)
         self.depth_interval_ratios = tuple(depth_interval_ratios)
@@ -48,7 +53,7 @@ class CasMVSNet(nn.Module):
                     UNetCostRegNet(stage_channels, base_channels))
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        init_random_(self, generator)
+        init_random_(self, generator, trained)
 
     def forward(self, imgs: torch.Tensor, proj_matrices: dict,
                 depth_values: torch.Tensor) -> dict:
@@ -75,8 +80,8 @@ class CasMVSNet(nn.Module):
             if depth is None:
                 cur_depth = depth_values
             else:
-                cur_depth = F.interpolate(depth[:, None], size=(sh, sw),
-                                          mode="bilinear",
+                cur_depth = F.interpolate(depth.detach()[:, None],
+                                          size=(sh, sw), mode="bilinear",
                                           align_corners=False)[:, 0]
             interval = self.depth_interval_ratios[i] * depth_interval
             hyp = cascade_depth_samples(cur_depth, ndepth, interval, sh,

@@ -20,9 +20,11 @@ _ROADMAP_ITEM = {"mvsnet": 10, "cvp_mvsnet": 11, "aacvp_mvsnet": 11,
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_model(cfg, generator: torch.Generator | None = None) -> CasMVSNet:
+def build_model(cfg, generator: torch.Generator | None = None,
+                trained: bool = True) -> CasMVSNet:
     """cfg: utils.config.Config. Parameters are drawn from `generator`
-    (seed 0 when None); load weights to replace them."""
+    (seed 0 when None; trained=False: the initial state to train from);
+    load weights to replace them."""
     m = cfg.model
     if m.name in _ROADMAP_ITEM:
         raise NotImplementedError(
@@ -41,4 +43,4 @@ def build_model(cfg, generator: torch.Generator | None = None) -> CasMVSNet:
     return CasMVSNet(base_channels=m.base_channels, ndepths=tuple(m.ndepths),
                      depth_interval_ratios=tuple(m.depth_interval_ratios),
                      compute_dtype=_DTYPES[m.compute_dtype],
-                     generator=generator)
+                     generator=generator, trained=trained)

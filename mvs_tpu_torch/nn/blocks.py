@@ -1,16 +1,23 @@
-"""Convolution building blocks, eval mode, channels-last (counterpart of
+"""Convolution building blocks, channels-last (counterpart of
 mvs_tpu.nn.blocks).
 
 2D features are (B, H, W, C) and 3D volumes (B, D, H, W, C), as in the JAX
 package. A torch conv sees them through a permuted view (channels_last
-strides), not a copy. Eval-mode BatchNorm is folded into a per-channel affine
-applied in the conv's f32 epilogue, followed by an optional ReLU.
+strides), not a copy.
+
+Eval mode (``module.eval()``) folds BatchNorm into a per-channel affine
+applied in the conv's f32 epilogue, followed by an optional ReLU; every
+3x3x3 stride-1 conv runs on the fused conv3d kernel. Train mode
+(``module.train()``) is the JAX package's ``train=True``: each conv is a
+differentiable torch conv, BatchNorm normalizes with the batch's moments in
+f32 and updates its running statistics, then ReLU, then a cast to the
+compute dtype.
 
 Parameter and submodule names follow the Flax scopes (``Conv_0``,
-``Norm_0``, ``kernel``, ``scale``, ``bias``, ``mean``, ``var``) so that
-``mvs_tpu_torch.convert`` maps a Flax tree onto a state_dict by path. Kernels
-are stored in torch layout: (O, I, *k) for convs, (I, O, *k) for transposed
-convs.
+``Norm_0``, ``kernel``, ``scale``, ``bias``, ``mean``, ``var``, ``count``)
+so that ``mvs_tpu_torch.convert`` maps a Flax tree onto a state_dict by
+path. Kernels are stored in torch layout: (O, I, *k) for convs, (I, O, *k)
+for transposed convs.
 
 Geometry follows flax 'SAME': stride-2 padding is asymmetric (lo =
 total // 2), and the stride-2 transposed conv is flax's dilated-input form,
@@ -26,10 +33,17 @@ from torch import nn
 
 from mvs_tpu_torch.ops.conv3d import conv3d_affine
 
-__all__ = ["Norm", "Conv", "ConvTranspose", "ConvBlock", "ConvTransposeBlock",
-           "FusedConvBlock3D", "init_random_"]
+__all__ = ["BatchStats", "Norm", "Conv", "ConvTranspose", "ConvBlock",
+           "ConvTransposeBlock", "FusedConvBlock3D", "init_random_"]
 
 _EPS = 1e-5
+_MOMENTUM = 0.9
+# A state_dict written before the statistics had a count (the port's
+# inference-only .pt files) holds converged, debiased statistics: they load
+# with this count, for which the next update weighs them by the momentum as
+# a plain EMA would (mvs_tpu.train.checkpoint.migrate_batch_stats assumes
+# the same).
+_ASSUMED_COUNT = 1.0e4
 
 
 def _bn_affine(gamma, beta, mean, var, eps=_EPS):
@@ -54,9 +68,20 @@ def _epilogue(y, scale, shift, relu, dtype):
     return y.to(dtype).movedim(1, -1).contiguous()
 
 
-class Norm(nn.Module):
-    """Eval-mode BatchNorm: gamma/beta (``scale``/``bias``) and the debiased
-    running statistics (``mean``/``var``), read as one affine."""
+class BatchStats(nn.Module):
+    """BatchNorm's affine (``scale``/``bias``) and running statistics.
+
+    ``mean``/``var`` are stored debiased, as eval mode reads them; ``count``
+    is the number of train-mode updates. The JAX modules keep zero-started
+    EMA accumulators and divide by 1 - m^count when they read them; a train
+    update here keeps the debiased form directly:
+
+        new = old * (m - m^(t+1)) / (1 - m^(t+1))
+              + batch * (1 - m) / (1 - m^(t+1)),   t = count,
+
+    which at t = 0 ignores the initial (identity) statistics, as the JAX
+    package's zero accumulators do.
+    """
 
     def __init__(self, channels: int):
         super().__init__()
@@ -64,18 +89,53 @@ class Norm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.register_buffer("count", torch.zeros(()))
 
     def affine(self):
-        """(scale, shift) with x*scale + shift == BN(x)."""
+        """(scale, shift) with x*scale + shift == BN(x) in eval mode."""
         return _bn_affine(self.scale, self.bias, self.mean, self.var)
+
+    def normalize_batch(self, y: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN of channels-last `y` in f32 with the batch's biased
+        moments (var = max(E[y^2] - E[y]^2, 0)); updates the statistics.
+        Returns f32."""
+        yf = y.float()
+        dims = tuple(range(yf.ndim - 1))
+        mean = yf.mean(dims)
+        var = torch.clamp((yf * yf).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = _MOMENTUM ** (self.count + 1.0)
+            denom = 1.0 - keep
+            self.mean.mul_((_MOMENTUM - keep) / denom).add_(
+                mean * ((1.0 - _MOMENTUM) / denom))
+            self.var.mul_((_MOMENTUM - keep) / denom).add_(
+                var * ((1.0 - _MOMENTUM) / denom))
+            self.count.add_(1.0)
+        return (yf - mean) * self.scale * torch.rsqrt(var + _EPS) + self.bias
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        key = prefix + "count"
+        if key not in state_dict and prefix + "mean" in state_dict:
+            state_dict[key] = torch.tensor(_ASSUMED_COUNT)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class Norm(BatchStats):
+    """BatchNorm: folded into the preceding conv in eval mode, batch moments
+    in train mode (forward)."""
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN of `y`, returned in y's dtype."""
+        return self.normalize_batch(y).to(y.dtype)
 
 
 class Conv(nn.Module):
     """SAME conv over (B, *S, C), S of rank 2 or 3, stride 1 or 2, odd kernel.
 
     forward(x, scale, shift, relu) applies relu?(scale * (conv + bias) +
-    shift) in f32 and returns x's dtype. Every 3x3x3 stride-1 conv runs on
-    the fused conv3d kernel (ops.conv3d); the rest run on torch's conv.
+    shift) in f32 and returns x's dtype. In eval mode every 3x3x3 stride-1
+    conv runs on the fused conv3d kernel (ops.conv3d), which has no
+    gradient; in train mode, and for every other shape, torch's conv runs.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
@@ -95,7 +155,7 @@ class Conv(nn.Module):
             else:
                 shift = shift + scale * self.bias
         ks = tuple(self.kernel.shape[2:])
-        if ks == (3, 3, 3) and self.stride == 1:
+        if ks == (3, 3, 3) and self.stride == 1 and not self.training:
             if scale is None:
                 scale = torch.ones(self.kernel.shape[0], device=x.device)
                 shift = torch.zeros_like(scale)
@@ -134,7 +194,7 @@ class ConvTranspose(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv (2D or 3D by kernel rank) + folded BatchNorm + ReLU."""
+    """Conv (2D or 3D by kernel rank) + BatchNorm + ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  stride: int = 1):
@@ -144,13 +204,14 @@ class ConvBlock(nn.Module):
                            use_bias=False)
 
     def forward(self, x):
+        if self.training:
+            return torch.relu(self.Norm_0(self.Conv_0(x)))
         scale, shift = self.Norm_0.affine()
         return self.Conv_0(x, scale, shift, relu=True)
 
 
 class ConvTransposeBlock(nn.Module):
-    """3D stride-2 transposed conv (2x upsample) + folded BatchNorm +
-    ReLU."""
+    """3D stride-2 transposed conv (2x upsample) + BatchNorm + ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
@@ -158,40 +219,81 @@ class ConvTransposeBlock(nn.Module):
         self.ConvTranspose_0 = ConvTranspose(in_channels, out_channels)
 
     def forward(self, x):
+        if self.training:
+            return torch.relu(self.Norm_0(self.ConvTranspose_0(x)))
         scale, shift = self.Norm_0.affine()
         return self.ConvTranspose_0(x, scale, shift, relu=True)
 
 
-class FusedConvBlock3D(nn.Module):
-    """3x3x3 stride-1 conv + folded BatchNorm + ReLU in one kernel launch
-    (ops.conv3d). Owns kernel / scale / bias / statistics directly, as the
-    Flax module does."""
+class _ConvToF32(torch.autograd.Function):
+    """3x3x3 SAME conv of low-precision (B, C, D, H, W) `x` and `w` with an
+    f32 result, as the JAX package's conv_folded(out_dtype=f32): the inputs'
+    products summed in f32. On the card cuDNN runs it in TF32, which holds
+    a bf16 value exactly. The backward, as JAX's, casts the cotangent to
+    the inputs' dtype and convolves in it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        cudnn = torch.backends.cudnn
+        saved, cudnn.allow_tf32 = cudnn.allow_tf32, True
+        try:
+            return F.conv3d(x.float(), w.float(), padding=1)
+        finally:
+            cudnn.allow_tf32 = saved
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            g.to(x.dtype), x, w, None, [1] * 3, [1] * 3, [1] * 3, False,
+            [0] * 3, 1, [*ctx.needs_input_grad[:2], False])
+        return gx, gw
+
+
+class FusedConvBlock3D(BatchStats):
+    """3x3x3 stride-1 conv + BatchNorm + ReLU. Owns kernel / scale / bias /
+    statistics directly, as the Flax module does.
+
+    Eval mode: one launch of the fused conv3d kernel (ops.conv3d) with the
+    BatchNorm folded into its epilogue. Train mode, as the JAX module's
+    train branch: torch's conv to f32 (_ConvToF32 for a bf16 input),
+    BatchNorm with the batch's moments, ReLU, a cast to the input dtype.
+    """
 
     def __init__(self, in_channels: int, out_channels: int,
                  relu: bool = True):
-        super().__init__()
+        super().__init__(out_channels)
         self.relu = relu
         self.kernel = nn.Parameter(
             torch.zeros(out_channels, in_channels, 3, 3, 3))
-        self.scale = nn.Parameter(torch.ones(out_channels))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
-        self.register_buffer("mean", torch.zeros(out_channels))
-        self.register_buffer("var", torch.ones(out_channels))
 
     def forward(self, x):
-        scale, shift = _bn_affine(self.scale, self.bias, self.mean, self.var)
-        return conv3d_affine(x.contiguous(), self.kernel, scale, shift,
-                             self.relu)
+        if not self.training:
+            scale, shift = self.affine()
+            return conv3d_affine(x.contiguous(), self.kernel, scale, shift,
+                                 self.relu)
+        x5, w = x.movedim(-1, 1), self.kernel.to(x.dtype)
+        y = F.conv3d(x5, w, padding=1) if x.dtype == torch.float32 \
+            else _ConvToF32.apply(x5, w)
+        y = self.normalize_batch(y.movedim(1, -1))
+        if self.relu:
+            y = torch.relu(y)
+        return y.to(x.dtype)
 
 
 @torch.no_grad()
-def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+def init_random_(module: nn.Module, generator: torch.Generator,
+                 trained: bool = True) -> nn.Module:
     """Fill every parameter and statistic from `generator`, in place.
 
-    Kernels are normal with variance 1 / fan_in (lecun), conv biases small
-    normal, and BatchNorm gets a non-trivial affine and statistics (scale
-    U(0.5, 1.5), bias N(0, 0.1), mean N(0, 0.1), var U(0.5, 2)), so a model
-    built this way exercises every epilogue term.
+    Kernels are normal with variance 1 / fan_in (lecun). With `trained`,
+    conv biases are small normal and BatchNorm gets a non-trivial affine and
+    statistics (scale U(0.5, 1.5), bias N(0, 0.1), mean N(0, 0.1), var
+    U(0.5, 2)), so a model built this way exercises every epilogue term.
+    With trained=False the rest is the Flax modules' initial state, the
+    start of training: conv biases 0, BatchNorm scale 1 and bias 0,
+    statistics mean 0, var 1 and count 0.
     """
     def normal(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
@@ -206,9 +308,19 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, ConvTranspose):
             fan_in = m.kernel.shape[0] * m.kernel[0, 0].numel()
             normal(m.kernel, fan_in ** -0.5)
+        if not trained:
+            if isinstance(m, Conv) and m.bias is not None:
+                m.bias.zero_()
+            if isinstance(m, BatchStats):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+                m.mean.zero_()
+                m.var.fill_(1.0)
+                m.count.zero_()
+            continue
         if isinstance(m, Conv) and m.bias is not None:
             normal(m.bias, 0.1)
-        if isinstance(m, (Norm, FusedConvBlock3D)):
+        if isinstance(m, BatchStats):
             uniform(m.scale, 0.5, 1.5)
             normal(m.bias, 0.1)
             normal(m.mean, 0.1)

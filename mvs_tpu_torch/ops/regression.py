@@ -3,6 +3,7 @@ mvs_tpu.ops.regression, batch written out).
 
 depth = sum_d p(d) * depth(d); confidence = the probability mass over the
 4-tap window {i-1, i, i+1, i+2} around i = the truncated regressed index.
+Confidence takes no gradient (the JAX package stops it at prob).
 """
 
 from __future__ import annotations
@@ -41,6 +42,6 @@ def regress_depth_and_confidence(cost: torch.Tensor,
     depth = depth_regression(prob, depth_values)
     steps = torch.arange(cost.shape[1], dtype=prob.dtype,
                          device=prob.device)[None].expand(cost.shape[0], -1)
-    index = depth_regression(prob, steps)
-    conf = photometric_confidence(prob, index)
+    fixed = prob.detach()
+    conf = photometric_confidence(fixed, depth_regression(fixed, steps))
     return depth, conf, prob

@@ -1,0 +1,34 @@
+"""Depth-map quality metrics (counterpart of mvs_tpu.train.metrics): the
+masked absolute depth error and the outlier rates at 2 / 4 / 8 mm. Point-MVSNet's interval metrics wait for that model
+(ROADMAP.md queue 1, item 12). Metrics take no gradient.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mvs_tpu_torch.train.losses import masked_mean
+
+__all__ = ["abs_depth_error", "threshold_error_rate", "standard_metrics"]
+
+
+@torch.no_grad()
+def abs_depth_error(depth_est, depth_gt, mask):
+    """Mean |est - gt| over valid pixels."""
+    return masked_mean((depth_est - depth_gt).abs(), mask > 0.5)
+
+
+@torch.no_grad()
+def threshold_error_rate(depth_est, depth_gt, mask, thresh):
+    """Share of valid pixels with |est - gt| > thresh (mm)."""
+    err = (depth_est - depth_gt).abs()
+    return masked_mean((err > thresh).float(), mask > 0.5)
+
+
+def standard_metrics(depth_est, depth_gt, mask, prefix: str = "") -> dict:
+    """The validation metric dict: abs error and the 2 / 4 / 8 mm rates."""
+    return {
+        f"{prefix}abs_depth_error": abs_depth_error(depth_est, depth_gt, mask),
+        **{f"{prefix}thres{t}mm_error": threshold_error_rate(
+            depth_est, depth_gt, mask, float(t)) for t in (2, 4, 8)},
+    }

@@ -1,0 +1,58 @@
+"""The cascade task (counterpart of mvs_tpu.train.tasks.CascadeTask): the
+batch layout CasMVSNet trains on, its loss and its metrics.
+
+A batch (io.dtu.collate_cascade, moved to the device by batch_to_device):
+imgs (B, V, H, W, 3), proj_matrices {stageK: (B, V, 4, 4)}, depth_values
+(B, D), depth_gt {stageK: (B, h_k, w_k)}, mask {stageK: (B, h_k, w_k)}.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from mvs_tpu_torch.train.losses import cascade_loss
+from mvs_tpu_torch.train.metrics import standard_metrics
+
+__all__ = ["CascadeTask", "batch_to_device"]
+
+_BATCH_KEYS = ("imgs", "proj_matrices", "depth_values", "depth_gt", "mask")
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """The model's keys of a collated batch as float32 tensors on `device`
+    (nested stage dicts kept)."""
+    def move(x):
+        if isinstance(x, dict):
+            return {k: move(v) for k, v in x.items()}
+        return torch.as_tensor(np.asarray(x, np.float32)).to(device)
+
+    return {k: move(batch[k]) for k in _BATCH_KEYS if k in batch}
+
+
+@dataclasses.dataclass
+class CascadeTask:
+    model: nn.Module
+    stage_weights: Any = (0.5, 1.0, 2.0)
+
+    def forward(self, batch: dict) -> dict:
+        """Model outputs for the batch, in the model's current mode."""
+        return self.model(batch["imgs"], batch["proj_matrices"],
+                          batch["depth_values"])
+
+    def loss_and_metrics(self, batch: dict):
+        """(loss, metrics): the stage-weighted cascade loss, and the last
+        stage's standard metrics with its loss as 'last_stage_loss'."""
+        out = self.forward(batch)
+        loss, last = cascade_loss(out, batch["depth_gt"], batch["mask"],
+                                  self.stage_weights)
+        last_stage = f"stage{len(self.stage_weights)}"
+        metrics = standard_metrics(out["depth"],
+                                   batch["depth_gt"][last_stage],
+                                   batch["mask"][last_stage])
+        metrics["last_stage_loss"] = last.detach()
+        return loss, metrics

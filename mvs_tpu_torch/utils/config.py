@@ -3,7 +3,9 @@
 JAX package load here unchanged).
 
 Overrides use dotted paths: ``train.lr=0.001 model.ndepths=48,32,8``.
-``yaml`` is imported only when a YAML path is given.
+A YAML file is read with ``load_yaml_subset`` (the card's machine has no
+PyYAML): nested block mappings, inline lists, quoted and plain scalars and
+comments, which is all the repo's configs use.
 
 Fields that select TPU paths are accepted and ignored by the port: it always
 samples exactly, so ``model.sampler`` ('hat' or 'gather') and the
@@ -14,10 +16,12 @@ wait for the port's distributed training.
 from __future__ import annotations
 
 import dataclasses
+import re
 
 __all__ = [
     "ModelConfig", "DataConfig", "TrainConfig", "FusionCfg", "EvalConfig",
     "Config", "load_config", "apply_overrides", "config_to_dict",
+    "load_yaml_subset",
 ]
 
 
@@ -201,13 +205,78 @@ def _merge_dict(obj, d: dict):
             setattr(obj, k, v)
 
 
+_INT = re.compile(r"[-+]?[0-9]+$")
+_FLOAT = re.compile(r"[-+]?(\.[0-9]+|[0-9]+(\.[0-9]*)?)([eE][-+]?[0-9]+)?$")
+
+
+def _scalar(text: str):
+    """A plain or quoted YAML scalar, typed as yaml.safe_load types it for
+    the forms the configs use."""
+    if text[:1] in "'\"" and len(text) > 1 and text[-1] == text[0]:
+        return text[1:-1]
+    if text in ("", "~", "null", "Null", "NULL"):
+        return None
+    if text in ("true", "True", "TRUE"):
+        return True
+    if text in ("false", "False", "FALSE"):
+        return False
+    if _INT.match(text):
+        return int(text)
+    if _FLOAT.match(text) and ("." in text or text.isdigit()):
+        return float(text)
+    return text
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def load_yaml_subset(text: str) -> dict:
+    """Parse the YAML the configs use: block mappings nested by indentation,
+    `key: scalar`, `key: [a, b, ...]` and comments."""
+    root: dict = {}
+    stack = [(-1, root)]
+    for raw in text.splitlines():
+        line = _strip_comment(raw)
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        key, sep, value = line.strip().partition(":")
+        if not sep:
+            raise ValueError(f"unsupported YAML line: {raw!r}")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        node = stack[-1][1]
+        value = value.strip()
+        if not value:
+            node[key] = {}
+            stack.append((indent, node[key]))
+        elif value.startswith("[") and value.endswith("]"):
+            inner = value[1:-1].strip()
+            node[key] = [_scalar(v.strip()) for v in inner.split(",")] \
+                if inner else []
+        else:
+            node[key] = _scalar(value)
+    return root
+
+
+def _read_yaml(path) -> dict:
+    with open(path) as f:
+        return load_yaml_subset(f.read())
+
+
 def load_config(yaml_path=None, overrides: list[str] | None = None) -> Config:
     cfg = Config()
     if yaml_path:
-        import yaml
-
-        with open(yaml_path) as f:
-            _merge_dict(cfg, yaml.safe_load(f) or {})
+        _merge_dict(cfg, _read_yaml(yaml_path))
     if overrides:
         apply_overrides(cfg, overrides)
     return cfg

@@ -1,0 +1,60 @@
+"""Metric aggregation and scalar logging (counterpart of
+mvs_tpu.utils.meters).
+
+DictAverageMeter averages dicts of scalars over updates; ScalarLogger
+appends one JSON line per log call to <log_dir>/scalars.jsonl and, when
+torch.utils.tensorboard imports, writes the same scalars to TensorBoard.
+Image summaries wait for utils/vis.py (ROADMAP.md queue 1, item 13).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+__all__ = ["DictAverageMeter", "ScalarLogger"]
+
+
+class DictAverageMeter:
+    def __init__(self):
+        self.sums: dict[str, float] = {}
+        self.count = 0
+
+    def update(self, values: dict, n: int = 1):
+        for k, v in values.items():
+            self.sums[k] = self.sums.get(k, 0.0) + float(v) * n
+        self.count += n
+
+    def mean(self) -> dict:
+        return {k: v / max(self.count, 1) for k, v in self.sums.items()}
+
+
+class ScalarLogger:
+    def __init__(self, log_dir, use_tensorboard: bool = True):
+        self.dir = Path(log_dir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self._jsonl = open(self.dir / "scalars.jsonl", "a")
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(str(self.dir))
+            except Exception:
+                self._tb = None
+
+    def log(self, step: int, values: dict, prefix: str = ""):
+        rec = {"step": step, "time": time.time()}
+        for k, v in values.items():
+            key = f"{prefix}{k}"
+            rec[key] = float(v)
+            if self._tb is not None:
+                self._tb.add_scalar(key, float(v), step)
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
+
+    def close(self):
+        self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()

@@ -53,6 +53,7 @@ def _run_both(jax_module, port_module, x, seed=0):
         seed + 1)
     want = jax_module.apply(variables, jnp.asarray(x))
     port_module.load_state_dict(flax_to_state_dict(variables))
+    port_module.eval()
     with torch.no_grad():
         got = port_module(_t(x))
     return got, want

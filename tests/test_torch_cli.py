@@ -236,10 +236,10 @@ def test_registry_builds_cas_mvsnet_and_names_what_is_not_ported():
 def test_dispatcher(run, capsys):
     with pytest.raises(SystemExit) as exc:
         cli_main(["--help"])
-    assert exc.value.code == 0 and "infer|fuse|evaluate" in \
+    assert exc.value.code == 0 and "train|infer|fuse|evaluate" in \
         capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli_main(["train"])
+    with pytest.raises(NotImplementedError, match="item 13"):
+        cli_main(["profile"])
     with pytest.raises(SystemExit, match="unknown command"):
         cli_main(["serve"])
     cli_main(["evaluate", "--out", str(run["out"]), "--gt", str(run["root"])])

@@ -63,6 +63,7 @@ def test_fused_block_matches_flax(relu):
     want = np.asarray(block.apply(variables, jnp.asarray(x)))
     port = FusedConvBlock3D(16, 8, relu=relu)
     port.load_state_dict(flax_to_state_dict(variables))
+    port.eval()
     with torch.no_grad():
         got = port(_t(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

@@ -59,7 +59,7 @@ def test_no_jax_or_mvs_tpu_import(path):
 
 def test_every_module_imports_without_pil_cv2_or_yaml():
     """The card's machine may lack PIL, cv2 and PyYAML: the port imports
-    them only when a JPEG or a YAML config is read."""
+    PIL or cv2 only when a JPEG is read, and never PyYAML."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('PIL', 'cv2', 'yaml'):\n"
