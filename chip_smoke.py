@@ -1,6 +1,6 @@
 """Drive the PyTorch port (mvs_tpu_torch) of CasMVSNet inference and
-training on one CUDA card, holding each hand-written kernel against its
-plain version.
+training and of CVP-MVSNet / AACVP-MVSNet inference on one CUDA card,
+holding each hand-written kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -54,10 +54,33 @@ Phases, in order; any failure exits non-zero:
          (images 640x512, depths 160x128) for 2 epochs with a val split and
          a checkpoint per epoch, with the launch counts of that run; then
          `infer --step best` and `--step latest` from its checkpoints;
+  8. CVP-MVSNet and AACVP-MVSNet at configs/cvp_eval_dtu.yaml's widths (5
+     levels, 48 coarse + 8 residual hypotheses, 16 feature channels,
+     regularizer base 16, 5 views), images 1600x1184 (data.align=32):
+     (a) the group-correlation kernel against its plain version at each
+         AACVP level shape, f32 and bf16, timed (kernel, plain, bound), and
+         at batch 2, C = 12 (scalar variant), D = 1, off-image and
+         behind-camera samples; the warp-variance and conv3d kernels at
+         CVP's coarsest and finest levels (every regularizer conv, the
+         stride-1 transposed block's 64->32 among them);
+     (b) seeded CVP and AACVP at 128x160, 3 levels, f32 and bf16, card
+         against CPU: each level's pre-softmax scores and depth, and the
+         confidence;
+     (c) full width through cli.infer.make_apply_fn, bf16 and f32, for both:
+         ms per map, peak memory, launches per kernel variant (exact: CVP 5
+         warp / 45 conv3d / 0 group correlation, AACVP 0 / 45 / 5), bf16
+         device ms by layer kind and the profiler's idle share;
+     (d) `infer --config configs/cvp_eval_dtu.yaml data.align=32` over a
+         synthetic DTU scan of 6 views at 1600x1200 for both (seeded bf16
+         weights saved as .pt): maps/s and launches; then `fuse` with the
+         config's thresholds writes a valid PLY;
+     (e) the same config at its own align 16 (1600x1200, a 75-row coarsest
+         level) raises the port's ValueError before any launch;
 then one JSON line listing the kernels (launches: per map, phase 4's run,
-and per train step for the backward kernel, phase 7c; cli_launches: phase
-6b's run and 7d's), and last
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+per train step for the backward kernel, phase 7c, per AACVP map for the
+group correlation, 8c; cli_launches: phase 6b's run, 7d's and 8d's;
+cvp_launches / cvp_cli_launches: CVP's per map, 8c, and through 8d), and
+last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -84,14 +107,18 @@ from mvs_tpu_torch.io import png as png_codec
 from mvs_tpu_torch.io import read_pfm, read_ply, write_pfm, write_ply
 from mvs_tpu_torch.io.dtu import DTUEvalDataset, collate_cascade
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
+from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.ops import _build
 from mvs_tpu_torch.ops.conv3d import conv3d_affine, conv3d_affine_plain
+from mvs_tpu_torch.ops.group_correlation import (
+    group_correlation_volume, group_correlation_volume_plain)
 from mvs_tpu_torch.ops.warp_variance import (
     fused_variance_volume, fused_variance_volume_grad,
     fused_variance_volume_grad_plain, fused_variance_volume_plain)
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.train.state import make_train_step
 from mvs_tpu_torch.train.tasks import CascadeTask, batch_to_device
+from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.make_synthetic_dtu import generate
 from mvs_tpu_torch.utils.platform import resolve_device
 from mvs_tpu_torch.utils.synthetic import make_plane_scene
@@ -120,11 +147,16 @@ STAGES = ((1, 4, 4 * BASE), (2, 2, 2 * BASE), (3, 1, BASE))
 # forward's; dref sums D terms in another order and dsrc sums its scattered
 # contributions with atomics in no fixed order, a few f32 ulps of the
 # largest partial sums. bf16: both sum in f32 and round once.
+# Group correlation (8a), f32: the same corners and weights as the plain
+# version; the kernel sums each channel over the views before the product
+# with ref, the plain version each view's group mean, a few f32 ulps of the
+# largest partial sums. bf16: both sum in f32 and round once.
 TOL = {("warp", torch.float32): 1e-4, ("conv", torch.float32): 1e-4,
-       ("warp_grad", torch.float32): 1e-4,
+       ("warp_grad", torch.float32): 1e-4, ("group", torch.float32): 1e-4,
        ("warp", torch.bfloat16): 2.0 ** -6,
        ("conv", torch.bfloat16): 2.0 ** -6,
-       ("warp_grad", torch.bfloat16): 2.0 ** -6}
+       ("warp_grad", torch.bfloat16): 2.0 ** -6,
+       ("group", torch.bfloat16): 2.0 ** -6}
 # Whole model, card against CPU: each stage's pre-softmax score volume may
 # differ by this fraction of its spread (max - min on the CPU). Images
 # perturbed by 1e-7 of their size, about one f32 rounding, move the scores of
@@ -149,6 +181,8 @@ def reset_counts() -> None:
     fused_variance_volume_grad.launches = 0
     conv3d_affine.launches = 0
     conv3d_affine.mma_launches = 0
+    group_correlation_volume.launches = 0
+    group_correlation_volume.vector_launches = 0
 
 
 def read_counts() -> dict:
@@ -156,7 +190,13 @@ def read_counts() -> dict:
             "warp_variance.vector": fused_variance_volume.vector_launches,
             "warp_variance_grad": fused_variance_volume_grad.launches,
             "conv3d_affine": conv3d_affine.launches,
-            "conv3d_affine.mma": conv3d_affine.mma_launches}
+            "conv3d_affine.mma": conv3d_affine.mma_launches,
+            "group_correlation": group_correlation_volume.launches,
+            "group_correlation.vector":
+                group_correlation_volume.vector_launches}
+
+
+NO_GROUP = {"group_correlation": 0, "group_correlation.vector": 0}
 
 
 def log(msg: str) -> None:
@@ -253,6 +293,23 @@ def conv_bound(b, d, h, w, cin, cout, dtype):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
 
 
+def ragged_volume_inputs(dtype, device):
+    """Cost-volume inputs with off-image and behind-camera samples (large
+    translations, depths from -3 to 12), C = 12 (not a multiple of the
+    kernels' 8-channel chunk), ragged sizes, batch 2, 3 sources, D = 7."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    b, v, d, h, w, c = 2, 3, 7, 37, 53, 12
+    feats = torch.randn((b, v + 1, h, w, c), generator=g).to(device, dtype)
+    rel = torch.eye(4).repeat(b, v, 1, 1)
+    rel[:, :, :3, :3] += torch.randn((b, v, 3, 3), generator=g) * 0.05
+    rel[:, :, :3, 3] = torch.randn((b, v, 3), generator=g) * torch.tensor(
+        [200.0, 200.0, 2.0])
+    hyp = torch.linspace(-3.0, 12.0, d)[None, :, None, None].expand(
+        b, d, h, w) + torch.rand((b, d, h, w), generator=g)
+    return (feats[:, 0].contiguous(), feats[:, 1:].contiguous(),
+            rel.to(device), hyp.contiguous().to(device))
+
+
 def phase_warp(scene, device):
     log("phase 2a: warp_variance kernel vs plain")
     rows = []
@@ -282,22 +339,8 @@ def phase_warp(scene, device):
                        seed=1)
     compare("warp", fused_variance_volume(*args),
             fused_variance_volume_plain(*args), "stage1 shape B=2 f32")
-    # Off-image and behind-camera samples, C not a multiple of the
-    # kernel's 8-channel chunk, ragged sizes.
-    g = torch.Generator(device="cpu").manual_seed(2)
-    b, v, d, h, w, c = 2, 3, 7, 37, 53, 12
-    feats = torch.randn((b, v + 1, h, w, c), generator=g).to(device)
-    rel = torch.eye(4).repeat(b, v, 1, 1)
-    rel[:, :, :3, :3] += torch.randn((b, v, 3, 3), generator=g) * 0.05
-    rel[:, :, :3, 3] = torch.randn((b, v, 3), generator=g) * torch.tensor(
-        [200.0, 200.0, 2.0])
-    rel = rel.to(device)
-    hyp = torch.linspace(-3.0, 12.0, d)[None, :, None, None].expand(
-        b, d, h, w) + torch.rand((b, d, h, w), generator=g)
-    hyp = hyp.contiguous().to(device)
     for dtype in (torch.float32, torch.bfloat16):
-        args = (feats[:, 0].contiguous().to(dtype),
-                feats[:, 1:].contiguous().to(dtype), rel, hyp)
+        args = ragged_volume_inputs(dtype, device)
         vec = fused_variance_volume.vector_launches
         compare("warp", fused_variance_volume(*args),
                 fused_variance_volume_plain(*args),
@@ -322,32 +365,55 @@ def conv_shapes():
     return shapes
 
 
+def check_conv(g, device, b, d, h, w, cin, cout, relu, dtype, what=""):
+    """conv3d_affine against its plain version on seeded inputs, on the
+    variant it should take: bf16 with Cin a multiple of 8 runs the
+    tensor-core kernel, f32 and other Cin the direct one. Returns (error,
+    inputs)."""
+    x = torch.randn((b, d, h, w, cin), generator=g).to(device, dtype)
+    wt = (torch.randn((cout, cin, 3, 3, 3), generator=g)
+          / (27 * cin) ** 0.5).to(device)
+    sc = (torch.rand(cout, generator=g) + 0.5).to(device)
+    sh = (torch.randn(cout, generator=g) * 0.1).to(device)
+    mma = conv3d_affine.mma_launches
+    err = compare("conv", conv3d_affine(x, wt, sc, sh, relu),
+                  conv3d_affine_plain(x, wt, sc, sh, relu),
+                  f"{what}({cin},{cout}) B={b} {d}x{h}x{w} relu={relu} "
+                  f"{str(dtype)[6:]}")
+    want = dtype is torch.bfloat16 and cin % 8 == 0
+    if conv3d_affine.mma_launches - mma != want:
+        fail(f"({cin},{cout}) {str(dtype)[6:]}: wrong kernel variant")
+    return err, (x, wt, sc, sh)
+
+
+def time_conv(err, x, wt, sc, sh, relu) -> dict:
+    """A bf16 conv's kernel, plain and library ms and its bounds. The
+    library yardstick: cuDNN's conv over the same channels-last view, the
+    affine folded into its weight and bias."""
+    wf = (wt * sc[:, None, None, None, None]).to(torch.bfloat16)
+    bias = sh.to(torch.bfloat16)
+    xv = x.permute(0, 4, 1, 2, 3)
+
+    def library():
+        y = F.conv3d(xv, wf, bias, padding=1)
+        return torch.relu_(y) if relu else y
+
+    ms = cuda_ms(lambda: conv3d_affine(x, wt, sc, sh, relu))
+    plain_ms = cuda_ms(lambda: conv3d_affine_plain(x, wt, sc, sh, relu),
+                       iters=3, warmup=1)
+    lib_ms = cuda_ms(library)
+    _, d, h, w, cin = x.shape
+    by, ops = conv_bound(1, d, h, w, cin, wt.shape[0], torch.bfloat16)
+    log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{lib_ms:.4f} ms, bound {max(by, ops):.4f} ms (bytes {by:.4f}, "
+        f"ops {ops:.4f})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bytes_ms=by, ops_ms=ops)
+
+
 def phase_conv(device):
     log("phase 2b: conv3d_affine kernel vs plain")
     g = torch.Generator(device="cpu").manual_seed(3)
-
-    def inputs(b, d, h, w, cin, cout, dtype):
-        x = torch.randn((b, d, h, w, cin), generator=g).to(device, dtype)
-        wt = (torch.randn((cout, cin, 3, 3, 3), generator=g)
-              / (27 * cin) ** 0.5).to(device)
-        sc = (torch.rand(cout, generator=g) + 0.5).to(device)
-        sh = (torch.randn(cout, generator=g) * 0.1).to(device)
-        return x, wt, sc, sh
-
-    def check(b, d, h, w, cin, cout, relu, dtype):
-        x, wt, sc, sh = inputs(b, d, h, w, cin, cout, dtype)
-        mma = conv3d_affine.mma_launches
-        err = compare("conv", conv3d_affine(x, wt, sc, sh, relu),
-                      conv3d_affine_plain(x, wt, sc, sh, relu),
-                      f"({cin},{cout}) B={b} {d}x{h}x{w} relu={relu} "
-                      f"{str(dtype)[6:]}")
-        # bf16 with Cin a multiple of 8 runs the tensor-core kernel; f32 and
-        # other Cin the direct one.
-        want = dtype is torch.bfloat16 and cin % 8 == 0
-        if conv3d_affine.mma_launches - mma != want:
-            fail(f"({cin},{cout}) {str(dtype)[6:]}: wrong kernel variant")
-        return err, (x, wt, sc, sh)
-
     # Every (Cin, Cout) pair of the main path, and (12, 8) for the direct
     # kernel in bf16, at sizes that are not multiples of the 8x16 (H x W)
     # tile: batch 2, D = 1 and D = 2, and D = 11 over enough tiles that the
@@ -357,34 +423,16 @@ def phase_conv(device):
         for dtype in (torch.float32, torch.bfloat16):
             for b, d, h, w in ((2, 5, 13, 37), (2, 1, 9, 17), (1, 2, 17, 33),
                                (1, 11, 90, 190)):
-                check(b, d, h, w, cin, cout, bool(i % 2), dtype)
+                check_conv(g, device, b, d, h, w, cin, cout, bool(i % 2),
+                           dtype)
     rows = []
     for cin, cout, d, h, w, relu in conv_shapes():
         # f32 at the main path's sizes too: the direct kernel's grid-stride
         # loop (over 4096 blocks) runs only at sizes this large.
-        check(1, d, h, w, cin, cout, relu, torch.float32)
-        err, (x, wt, sc, sh) = check(1, d, h, w, cin, cout, relu,
-                                     torch.bfloat16)
-        # The library yardstick: cuDNN's conv over the same channels-last
-        # view, the affine folded into its weight and bias.
-        wf = (wt * sc[:, None, None, None, None]).to(torch.bfloat16)
-        bias = sh.to(torch.bfloat16)
-        xv = x.permute(0, 4, 1, 2, 3)
-
-        def library():
-            y = F.conv3d(xv, wf, bias, padding=1)
-            return torch.relu_(y) if relu else y
-
-        ms = cuda_ms(lambda: conv3d_affine(x, wt, sc, sh, relu))
-        plain_ms = cuda_ms(lambda: conv3d_affine_plain(x, wt, sc, sh, relu),
-                           iters=3, warmup=1)
-        lib_ms = cuda_ms(library)
-        by, ops = conv_bound(1, d, h, w, cin, cout, torch.bfloat16)
-        log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{lib_ms:.4f} ms, bound {max(by, ops):.4f} ms (bytes {by:.4f}, "
-            f"ops {ops:.4f})")
-        rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bytes_ms=by, ops_ms=ops))
+        check_conv(g, device, 1, d, h, w, cin, cout, relu, torch.float32)
+        err, args = check_conv(g, device, 1, d, h, w, cin, cout, relu,
+                               torch.bfloat16)
+        rows.append(time_conv(err, *args, relu))
     return rows
 
 
@@ -498,7 +546,8 @@ def phase_full_width(scene, device):
             f"{peak:.3f} GiB allocated, launches {json.dumps(counts)}")
         want = {"warp_variance": 3, "warp_variance.vector": 3,
                 "warp_variance_grad": 0, "conv3d_affine": 15,
-                "conv3d_affine.mma": 15 if dtype is torch.bfloat16 else 0}
+                "conv3d_affine.mma": 15 if dtype is torch.bfloat16 else 0,
+                **NO_GROUP}
         if counts != want:
             fail(f"main path launches {counts}, want {want}")
         if depth.shape != (1, HEIGHT, WIDTH) or conf.shape != depth.shape:
@@ -693,7 +742,8 @@ def phase_scan_from_disk(work: Path, device, apply_ms: float,
     batches = -(-SCAN_VIEWS // 2)
     want = {"warp_variance": 3 * batches,
             "warp_variance.vector": 3 * batches, "warp_variance_grad": 0,
-            "conv3d_affine": 15 * batches, "conv3d_affine.mma": 15 * batches}
+            "conv3d_affine": 15 * batches, "conv3d_affine.mma": 15 * batches,
+            **NO_GROUP}
     log(f"  launches {json.dumps(counts)} over {batches} batches")
     if counts != want:
         fail(f"cli infer launches {counts}, want {want}")
@@ -910,7 +960,7 @@ TRAIN_H, TRAIN_W, TRAIN_BATCH = 512, 640, 4
 TRAIN_STEPS, CURVE_STEPS = 8, 30
 TRAIN_LAUNCHES = {"warp_variance": 3, "warp_variance.vector": 3,
                   "warp_variance_grad": 3, "conv3d_affine": 0,
-                  "conv3d_affine.mma": 0}
+                  "conv3d_affine.mma": 0, **NO_GROUP}
 # 7b, card against CPU, f32, TF32 off on both. The forward sums in another
 # order (cuDNN's convs, the kernels, the reductions of the batch moments):
 # loss to 1e-5 relative, the new statistics to 1e-4 of each vector's
@@ -1215,7 +1265,7 @@ def phase_cli_train(device):
         # batches of 3 warp and 15 conv launches (eval mode, bf16).
         want = {"warp_variance": 24, "warp_variance.vector": 24,
                 "warp_variance_grad": 12, "conv3d_affine": 60,
-                "conv3d_affine.mma": 60}
+                "conv3d_affine.mma": 60, **NO_GROUP}
         log(f"  {result['step']} steps, losses "
             + " ".join(f"{x:.4f}" for x in result["losses"])
             + f", {result['step'] * 2 / result['seconds']:.3f} samples/s "
@@ -1254,12 +1304,473 @@ def phase_training(device):
     return rows, counts, cli_counts
 
 
+# Phase 8. CVP-MVSNet and AACVP-MVSNet at the widths of
+# configs/cvp_eval_dtu.yaml: 5 levels, 48 coarse hypotheses, 8 residual
+# ones (num_offsets 4), 16 feature channels, regularizer base 16, 5 views,
+# epipolar interval, batch 1. Images 1600x1184 (data.align=32): at DTU's
+# 1600x1200 the coarsest level has 75 rows, which PyramidCostRegNet cannot
+# halve and double back (mvs_tpu fails there too; 8e checks the port's
+# error).
+CVP_CONFIG = Path(__file__).resolve().parent / "configs" / "cvp_eval_dtu.yaml"
+CVP_H, CVP_W, CVP_LEVELS, CVP_C, CVP_GROUPS = 1184, 1600, 5, 16, 4
+CVP_COARSE_D, CVP_FINE_D, CVP_BASE = 48, 8, 16
+CVP_RANGE = (8.0, 12.0)  # the depth range given to the plane scenes (z0 10)
+CVP_NAMES = ("cvp_mvsnet", "aacvp_mvsnet")
+# Launches per depth map, batch 1, by kernel variant. Every level runs one
+# cost volume and 9 stride-1 convs (7 blocks, the stride-1 transposed block,
+# the score conv). AACVP's attention adds f32 position embeddings to its
+# keys (as mvs_tpu does), so its features and cost volume are f32 in a bf16
+# model and its first two blocks run the direct conv kernel in f32; the
+# blocks after the stride-2 block (cast to bf16) take the tensor cores.
+CVP_LAUNCHES = {
+    ("cvp_mvsnet", torch.bfloat16): (5, 5, 45, 45, 0, 0),
+    ("cvp_mvsnet", torch.float32): (5, 5, 45, 0, 0, 0),
+    ("aacvp_mvsnet", torch.bfloat16): (0, 0, 45, 35, 5, 5),
+    ("aacvp_mvsnet", torch.float32): (0, 0, 45, 0, 5, 5),
+}
+CVP_SCAN_VIEWS = 6
+
+
+def cvp_want(name, dtype, maps=1) -> dict:
+    warp, vec, conv, mma, group, gvec = CVP_LAUNCHES[(name, dtype)]
+    return {"warp_variance": maps * warp, "warp_variance.vector": maps * vec,
+            "warp_variance_grad": 0, "conv3d_affine": maps * conv,
+            "conv3d_affine.mma": maps * mma,
+            "group_correlation": maps * group,
+            "group_correlation.vector": maps * gvec}
+
+
+def cvp_levels():
+    """(level, D, H, W) of the main path's cost volumes, coarsest first."""
+    return [(lv, CVP_COARSE_D if lv == CVP_LEVELS - 1 else CVP_FINE_D,
+             CVP_H >> lv, CVP_W >> lv) for lv in range(CVP_LEVELS - 1, -1, -1)]
+
+
+def cvp_volume_inputs(scene, level, d, dtype, device, c=CVP_C, batch=1,
+                      seed=0):
+    """Features, rel projections and hypotheses of one level's cost volume:
+    the coarsest level sweeps a global ladder, the finer ones 8 residual
+    hypotheses around a noisy plane depth, as the model does."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    h, w = CVP_H >> level, CVP_W >> level
+    feats = torch.randn((batch, VIEWS, h, w, c), generator=g).to(device,
+                                                                 dtype)
+    if level == CVP_LEVELS - 1:
+        hyp = torch.linspace(*CVP_RANGE, d, device=device)[:, None, None]
+        hyp = hyp.expand(d, h, w)
+    else:
+        depth = torch.tensor(scene.depths[0][::2 ** level, ::2 ** level],
+                             device=device)
+        noise = torch.randn((h, w), generator=g).to(device) * 0.05
+        steps = torch.arange(-d // 2, d // 2, device=device)[:, None, None]
+        hyp = depth + noise + steps * 0.02
+    hyp = hyp[None].expand(batch, d, h, w).contiguous()
+    rel = stage_geometry(scene, 2 ** level, device, batch)
+    return (feats[:, 0].contiguous(), feats[:, 1:].contiguous(), rel, hyp)
+
+
+def group_bound(b, v, d, h, w, c, g, itemsize):
+    """Least time of the group correlation: features and hypotheses read
+    once, the (B, D, H, W, G) volume written once; the least f32 work: per
+    (pixel, view) the rotation (12), per (depth, pixel, view) the
+    coordinates and corner weights (16), per (channel, view) the blend (7)
+    and the sum over views (1), per channel the product with ref and the
+    group sum (2), per group the scale (1)."""
+    nbytes = (b * (1 + v) * h * w * c * itemsize + b * d * h * w * 4
+              + b * v * 12 * 4 + b * d * h * w * g * itemsize)
+    ops = b * h * w * v * 12 + b * d * h * w * (v * (16 + 8 * c) + 2 * c + g)
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / PEAK_FLOPS[torch.float32] * 1e3)
+
+
+def check_group(args, groups, vector, what) -> float:
+    vec = group_correlation_volume.vector_launches
+    n = group_correlation_volume.launches
+    err = compare("group", group_correlation_volume(*args, groups),
+                  group_correlation_volume_plain(*args, groups), what)
+    if group_correlation_volume.launches != n + 1:
+        fail(f"{what}: group-correlation kernel not launched")
+    if group_correlation_volume.vector_launches - vec != int(vector):
+        fail(f"{what}: wrong variant (vector {vector} expected)")
+    return err
+
+
+def phase_cvp_kernels(scene, device):
+    log(f"phase 8a: kernels at CVP's shapes ({CVP_W}x{CVP_H}, "
+        f"{CVP_LEVELS} levels, {VIEWS} views, C={CVP_C})")
+    group_rows = []
+    for level, d, h, w in cvp_levels():
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cvp_volume_inputs(scene, level, d, dtype, device,
+                                     seed=level)
+            what = (f"group_correlation level{level} B=1 D={d} {w}x{h} "
+                    f"C={CVP_C} G={CVP_GROUPS} {str(dtype)[6:]}")
+            err = check_group(args, CVP_GROUPS, True, what)
+            ms = cuda_ms(lambda: group_correlation_volume(*args, CVP_GROUPS))
+            plain_ms = cuda_ms(
+                lambda: group_correlation_volume_plain(*args, CVP_GROUPS),
+                iters=3, warmup=1)
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            by, ops = group_bound(1, VIEWS - 1, d, h, w, CVP_C, CVP_GROUPS,
+                                  itemsize)
+            log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{max(by, ops):.4f} ms (bytes {by:.4f}, ops {ops:.4f})")
+            # AACVP's features are f32 in its bf16 model: that is the main
+            # path's type.
+            if dtype is torch.float32:
+                group_rows.append(dict(err=err, ms=ms, plain_ms=plain_ms,
+                                       bytes_ms=by, ops_ms=ops))
+    # Batch 2; C not a multiple of 8 (scalar variant) with off-image and
+    # behind-camera samples; D = 1.
+    args = cvp_volume_inputs(scene, CVP_LEVELS - 1, CVP_COARSE_D,
+                             torch.float32, device, batch=2, seed=9)
+    check_group(args, CVP_GROUPS, True, "group_correlation coarsest B=2 f32")
+    for dtype in (torch.float32, torch.bfloat16):
+        args = ragged_volume_inputs(dtype, device)
+        check_group(args, 3, False, f"group_correlation off-image/behind-"
+                    f"camera C=12 G=3 {str(dtype)[6:]} (scalar)")
+        one = (*args[:3], args[3][:, 3:4].contiguous())
+        check_group(one, 3, False, f"group_correlation D=1 C=12 G=3 "
+                    f"{str(dtype)[6:]}")
+
+    # The warp-variance and conv3d kernels at CVP's coarsest and finest
+    # levels (bf16, the CVP main path's type, timed; f32 checked).
+    for level, d in ((CVP_LEVELS - 1, CVP_COARSE_D), (0, CVP_FINE_D)):
+        h, w = CVP_H >> level, CVP_W >> level
+        for dtype in (torch.bfloat16, torch.float32):
+            args = cvp_volume_inputs(scene, level, d, dtype, device,
+                                     seed=level)
+            vec = fused_variance_volume.vector_launches
+            compare("warp", fused_variance_volume(*args),
+                    fused_variance_volume_plain(*args),
+                    f"warp_variance level{level} D={d} {w}x{h} C={CVP_C} "
+                    f"{str(dtype)[6:]}")
+            if fused_variance_volume.vector_launches != vec + 1:
+                fail("CVP warp not on the 16-byte vector variant")
+            if dtype is torch.bfloat16:
+                ms = cuda_ms(lambda: fused_variance_volume(*args))
+                by, ops = warp_bound(1, VIEWS - 1, d, h, w, CVP_C, 2)
+                log(f"    kernel {ms:.4f} ms, bound {max(by, ops):.4f} ms "
+                    f"(bytes {by:.4f}, ops {ops:.4f})")
+        b = CVP_BASE
+        full = [(CVP_GROUPS, b), (CVP_C, b), (b, b)]  # (4, b): AACVP's first
+        half = [(2 * b, 2 * b), (2 * b, 2 * b), (2 * b, 4 * b),
+                (4 * b, 4 * b), (4 * b, 4 * b), (4 * b, 2 * b)]
+        shapes = ([(ci, co, d, h, w, True) for ci, co in full]
+                  + [(ci, co, d // 2, h // 2, w // 2, True)
+                     for ci, co in half]
+                  + [(b, 1, d, h, w, False)])
+        cvp_conv_checks(shapes, level, device)
+    return group_rows
+
+
+def cvp_conv_checks(shapes, level, device):
+    """Every stride-1 conv of one level of PyramidCostRegNet (the last of
+    `half` is the stride-1 transposed block's 64->32) against its plain
+    version, f32 and bf16; bf16 timed as in phase 2b (AACVP's (4, 16) runs
+    in f32 on its main path)."""
+    g = torch.Generator(device="cpu").manual_seed(11 + level)
+    rows = []
+    for cin, cout, d, h, w, relu in shapes:
+        check_conv(g, device, 1, d, h, w, cin, cout, relu, torch.float32,
+                   f"conv3d level{level} ")
+        err, args = check_conv(g, device, 1, d, h, w, cin, cout, relu,
+                               torch.bfloat16, f"conv3d level{level} ")
+        if cin != CVP_GROUPS:
+            rows.append(time_conv(err, *args, relu))
+    log(f"  level {level}, CVP's {len(rows)} bf16 convs: kernel "
+        f"{sum(r['ms'] for r in rows):.4f} ms, plain "
+        f"{sum(r['plain_ms'] for r in rows):.4f} ms, library "
+        f"{sum(r['library_ms'] for r in rows):.4f} ms, bound "
+        f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in rows):.4f} ms")
+
+
+def cvp_config(name, dtype, *overrides):
+    return load_config(str(CVP_CONFIG), [
+        f"model.name={name}", f"model.compute_dtype={str(dtype)[6:]}",
+        "data.align=32", *overrides])
+
+
+def cvp_sample(scene):
+    return dict(imgs=scene.images, intrinsics=scene.intrinsics,
+                extrinsics=scene.extrinsics, depth_min=CVP_RANGE[0],
+                depth_max=CVP_RANGE[1])
+
+
+def phase_cvp_vs_cpu(device):
+    scene = make_plane_scene(num_views=VIEWS, height=128, width=160,
+                             z0=10.0, tilt=(0.05, 0.02))
+    for name in CVP_NAMES:
+        for dtype in (torch.float32, torch.bfloat16):
+            cvp_vs_cpu(name, scene, dtype, device)
+
+
+def cvp_vs_cpu(name, scene, dtype, device):
+    """Card (kernels) against CPU (plain versions) on one seeded model,
+    3 levels at 128x160. Limits as phase 3's, in units of the coarse
+    ladder's interval for depth; in bf16 each limit is also at least the
+    multiple of phase 3 of what one bf16 rounding of the images moves the
+    CPU's own outputs (logged), since a deeper pyramid carries a rounding
+    step further."""
+    log(f"phase 8b: {name} 3 levels 128x160 {str(dtype)[6:]}, card vs CPU")
+    model = build_model(cvp_config(name, dtype, "model.num_levels=3"),
+                        torch.Generator().manual_seed(7))
+    scores, levels = [], []
+    hooks = [model.PyramidCostRegNet_0.register_forward_hook(
+                 lambda m, a, out: scores.append(out.float().cpu())),
+             model.register_forward_hook(
+                 lambda m, a, out: levels.append(
+                     [d.float().cpu() for d in out["depth_levels"]]))]
+    inputs = stack_model_inputs([cvp_sample(scene)], "cpu", "pyramid")
+    cpu = [t.float() for t in make_apply_fn(model, "cpu")(*inputs)]
+    moved = None
+    if dtype is torch.bfloat16:  # the yardstick of the bf16 limits
+        sign = torch.from_numpy(np.random.default_rng(0).choice(
+            [-1.0, 1.0], size=tuple(inputs[0].shape)).astype(np.float32))
+        nudged = [t.float() for t in make_apply_fn(model, "cpu")(
+            inputs[0] * (1 + sign * 2.0 ** -8), *inputs[1:])]
+        moved = dict(
+            score=[((b - a).abs() / (a.max() - a.min()))
+                   for a, b in zip(scores[:3], scores[3:6])],
+            depth=[(b - a).abs() for a, b in zip(levels[0], levels[1])],
+            conf=(nudged[1] - cpu[1]).abs())
+        del scores[3:], levels[1:]
+    card = [t.float().cpu() for t in make_apply_fn(model, device)(
+        *stack_model_inputs([cvp_sample(scene)], device, "pyramid"))]
+    for h in hooks:
+        h.remove()
+    max_tol, mean_tol = SCORE_TOL[dtype]
+    for i, (s_cpu, s_card) in enumerate(zip(scores[:3], scores[3:])):
+        spread = (s_cpu.max() - s_cpu.min()).item()
+        diff = (s_card - s_cpu).abs()
+        err, mean = diff.max().item() / spread, diff.mean().item() / spread
+        lim_max, lim_mean = max_tol, mean_tol
+        note = ""
+        if moved is not None:
+            m = moved["score"][i]
+            lim_max = max(max_tol, 4 * m.max().item())
+            lim_mean = max(mean_tol, 6 * m.mean().item())
+            note = (f"; one bf16 rounding of the images moves the CPU's by "
+                    f"max {m.max().item():.3e}, mean {m.mean().item():.3e}")
+        log(f"  level {2 - i} score {tuple(s_cpu.shape)}: |card-cpu| max "
+            f"{err:.3e}, mean {mean:.3e} of its spread {spread:.4f} (limits "
+            f"{lim_max:.3e}, {lim_mean}){note}")
+        if not err <= lim_max or (lim_mean is not None
+                                  and not mean <= lim_mean):
+            fail(f"{name} level {2 - i} card scores differ from CPU scores")
+    unit = (CVP_RANGE[1] - CVP_RANGE[0]) / (CVP_COARSE_D - 1)
+    max_tol, mean_tol = DEPTH_TOL[dtype]
+    for lv, (d_cpu, d_card) in enumerate(zip(levels[0], levels[1])):
+        err = (d_card - d_cpu).abs() / unit
+        lim_max, lim_mean = max_tol, mean_tol
+        if moved is not None:
+            m = moved["depth"][lv] / unit
+            lim_max = max(max_tol, 14 * m.max().item())
+            lim_mean = max(mean_tol, 14 * m.mean().item())
+        log(f"  level {lv} depth |card-cpu| in coarse intervals ({unit:.4f}):"
+            f" max {err.max().item():.3e} mean {err.mean().item():.3e} "
+            f"(limits {lim_max:.3e}, {lim_mean:.3e}); range "
+            f"[{d_cpu.min().item():.4f}, {d_cpu.max().item():.4f}]")
+        if not (err.max() <= lim_max and err.mean() <= lim_mean):
+            fail(f"{name} level {lv} card depth differs from CPU depth")
+    c_err = (card[1] - cpu[1]).abs()
+    share_lim = 1e-3
+    if moved is not None:
+        share_lim = max(share_lim, 4 * (moved["conf"] > 1e-3).float().mean()
+                        .item())
+    share = (c_err > 1e-3).float().mean().item()
+    log(f"  confidence |card-cpu| max {c_err.max().item():.3e} mean "
+        f"{c_err.mean().item():.3e}, > 1e-3 on {share:.3e} of the pixels "
+        f"(limit {share_lim:.3e})")
+    if share > share_lim or c_err.mean() > max(1e-3, share_lim):
+        fail(f"{name} card confidence differs from CPU confidence")
+
+
+def cvp_breakdown(model, apply_fn, args) -> dict:
+    """Device ms of one map by layer kind, from CUDA events around the
+    feature net (minus its attention), the attention, the cost volumes and
+    the regularizer; 'rest': the resizes, projections, epipolar intervals,
+    hypotheses and regressions."""
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    spans, stack, hooks = [], [], []
+    kinds = {"feature net": model.PyramidFeatureNet_0,
+             "regularizer": model.PyramidCostRegNet_0}
+    if model.PyramidFeatureNet_0.attention:
+        kinds["attention"] = model.PyramidFeatureNet_0.AttentionConv_0
+    for kind, module in kinds.items():
+        hooks.append(module.register_forward_pre_hook(
+            lambda m, a, kind=kind: stack.append((kind, event()))))
+        hooks.append(module.register_forward_hook(
+            lambda m, a, out: spans.append((*stack.pop(), event()))))
+    cost_volume = model._cost_volume
+
+    def timed(*a):
+        start = event()
+        out = cost_volume(*a)
+        spans.append(("cost volume", start, event()))
+        return out
+
+    model._cost_volume = timed
+    try:
+        start = event()
+        apply_fn(*args)
+        end = event()
+        torch.cuda.synchronize()
+    finally:
+        del model._cost_volume
+        for h in hooks:
+            h.remove()
+    ms = {}
+    for kind, a, b in spans:
+        ms[kind] = ms.get(kind, 0.0) + a.elapsed_time(b)
+    total = start.elapsed_time(end)
+    if "attention" in ms:
+        ms["feature net"] -= ms["attention"]
+    ms["rest"] = total - sum(ms.values())
+    ms["total"] = total
+    return {k: round(v, 4) for k, v in ms.items()}
+
+
+def phase_cvp_full_width(scene, device):
+    log(f"phase 8c: full width {CVP_W}x{CVP_H}, {VIEWS} views, "
+        f"{CVP_LEVELS} levels, {CVP_COARSE_D} + 4 x {CVP_FINE_D} "
+        f"hypotheses, batch 1")
+    result = {}
+    args = stack_model_inputs([cvp_sample(scene)], device, "pyramid")
+    for name in CVP_NAMES:
+        for dtype in (torch.bfloat16, torch.float32):
+            model = build_model(cvp_config(name, dtype),
+                                torch.Generator().manual_seed(0))
+            apply_fn = make_apply_fn(model, device)
+            apply_fn(*args)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            depth, conf = apply_fn(*args)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            t0 = time.perf_counter()
+            for _ in range(3):
+                apply_fn(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+            log(f"  {name} {str(dtype)[6:]}: {ms:.2f} ms per depth map, "
+                f"peak {peak:.3f} GiB allocated, launches "
+                f"{json.dumps(counts)}")
+            want = cvp_want(name, dtype)
+            if counts != want:
+                fail(f"{name} {str(dtype)[6:]} launches {counts}, want "
+                     f"{want}")
+            if depth.shape != (1, CVP_H, CVP_W) or conf.shape != depth.shape:
+                fail(f"output shapes {tuple(depth.shape)} {tuple(conf.shape)}")
+            if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()
+                    and ((conf >= 0) & (conf <= 1 + 1e-5)).all()):
+                fail(f"{name} full-width outputs not finite or confidence "
+                     f"outside [0, 1]")
+            if dtype is torch.bfloat16:
+                result[name] = (counts, ms, peak)
+                log("  bf16 device ms by layer kind, one run: "
+                    + json.dumps(cvp_breakdown(model, apply_fn, args)))
+                profile_run(apply_fn, args)
+            del model, apply_fn
+    return result
+
+
+def phase_cvp_from_disk(device):
+    """8d: cli infer with configs/cvp_eval_dtu.yaml (data.align=32) over a
+    synthetic DTU scan at 1600x1200, for CVP and AACVP, then cli fuse with
+    the config's thresholds; 8e: the same config at align 16 raises before
+    any launch."""
+    log(f"phase 8d: cli infer --config configs/cvp_eval_dtu.yaml "
+        f"data.align=32 over a synthetic DTU scan of {CVP_SCAN_VIEWS} views "
+        f"at 1600x1200 (cut to {CVP_W}x{CVP_H}), bf16, batch 1")
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        # DTU's 1600x1200; align 32 cuts the rows to CVP_H.
+        root = generate(work / "dtu", num_scans=1, num_views=CVP_SCAN_VIEWS,
+                        height=CVP_H + 16, width=CVP_W, num_depth=LADDER,
+                        tilt=SCAN_TILT, train_layout=False)
+        log(f"  written in {time.perf_counter() - t0:.2f} s")
+        data = [f"data.eval_root={root}",
+                f"data.eval_list={root / 'lists' / 'test.txt'}"]
+        for name in CVP_NAMES:
+            ckpt = work / f"{name}.pt"
+            torch.save(build_model(cvp_config(name, torch.bfloat16),
+                                   torch.Generator().manual_seed(0)
+                                   ).state_dict(), ckpt)
+            out = work / f"out_{name}"
+            reset_counts()
+            result = cli_infer.main([
+                "--config", str(CVP_CONFIG), "--ckpt", str(ckpt), "--out",
+                str(out), "--device", str(device), f"model.name={name}",
+                "data.align=32", *data])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = cvp_want(name, torch.bfloat16, CVP_SCAN_VIEWS)
+            log(f"  {name}: {result['maps']} maps in {result['seconds']:.4f} "
+                f"s through the CLI: {result['maps'] / result['seconds']:.4f}"
+                f" maps/s; launches {json.dumps(counts)}")
+            if counts != want or result["maps"] != CVP_SCAN_VIEWS:
+                fail(f"cli infer {name} launches {counts}, want {want}")
+            check_files(out / "scan1", CVP_SCAN_VIEWS, CVP_H, CVP_W)
+            cli[name] = counts
+        ply = cli_fuse.main(["--config", str(CVP_CONFIG), "--out",
+                             str(work / "out_cvp_mvsnet"), "--device",
+                             str(device), f"data.eval_root={root}"])[0]
+        cloud = read_ply(ply)
+        n = len(cloud["xyz"])
+        if (cloud["xyz"].shape != (n, 3)
+                or not np.isfinite(cloud["xyz"]).all()
+                or cloud["rgb"].shape != (n, 3)):
+            fail(f"{ply}: not a valid coloured cloud")
+        log(f"  cli fuse (the config's thresholds) over the CVP maps: "
+            f"{ply.name}, {n} points, finite, coloured")
+
+        log("phase 8e: the same config at data.align=16 (1600x1200: a "
+            "75-row coarsest level)")
+        reset_counts()
+        try:
+            cli_infer.main(["--config", str(CVP_CONFIG), "--ckpt",
+                            str(work / "cvp_mvsnet.pt"), "--out",
+                            str(work / "out_align16"), "--device",
+                            str(device), *data])
+        except ValueError as err:
+            log(f"  raised ValueError: {err}")
+            if "divisible by 2^5 = 32" not in str(err):
+                fail("align 16 raised another error")
+        else:
+            fail("align 16 ran: the reference cannot")
+        counts = read_counts()
+        if any(counts.values()):
+            fail(f"align 16 launched kernels before it raised: {counts}")
+        log(f"  launches before the error {json.dumps(counts)}")
+    return cli
+
+
+def phase_cvp(device):
+    scene = make_plane_scene(num_views=VIEWS, height=CVP_H, width=CVP_W,
+                             z0=10.0)
+    group_rows = phase_cvp_kernels(scene, device)
+    phase_cvp_vs_cpu(device)
+    full = phase_cvp_full_width(scene, device)
+    cli = phase_cvp_from_disk(device)
+    return group_rows, full, cli
+
+
 def kernel_entry(name, source, replaces, rows, launches, cli_launches,
-                 library):
+                 library, **extra):
     """Times and bounds are sums over one bf16 map's launches (phase 2; 7a
-    for the backward: one train step's three); launches are per map (phase
-    4) or per train step (7c), cli_launches over phase 6b's 11 maps or 7d's
-    cli train run."""
+    for the backward: one train step's three; 8a for the group correlation:
+    an AACVP map's five, f32 as its bf16 model feeds them); launches are per
+    map (phase 4, 8c) or per train step (7c), cli_launches over phase 6b's
+    11 maps, 7d's cli train run or 8d's 6 maps."""
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
@@ -1272,6 +1783,7 @@ def kernel_entry(name, source, replaces, rows, launches, cli_launches,
                      >= sum(r["ops_ms"] for r in rows) else "operations"),
         "library_ms": (sum(r["library_ms"] for r in rows) if library
                        else None),
+        **extra,
     }
 
 
@@ -1292,25 +1804,41 @@ def main() -> int:
     built = _build.build()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
+    t_start = time.perf_counter()
+
+    def timed(n, result):
+        log(f"  phase {n} done, {time.perf_counter() - t_start:.1f} s since "
+            f"the build")
+        return result
+
     scene = make_plane_scene(num_views=VIEWS, height=HEIGHT, width=WIDTH,
                              z0=10.0)
     warp_rows = phase_warp(scene, device)
-    conv_rows = phase_conv(device)
-    phase_model_vs_cpu(device)
-    launches, apply_ms = phase_full_width(scene, device)
-    phase_batched(scene, device)
-    cli_launches = phase_user_path(device, apply_ms)
-    grad_rows, train_counts, cli_train_counts = phase_training(device)
+    conv_rows = timed(2, phase_conv(device))
+    timed(3, phase_model_vs_cpu(device))
+    launches, apply_ms = timed(4, phase_full_width(scene, device))
+    timed(5, phase_batched(scene, device))
+    cli_launches = timed(6, phase_user_path(device, apply_ms))
+    grad_rows, train_counts, cli_train_counts = timed(
+        7, phase_training(device))
+    del scene
+    group_rows, cvp_full, cvp_cli = timed(8, phase_cvp(device))
 
+    cvp, aacvp = cvp_full["cvp_mvsnet"][0], cvp_full["aacvp_mvsnet"][0]
     kernels = [
         kernel_entry("warp_variance", "mvs_tpu_torch/csrc/warp_variance.cu",
                      "mvs_tpu/ops/warp_pallas.py:288", warp_rows,
                      launches["warp_variance"],
-                     cli_launches["warp_variance"], library=False),
+                     cli_launches["warp_variance"], library=False,
+                     cvp_launches=cvp["warp_variance"],
+                     cvp_cli_launches=cvp_cli["cvp_mvsnet"]["warp_variance"]),
         kernel_entry("conv3d_affine", "mvs_tpu_torch/csrc/conv3d_affine.cu",
                      "mvs_tpu/ops/conv3d_pallas.py:259", conv_rows,
                      launches["conv3d_affine"],
-                     cli_launches["conv3d_affine"], library=True),
+                     cli_launches["conv3d_affine"], library=True,
+                     cvp_launches=cvp["conv3d_affine"],
+                     cvp_cli_launches=cvp_cli["cvp_mvsnet"]["conv3d_affine"],
+                     aacvp_launches=aacvp["conv3d_affine"]),
         # The backward has no Pallas counterpart (JAX trains through XLA's
         # gather path); it is the gradient of the kernel above. launches:
         # per train step (7c); cli_launches: 7d's cli train run.
@@ -1319,6 +1847,15 @@ def main() -> int:
                      "mvs_tpu/ops/warp_pallas.py:288", grad_rows,
                      train_counts["warp_variance_grad"],
                      cli_train_counts["warp_variance_grad"], library=False),
+        # No pallas_call of its own: the counterpart of the fused
+        # group-correlation mode of the banded warp (hat_warp.py:413-417,
+        # 477). launches: per AACVP map (8c); cli_launches: 8d's AACVP run.
+        kernel_entry("group_correlation",
+                     "mvs_tpu_torch/csrc/group_correlation.cu",
+                     "mvs_tpu/ops/hat_warp.py:413", group_rows,
+                     aacvp["group_correlation"],
+                     cvp_cli["aacvp_mvsnet"]["group_correlation"],
+                     library=False),
     ]
     log(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))

@@ -20,8 +20,10 @@ reads: ``<scan>/depth_est/<ref>.pfm``, ``<scan>/confidence/<ref>.pfm`` and
 ``<scan>/cams/<ref>_cam.txt`` with the intrinsics at depth-map resolution.
 
 A sample is a dict as the JAX eval dataset yields it: imgs (V, H, W, 3),
-intrinsics (V, 3, 3), extrinsics (V, 4, 4), depth_values (D,), and scan,
-ref_view, depth_min, depth_interval, depth_max for the writer.
+intrinsics (V, 3, 3), extrinsics (V, 4, 4), depth_values (D,), depth_min,
+depth_max (CVP-MVSNet's range), and scan, ref_view, depth_interval for the
+writer. The model (`model.name`: cas_mvsnet, cvp_mvsnet or aacvp_mvsnet)
+picks which of them it takes.
 """
 
 from __future__ import annotations
@@ -49,21 +51,30 @@ __all__ = ["main", "make_apply_fn", "stack_model_inputs",
            "run_batched_inference", "write_depth_outputs"]
 
 
-def stack_model_inputs(samples, device) -> tuple:
-    """Stack same-shaped samples into CasMVSNet's (imgs, proj, depth_values)."""
+def stack_model_inputs(samples, device, family: str = "cascade") -> tuple:
+    """Stack same-shaped samples into a model family's inputs (the model's
+    ``family``): CasMVSNet's (imgs, proj, depth_values) for "cascade",
+    CVP-MVSNet's (imgs, intrinsics, extrinsics, depth_min, depth_max) for
+    "pyramid"."""
     def stack(key):
         return torch.from_numpy(
             np.stack([np.asarray(s[key], np.float32) for s in samples])
         ).to(device)
 
     intr, extr = stack("intrinsics"), stack("extrinsics")
+    if family == "pyramid":
+        return (stack("imgs"), intr, extr, stack("depth_min"),
+                stack("depth_max"))
+    if family != "cascade":
+        raise ValueError(f"unknown model family {family!r}")
     proj = {f"stage{i + 1}": compose_projection(scale_intrinsics(intr, f), extr)
             for i, f in enumerate((0.25, 0.5, 1.0))}
     return stack("imgs"), proj, stack("depth_values")
 
 
 def make_apply_fn(model, device=None):
-    """The inference program: (imgs, proj, depth_values) -> (depth, conf).
+    """The inference program: the model's inputs (stack_model_inputs) ->
+    (depth, conf).
 
     Moves `model` to `device` (the CUDA card unless the caller passes
     device='cpu') and runs it in eval mode without autograd. Its float32
@@ -72,12 +83,15 @@ def make_apply_fn(model, device=None):
     device = resolve_device(device)
     model.to(device).eval()
 
+    def to_device(x):
+        if isinstance(x, dict):
+            return {k: v.to(device) for k, v in x.items()}
+        return x.to(device)
+
     @torch.inference_mode()
-    def apply(imgs, proj_matrices, depth_values):
+    def apply(*inputs):
         with full_f32():
-            out = model(imgs.to(device),
-                        {k: p.to(device) for k, p in proj_matrices.items()},
-                        depth_values.to(device))
+            out = model(*map(to_device, inputs))
         return out["depth"], out["photometric_confidence"]
 
     return apply
@@ -92,7 +106,8 @@ def run_batched_inference(model, samples_iter, batch_size: int, device=None):
     def flush(bucket):
         batch = pending.pop(bucket)
         padded = batch + [batch[-1]] * (batch_size - len(batch))
-        depth, conf = apply_fn(*stack_model_inputs(padded, device))
+        depth, conf = apply_fn(*stack_model_inputs(padded, device,
+                                                   model.family))
         depth = depth.float().cpu().numpy()
         conf = conf.float().cpu().numpy()
         for j, s in enumerate(batch):

@@ -1,0 +1,210 @@
+// Fused plane-sweep warp + group-wise correlation cost volume for Hopper
+// (sm_90a): AACVP-MVSNet's cost.
+//
+// The counterpart of the JAX package's fused group-correlation mode
+// (mvs_tpu/ops/hat_warp.py, fused_variance_volume_banded with
+// mode="group_correlation", the TPU path of AACVP's refine levels) and of
+// group_correlation_cost_volume with the exact gather sampler
+// (mvs_tpu/ops/cost_volume.py). It has no pallas_call of its own. For every
+// output (b, d, pixel, g) it computes
+//
+//   (1/V) sum_v (1/Cg) sum_{c in group g} bilinear_v(c) * ref(c),
+//
+// Cg = C / G channels per group, over the V source views (the reference
+// view is not a term). Each (pixel, depth) is projected into each source
+// view with the coordinate steps of mvs_common.cuh (rotate_row,
+// sample_record), which round as plane_sweep_coords does, so it samples
+// the same corners with the same weights as the warp-variance kernel; a
+// point with z <= 1e-3 is sent off the image, and a corner off the image
+// reads as zero. Sums are f32; features and the output are f32 or bf16. No
+// per-view warped volume reaches device memory: the output is (B, D, H, W,
+// G), G = 4 values per (pixel, depth) where the variance volume has C = 16.
+//
+// What bounds it on the card: with C = 16, G = 4 and 4 source views the
+// output is 4 values per (pixel, depth) but the arithmetic is ~600 f32
+// operations (per view the projection and 16 channels of 4-corner blends),
+// so f32 operations and bytes are close (chip_smoke.py computes both least
+// times for each call).
+//
+// Design, simple first: one thread per pixel walks a group of depths. It
+// rotates its pixel into each view once (shared memory, kept across the
+// depths), then per depth writes one 16-byte sample record per view (corner
+// offset, wx, wy, validity bits) to shared memory and walks the channels in
+// chunks of 8: the chunk of ref once, then per view the four corners as
+// 16-byte loads (8 bf16; two for f32) when C % 8 == 0 and the rows are
+// 16-byte aligned (kVec, chosen by the wrapper), else masked scalar loads.
+// Per channel it sums the views' samples, multiplies by ref, and closes a
+// group's sum when its last channel is done. Blocks split the depths until
+// the card has 8 blocks per SM.
+//
+// C interface (loaded with ctypes, see mvs_tpu_torch/ops/group_correlation.py):
+// every pointer is a device pointer to contiguous memory,
+//   ref  (B, H, W, C)      T
+//   src  (B, V, H, W, C)   T
+//   geom (B, V, 12)        f32: rows of R (9 values) then t (3) of src @ ref^-1
+//   hyp  (B, D, H, W)      f32 per-pixel depth hypotheses
+//   out  (B, D, H, W, G)   T
+// with T = float (dtype 0) or __nv_bfloat16 (dtype 1) and C % G == 0; vec = 1
+// selects the 16-byte loads (C % 8 == 0, 16-byte-aligned pointers). It
+// launches on `stream` and returns cudaGetLastError().
+
+#include "mvs_common.cuh"
+
+namespace {
+
+using mvs::blend;
+using mvs::from_f32;
+using mvs::load8;
+using mvs::sample_record;
+
+constexpr int kThreads = 128;       // one pixel per thread
+constexpr int kMinBlocksPerSm = 8;  // split depths until this many blocks
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+group_correlation_kernel(const T* __restrict__ ref, const T* __restrict__ src,
+                         const float* __restrict__ geom,
+                         const float* __restrict__ hyp, T* __restrict__ out,
+                         int V, int D, int H, int W, int C, int G,
+                         int dgroup) {
+  // [V][kThreads] sample records, [V][3][kThreads] rotated pixels (thread t
+  // owns column t of each), then the batch's (V, 12) geometry.
+  extern __shared__ int4 smem[];
+  const int tid = threadIdx.x;
+  int4* rec = smem;
+  float* rot = reinterpret_cast<float*>(smem + V * kThreads);
+  float* sgeom = rot + 3 * V * kThreads;
+
+  const int b = blockIdx.z;
+  const int d0 = blockIdx.y * dgroup;
+  const int d1 = min(D, d0 + dgroup);
+  const int hw = H * W;
+  for (int i = tid; i < V * 12; i += kThreads)
+    sgeom[i] = geom[(int64_t)b * V * 12 + i];
+  __syncthreads();
+
+  const int p = blockIdx.x * kThreads + tid;
+  if (p >= hw) return;  // no barrier follows
+  const int px = p % W, py = p / W;
+  for (int v = 0; v < V; ++v) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      rot[(v * 3 + i) * kThreads + tid] =
+          mvs::rotate_row(sgeom + v * 12, i, px, py);
+  }
+
+  const int vstride = hw * C;  // < 2^31, checked at launch
+  const int rowc = W * C;
+  const T* refp = ref + (int64_t)b * vstride + p * C;
+  const T* srcb = src + (int64_t)b * V * vstride;
+  const int cg = C / G;
+  const float scale = 1.f / (float)(cg * V);
+
+  for (int d = d0; d < d1; ++d) {
+    const int64_t at = ((int64_t)b * D + d) * hw + p;
+    const float dep = __ldg(hyp + at);
+    for (int v = 0; v < V; ++v)
+      rec[v * kThreads + tid] =
+          sample_record(rot + v * 3 * kThreads + tid, kThreads,
+                        sgeom + v * 12, dep, W, H, C);
+    T* o = out + at * G;
+    float gsum = 0.f;
+    int g = 0, group_end = cg;
+    for (int c0 = 0; c0 < C; c0 += 8) {
+      const int nc = min(8, C - c0);
+      float r[8], acc[8];
+      load8<kVec>(refp + c0, true, nc, r);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+      for (int v = 0; v < V; ++v) {
+        float f[8];
+        blend<kVec>(srcb + (int64_t)v * vstride + c0, rec[v * kThreads + tid],
+                    nc, C, rowc, f);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[k] += f[k];
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (k < nc) {
+          gsum += r[k] * acc[k];
+          if (c0 + k + 1 == group_end) {  // the group's last channel
+            o[g] = from_f32<T>(gsum * scale);
+            ++g;
+            group_end += cg;
+            gsum = 0.f;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, bool kVec>
+int launch(const void* ref, const void* src, const void* geom,
+           const void* hyp, void* out, int B, int V, int D, int H, int W,
+           int C, int G, cudaStream_t stream) {
+  const int64_t hw = (int64_t)H * W;
+  if (B == 0 || D == 0 || hw == 0) return cudaSuccess;
+  if (V <= 0 || C <= 0 || G <= 0 || C % G != 0)
+    return (int)cudaErrorInvalidValue;
+  if ((hw + W + 1) * C > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)V * (kThreads * 16 + 3 * kThreads * 4 + 48);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // many views: opt in to more shared memory
+    cudaError_t err = cudaFuncSetAttribute(
+        group_correlation_kernel<T, kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int64_t tiles = (hw + kThreads - 1) / kThreads;
+  // All depths in one block unless that leaves too few blocks to fill the
+  // card: each split rotates the pixel once more.
+  int dgroup = D;
+  while (dgroup > 1 &&
+         tiles * B * ((D + dgroup - 1) / dgroup) < kMinBlocksPerSm * sms)
+    dgroup = (dgroup + 1) / 2;
+  const int64_t groups = (D + dgroup - 1) / dgroup;
+  if (tiles > INT32_MAX || groups > 65535 || B > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)tiles, (unsigned)groups, (unsigned)B);
+  group_correlation_kernel<T, kVec><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(ref), static_cast<const T*>(src),
+      static_cast<const float*>(geom), static_cast<const float*>(hyp),
+      static_cast<T*>(out), V, D, H, W, C, G, dgroup);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_t(const void* ref, const void* src, const void* geom,
+             const void* hyp, void* out, int B, int V, int D, int H, int W,
+             int C, int G, int vec, cudaStream_t stream) {
+  if (vec)
+    return launch<T, true>(ref, src, geom, hyp, out, B, V, D, H, W, C, G,
+                           stream);
+  return launch<T, false>(ref, src, geom, hyp, out, B, V, D, H, W, C, G,
+                          stream);
+}
+
+}  // namespace
+
+extern "C" int mvs_group_correlation(const void* ref, const void* src,
+                                     const void* geom, const void* hyp,
+                                     void* out, int B, int V, int D, int H,
+                                     int W, int C, int G, int dtype, int vec,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec && C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_t<float>(ref, src, geom, hyp, out, B, V, D, H, W, C, G, vec,
+                           s);
+  if (dtype == 1)
+    return launch_t<__nv_bfloat16>(ref, src, geom, hyp, out, B, V, D, H, W, C,
+                                   G, vec, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -92,31 +92,16 @@
 
 namespace {
 
+using mvs::blend;
+using mvs::corner_weights;
 using mvs::from_f32;
-using mvs::to_f32;
+using mvs::load8;
+using mvs::sample_record;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;  // one pixel per thread per tile
 constexpr int kMinBlocksPerSm = 8;     // split depths until this many blocks
 constexpr int kTileW = 16, kTileH = 8;  // block tile: 2 x 2 warps of 8 x 4
-
-__device__ __forceinline__ void vec_load8(const float* p, float* v) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-__device__ __forceinline__ void vec_load8(const __nv_bfloat16* p, float* v) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
 
 // Stores stream past L2 (evict first), which keeps the features resident.
 __device__ __forceinline__ void vec_store8(float* p, const float* v) {
@@ -132,20 +117,6 @@ __device__ __forceinline__ void vec_store8(__nv_bfloat16* p, const float* v) {
                     mvs::pack_bf16x2(v[6], v[7])));
 }
 
-// Channels c0 .. c0+7 of one feature row (the first nc of them when !kVec),
-// zero where `ok` is false.
-template <bool kVec, typename T>
-__device__ __forceinline__ void load8(const T* p, bool ok, int nc, float* v) {
-  if constexpr (kVec) {
-    if (ok) {
-      vec_load8(p, v);
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = (ok && k < nc) ? to_f32(p[k]) : 0.f;
-}
-
 template <bool kVec, typename T>
 __device__ __forceinline__ void store8(T* p, int nc, const float* v) {
   if constexpr (kVec) {
@@ -157,88 +128,19 @@ __device__ __forceinline__ void store8(T* p, int nc, const float* v) {
   }
 }
 
-// The coordinate steps, shared by the forward and the backward kernel so
-// that both sample the same corners with the same weights.
-//
 // Lane l rotates pixel l of its warp's 8 x 4 patch into each view: rot[v *
-// 96 + i * 32 + l] = row i of R_v @ [x, y, 1]. Same order as
-// plane_sweep_coords: the _rn intrinsics keep nvcc from contracting these
-// into fused multiply-adds, so every step rounds once as the elementwise
-// PyTorch version does.
+// 96 + i * 32 + l] = row i of R_v @ [x, y, 1] (mvs::rotate_row), kept in
+// shared memory across depths; mvs::sample_record reads it back with a
+// stride of 32.
 __device__ __forceinline__ void rotate_pixel(const float* sgeom, float* rot,
                                              int V, int px, int py,
                                              int lane) {
   for (int v = 0; v < V; ++v) {
-    const float* g = sgeom + v * 12;
 #pragma unroll
     for (int i = 0; i < 3; ++i)
       rot[v * 96 + i * 32 + lane] =
-          __fadd_rn(__fadd_rn(__fmul_rn(g[3 * i], (float)px),
-                              __fmul_rn(g[3 * i + 1], (float)py)),
-                    g[3 * i + 2]);
+          mvs::rotate_row(sgeom + v * 12, i, px, py);
   }
-}
-
-// The sample record of a rotated pixel (rot: its 3 rows, 32 apart) at depth
-// `dep` in the view with geometry g: (corner offset in elements, wx, wy,
-// corner validity bits). Multiply-add depth and translation, then divide,
-// as plane_sweep_coords does; validity is tested in float space, so a
-// coordinate pushed behind the camera or far off the image never reaches an
-// int conversion.
-__device__ __forceinline__ int4 sample_record(const float* rot,
-                                              const float* g, float dep,
-                                              int W, int H, int C) {
-  const float qx = __fadd_rn(__fmul_rn(rot[0], dep), g[9]);
-  const float qy = __fadd_rn(__fmul_rn(rot[32], dep), g[10]);
-  const float qz = __fadd_rn(__fmul_rn(rot[64], dep), g[11]);
-  float xs, ys;
-  if (qz > 1e-3f) {
-    xs = __fdiv_rn(qx, qz);
-    ys = __fdiv_rn(qy, qz);
-  } else {  // behind the source camera: far outside, every corner drops
-    xs = -2.f * (float)W;
-    ys = -2.f * (float)H;
-  }
-  const float x0f = floorf(xs);
-  const float y0f = floorf(ys);
-  const bool okx0 = x0f >= 0.f && x0f <= (float)(W - 1);
-  const bool okx1 = x0f >= -1.f && x0f <= (float)(W - 2);
-  const bool oky0 = y0f >= 0.f && y0f <= (float)(H - 1);
-  const bool oky1 = y0f >= -1.f && y0f <= (float)(H - 2);
-  const int xi = (okx0 || okx1) ? (int)x0f : 0;
-  const int yi = (oky0 || oky1) ? (int)y0f : 0;
-  const int mask = (oky0 && okx0) | (oky0 && okx1) << 1 |
-                   (oky1 && okx0) << 2 | (oky1 && okx1) << 3;
-  return make_int4((yi * W + xi) * C, __float_as_int(xs - x0f),
-                   __float_as_int(ys - y0f), mask);
-}
-
-// The four corner weights of a record, in bit order (00, 01, 10, 11).
-__device__ __forceinline__ void corner_weights(int4 r, float* w) {
-  const float wx = __int_as_float(r.y), wy = __int_as_float(r.z);
-  w[0] = (1.f - wx) * (1.f - wy);
-  w[1] = wx * (1.f - wy);
-  w[2] = (1.f - wx) * wy;
-  w[3] = wx * wy;
-}
-
-// f = the bilinear sample of channels c0 .. c0+7 at record r; sv points at
-// the view's features plus c0. A corner off the image is not loaded: it
-// reads as zero.
-template <bool kVec, typename T>
-__device__ __forceinline__ void blend(const T* sv, int4 r, int nc, int C,
-                                      int rowc, float* f) {
-  float w[4];
-  corner_weights(r, w);
-  sv += r.x;
-  float v00[8], v01[8], v10[8], v11[8];
-  load8<kVec>(sv, r.w & 1, nc, v00);
-  load8<kVec>(sv + C, r.w & 2, nc, v01);
-  load8<kVec>(sv + rowc, r.w & 4, nc, v10);
-  load8<kVec>(sv + rowc + C, r.w & 8, nc, v11);
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    f[k] = v00[k] * w[0] + v01[k] * w[1] + v10[k] * w[2] + v11[k] * w[3];
 }
 
 template <typename T, bool kVec>
@@ -296,7 +198,7 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
     if (pix_ok) {
       const float dep = __ldcs(hyp + plane + pix);
       for (int v = 0; v < V; ++v)
-        rec[v * 32 + lane] = sample_record(rot + v * 96 + lane,
+        rec[v * 32 + lane] = sample_record(rot + v * 96 + lane, 32,
                                            sgeom + v * 12, dep, W, H, C);
     }
     __syncwarp();
@@ -416,7 +318,7 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
     if (pix_ok) {
       const float dep = __ldg(hyp + plane + pix);
       for (int v = 0; v < V; ++v)
-        rec[v * 32 + lane] = sample_record(rot + v * 96 + lane,
+        rec[v * 32 + lane] = sample_record(rot + v * 96 + lane, 32,
                                            sgeom + v * 12, dep, W, H, C);
     }
     __syncwarp();

@@ -32,6 +32,9 @@ __all__ = ["CasMVSNet"]
 
 
 class CasMVSNet(nn.Module):
+    # cli.infer.stack_model_inputs: (imgs, proj_matrices, depth_values).
+    family = "cascade"
+
     def __init__(self, base_channels: int = 8,
                  ndepths: Sequence[int] = (48, 32, 8),
                  depth_interval_ratios: Sequence[float] = (4.0, 2.0, 1.0),

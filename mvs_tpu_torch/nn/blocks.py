@@ -172,20 +172,37 @@ class Conv(nn.Module):
 
 
 class ConvTranspose(nn.Module):
-    """3D stride-2 kernel-3 SAME transposed conv (out = 2 * in), flax
-    geometry.
+    """3D kernel-3 SAME transposed conv, flax geometry: stride 2 (out =
+    2 * in) or stride 1.
 
-    ``kernel`` (I, O, 3, 3, 3) is the flax kernel flipped in space, so that
-    torch's conv_transpose cropped to 2x the input reproduces flax's
-    unflipped kernel over the 2x-dilated input padded (2, 1).
+    ``kernel`` (I, O, 3, 3, 3) is the flax kernel flipped in space (the
+    converter flips every ``ConvTranspose_*`` kernel), so that torch's
+    conv_transpose cropped to 2x the input reproduces flax's unflipped
+    kernel over the 2x-dilated input padded (2, 1). At stride 1 flax's
+    transposed conv is a plain SAME conv with the kernel not flipped:
+    conv_transpose over the flipped kernel, padding 1, is that conv, and in
+    eval mode it runs on the fused conv3d kernel with the flip undone.
     """
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 2):
         super().__init__()
+        if stride not in (1, 2):
+            raise ValueError(f"stride must be 1 or 2, got {stride}")
+        self.stride = stride
         self.kernel = nn.Parameter(
             torch.zeros(in_channels, out_channels, 3, 3, 3))
 
     def forward(self, x, scale=None, shift=None, relu: bool = False):
+        if self.stride == 1:
+            if not self.training:
+                w = self.kernel.flip(2, 3, 4).transpose(0, 1)
+                if scale is None:
+                    scale = torch.ones(w.shape[0], device=x.device)
+                    shift = torch.zeros_like(scale)
+                return conv3d_affine(x.contiguous(), w, scale, shift, relu)
+            y = F.conv_transpose3d(x.movedim(-1, 1), self.kernel.to(x.dtype),
+                                   padding=1)
+            return _epilogue(y, scale, shift, relu, x.dtype)
         y = F.conv_transpose3d(x.movedim(-1, 1), self.kernel.to(x.dtype),
                                stride=2)
         _, d, h, w, _ = x.shape
@@ -211,12 +228,16 @@ class ConvBlock(nn.Module):
 
 
 class ConvTransposeBlock(nn.Module):
-    """3D stride-2 transposed conv (2x upsample) + BatchNorm + ReLU."""
+    """3D kernel-3 transposed conv + BatchNorm + ReLU: a 2x upsample at
+    stride 2, or at stride 1 (PyramidCostRegNet's channel-halving block) a
+    3x3x3 SAME conv, which in eval mode runs on the fused conv3d kernel with
+    the BatchNorm affine and the ReLU in its epilogue (ConvTranspose).
+    """
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 2):
         super().__init__()
         self.Norm_0 = Norm(out_channels)
-        self.ConvTranspose_0 = ConvTranspose(in_channels, out_channels)
+        self.ConvTranspose_0 = ConvTranspose(in_channels, out_channels, stride)
 
     def forward(self, x):
         if self.training:
@@ -308,6 +329,11 @@ def init_random_(module: nn.Module, generator: torch.Generator,
         elif isinstance(m, ConvTranspose):
             fan_in = m.kernel.shape[0] * m.kernel[0, 0].numel()
             normal(m.kernel, fan_in ** -0.5)
+        # AttentionConv's relative position embeddings: N(0, 1), as Flax
+        # draws them, trained or not.
+        for name in ("rel_h", "rel_w"):
+            if isinstance(getattr(m, name, None), nn.Parameter):
+                normal(getattr(m, name), 1.0)
         if not trained:
             if isinstance(m, Conv) and m.bias is not None:
                 m.bias.zero_()

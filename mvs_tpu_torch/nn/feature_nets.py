@@ -1,8 +1,12 @@
-"""Cascade feature extractor, FPN mode (counterpart of
-mvs_tpu.nn.feature_nets.CascadeFeatureNet with arch_mode='fpn').
+"""2D feature extractors (counterpart of mvs_tpu.nn.feature_nets), eval
+and train mode, channels-last. Submodules carry the Flax auto-names.
 
-(B, H, W, 3) -> {'stage1': (B, H/4, W/4, 4b), 'stage2': (B, H/2, W/2, 2b),
-'stage3': (B, H, W, b)}. Submodules carry the Flax auto-names.
+* CascadeFeatureNet, FPN mode (arch_mode='fpn'): (B, H, W, 3) ->
+  {'stage1': (B, H/4, W/4, 4b), 'stage2': (B, H/2, W/2, 2b),
+  'stage3': (B, H, W, b)};
+* PyramidFeatureNet: CVP-MVSNet's stride-1 extractor, shared by every level
+  of the image pyramid, with AACVP-MVSNet's local self-attention
+  (AttentionConv) as its last layer when asked.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from torch import nn
 
 from mvs_tpu_torch.nn.blocks import Conv, ConvBlock
 
-__all__ = ["CascadeFeatureNet"]
+__all__ = ["CascadeFeatureNet", "AttentionConv", "PyramidFeatureNet"]
 
 
 def _upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -56,3 +60,90 @@ class CascadeFeatureNet(nn.Module):
             intra = _upsample2x_nearest(intra) + self.FoldedConv_3(conv0)
             outputs["stage3"] = self.FoldedConv_4(intra)
         return outputs
+
+
+class AttentionConv(nn.Module):
+    """Local-window self-attention, per channel (mvs_tpu.nn.feature_nets.
+    AttentionConv): for pixel p and channel c,
+
+        out[p, c] = leaky_relu_0.1(sum_w softmax_w(q[p, c] * (k[p+w, c]
+                    + rel[w, c])) v[p+w, c])
+
+    over the k x k window w around p, with 1x1 query / key / value convs,
+    keys and values zero-padded past the border, and relative position
+    embeddings rel_h (rows) on the first C/2 channels and rel_w (columns) on
+    the rest. The f32 embeddings promote the logits to f32 (as in JAX), so
+    the layer returns f32 whatever the input dtype.
+
+    Plain PyTorch, as the JAX package leaves it to XLA: the softmax over the
+    window is taken in two passes over the k^2 shifted key views (the max,
+    then the exponentials and the weighted values), so no (B, H, W, k^2, C)
+    tensor is formed.
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 groups: int = 1):
+        super().__init__()
+        if features % 2 or features % groups:
+            raise ValueError(f"features {features} must be even and divide "
+                             f"by groups {groups}")
+        k = kernel_size
+        self.kernel_size = k
+        self.query = Conv(in_channels, features, (1, 1), use_bias=False)
+        self.key = Conv(in_channels, features, (1, 1), use_bias=False)
+        self.value = Conv(in_channels, features, (1, 1), use_bias=False)
+        self.rel_h = nn.Parameter(torch.zeros(k, 1, features // 2))
+        self.rel_w = nn.Parameter(torch.zeros(1, k, features // 2))
+
+    def forward(self, x):
+        k = self.kernel_size
+        h, w = x.shape[1:3]
+        c = 2 * self.rel_h.shape[-1]
+        q = self.query(x).float()
+        pad = (0, 0, k // 2, k // 2, k // 2, k // 2)
+        key = F.pad(self.key(x), pad)
+        val = F.pad(self.value(x), pad)
+        rel = torch.cat([self.rel_h.expand(k, k, c // 2),
+                         self.rel_w.expand(k, k, c // 2)], dim=-1)
+
+        def logit(dy, dx):
+            return q * (key[:, dy:dy + h, dx:dx + w] + rel[dy, dx])
+
+        taps = [(dy, dx) for dy in range(k) for dx in range(k)]
+        peak = logit(*taps[0])
+        for t in taps[1:]:
+            peak = torch.maximum(peak, logit(*t))
+        total = torch.zeros_like(peak)
+        out = torch.zeros_like(peak)
+        for dy, dx in taps:
+            e = torch.exp(logit(dy, dx) - peak)
+            total += e
+            out += e * val[:, dy:dy + h, dx:dx + w]
+        return F.leaky_relu(out / total, negative_slope=0.1)
+
+
+class PyramidFeatureNet(nn.Module):
+    """(B, H, W, 3) -> (B, H, W, out_channels): eight 3x3 ConvBlocks (64, 64,
+    64, 32, 32, 32, 16, 16), then a ConvBlock to `out_channels`, or with
+    `attention` an AttentionConv (AACVP). One instance serves every level of
+    the image pyramid."""
+
+    def __init__(self, out_channels: int = 16, attention: bool = False,
+                 num_heads: int = 1):
+        super().__init__()
+        widths = (3, 64, 64, 64, 32, 32, 32, 16, 16)
+        for i, (cin, cout) in enumerate(zip(widths, widths[1:])):
+            setattr(self, f"ConvBlock_{i}", ConvBlock(cin, cout, (3, 3)))
+        self.attention = attention
+        if attention:
+            self.AttentionConv_0 = AttentionConv(16, out_channels, 3,
+                                                 num_heads)
+        else:
+            self.ConvBlock_8 = ConvBlock(16, out_channels, (3, 3))
+
+    def forward(self, x):
+        for i in range(8):
+            x = getattr(self, f"ConvBlock_{i}")(x)
+        if self.attention:
+            return self.AttentionConv_0(x)
+        return self.ConvBlock_8(x)

@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "nvcc_command", "source_files", "build",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mvs_tpu_torch"
-SOURCES = ("warp_variance", "conv3d_affine")
+SOURCES = ("warp_variance", "conv3d_affine", "group_correlation")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

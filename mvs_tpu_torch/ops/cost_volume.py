@@ -1,11 +1,12 @@
-"""Variance cost volume, exact 'gather' sampler (counterpart of
+"""Plane-sweep cost volumes, exact 'gather' sampler (counterpart of
 mvs_tpu.ops.cost_volume with sampler='gather', batch written out).
 
-This is the plain PyTorch form of the fused warp-variance kernel
-(ops.warp_variance): it materializes one warped volume per source view and
-accumulates sum(f) and sum(f^2) over ref + V views. Sums are taken in f32
-whatever the input dtype, as the kernel (and the TPU kernel) does; the JAX
-gather path sums in the input dtype, which only differs in bf16.
+These are the plain PyTorch forms of the fused kernels: the variance over
+ref + V views (ops.warp_variance) and AACVP's group-wise correlation
+(ops.group_correlation). Each materializes one warped volume per source
+view. Sums are taken in f32 whatever the input dtype, as the kernels (and
+the TPU kernel) do; the JAX gather path sums in the input dtype, which only
+differs in bf16.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 
 from mvs_tpu_torch.geometry.homography import warp_src_feature
 
-__all__ = ["variance_cost_volume", "variance_from_partials"]
+__all__ = ["variance_cost_volume", "variance_from_partials",
+           "group_correlation_cost_volume"]
 
 
 def variance_cost_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
@@ -44,3 +46,30 @@ def variance_from_partials(sum_f: torch.Tensor, sum_sq: torch.Tensor,
     """variance = E[f^2] - E[f]^2 given additive partial sums."""
     mean = sum_f / num_views
     return sum_sq / num_views - mean * mean
+
+
+def group_correlation_cost_volume(ref_feat: torch.Tensor,
+                                  src_feats: torch.Tensor,
+                                  rel_projs: torch.Tensor,
+                                  depth_values: torch.Tensor,
+                                  num_groups: int) -> torch.Tensor:
+    """(B, D, H, W, G) group-wise correlation, G = num_groups.
+
+    For each group g of C / G channels: the mean over the group's channels
+    of warped_v * ref, averaged over the V source views (the reference view
+    is not a term). Inputs as variance_cost_volume; C must divide by G.
+    Sums in f32; the result in ref_feat's dtype.
+    """
+    b, h, w, c = ref_feat.shape
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    d = depth_values.shape[1]
+    num_src = src_feats.shape[1]
+    ref_g = ref_feat.float().reshape(b, 1, h, w, num_groups, c // num_groups)
+    corr = ref_feat.new_zeros((b, d, h, w, num_groups), dtype=torch.float32)
+    for v in range(num_src):
+        warped = warp_src_feature(src_feats[:, v].float(), rel_projs[:, v],
+                                  depth_values)
+        warped = warped.reshape(b, d, h, w, num_groups, c // num_groups)
+        corr = corr + torch.mean(warped * ref_g, dim=-1)
+    return (corr / num_src).to(ref_feat.dtype)

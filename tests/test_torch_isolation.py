@@ -107,6 +107,7 @@ def test_nvcc_command_targets_sm90a():
 @pytest.mark.parametrize("module,source", [
     ("mvs_tpu_torch.ops.warp_variance", "warp_variance"),
     ("mvs_tpu_torch.ops.conv3d", "conv3d_affine"),
+    ("mvs_tpu_torch.ops.group_correlation", "group_correlation"),
 ])
 def test_ctypes_signature_matches_c_entry(module, source):
     """Each argtype the wrapper declares matches the extern "C" parameter of

@@ -148,6 +148,15 @@ def test_conv_transpose_block_train():
                 3.0)
 
 
+def test_stride1_conv_transpose_block_train():
+    """PyramidCostRegNet's channel-halving block: flax's stride-1 SAME
+    transposed conv, through torch's conv_transpose over the stored
+    (flipped) kernel."""
+    check_block(jblocks.ConvTransposeBlock(8, (3, 3, 3), strides=1),
+                blocks.ConvTransposeBlock(16, 8, stride=1), (2, 3, 4, 5, 16),
+                8, 31, 3.0)
+
+
 @pytest.mark.parametrize("relu,count", [(True, 3.0), (False, 0.0)])
 def test_fused_conv_block_3d_train(relu, count):
     check_block(jblocks.FusedConvBlock3D(8, relu=relu),

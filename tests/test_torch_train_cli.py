@@ -122,6 +122,8 @@ def test_infer_reads_a_state_dict_without_counts(root, tmp_path):
 def test_train_refuses_what_is_not_ported(root, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 9"):
         train.main(_train_args(root, tmp_path, "train.mesh_data=2"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        train.main(_train_args(root, tmp_path, "model.name=cvp_mvsnet"))
     with pytest.raises(NotImplementedError, match="lookahead"):
         train.main(_train_args(root, tmp_path, "train.optimizer=ranger"))
     # No silent fallback to the CPU: without --device the run is on the card.
