@@ -1,5 +1,5 @@
-"""Drive the PyTorch port (mvs_tpu_torch) of CasMVSNet inference and
-training and of CVP-MVSNet / AACVP-MVSNet inference on one CUDA card,
+"""Drive the PyTorch port (mvs_tpu_torch) of CasMVSNet and MVSNet inference
+and training and of CVP-MVSNet / AACVP-MVSNet inference on one CUDA card,
 holding each hand-written kernel against its plain version.
 
     python3 chip_smoke.py
@@ -76,11 +76,40 @@ Phases, in order; any failure exits non-zero:
          config's thresholds writes a valid PLY;
      (e) the same config at its own align 16 (1600x1200, a 75-row coarsest
          level) raises the port's ValueError before any launch;
+  9. MVSNet at its widths (32 feature channels, regularizer base 8, the
+     192-hypothesis ladder, 5 views) over configs/cas_eval_dtu.yaml with
+     model.name=mvsnet data.max_h=1200 data.max_w=1600 (1600x1184 images,
+     400x296 maps):
+     (a) the warp forward at that sweep (a 1.455 GB bf16 volume), bf16 and
+         f32, and its backward at the training shape (batch 4, 2 sources,
+         160x128, D = 192), against their plain versions, bf16 timed
+         (kernel, plain, bound);
+     (b) a seeded MVSNet with RefineNet at 128x160, f32 and bf16, card
+         against CPU: the pre-softmax scores, depth, refined depth and
+         confidence;
+     (c) full width through cli.infer.make_apply_fn, bf16 and f32: ms per
+         map, peak memory, launches (exact: 1 warp, vector; 5 conv3d, all
+         tensor-core in bf16), bf16 device ms by layer kind and the
+         profiler's idle share;
+     (d) one f32 train step card against CPU (RefineNet, smooth-L1), then
+         training at 640x512, 3 views, bf16, batch 4 with
+         configs/cas_train_dtu.yaml's model and task: launches per step
+         (exact: 1 warp forward, 1 warp backward, 0 conv3d), ms per step,
+         samples/s, peak memory, 30 steps whose losses fall;
+     (e) `infer` over phase 8d's scan with model.name=mvsnet (batch 6),
+         launches exact, then `fuse` writes a valid PLY;
+     (f) `train model.name=mvsnet model.refine=true train.loss=ohem` on a
+         synthetic training layout (2 steps, a val split, a checkpoint),
+         launches exact, then `infer` from its checkpoint;
 then one JSON line listing the kernels (launches: per map, phase 4's run,
 per train step for the backward kernel, phase 7c, per AACVP map for the
 group correlation, 8c; cli_launches: phase 6b's run, 7d's and 8d's;
-cvp_launches / cvp_cli_launches: CVP's per map, 8c, and through 8d), and
-last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+cvp_launches / cvp_cli_launches: CVP's per map, 8c, and through 8d;
+mvsnet_launches / mvsnet_train_launches / mvsnet_cli_launches /
+mvsnet_cli_train_launches: MVSNet's per map, 9c, per train step, 9d, and
+through 9e and 9f; mvsnet_ms / mvsnet_plain_ms / mvsnet_bound_ms /
+mvsnet_max_abs_err: one launch at MVSNet's shape, 9a), and last
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -105,8 +134,11 @@ from mvs_tpu_torch.cli.infer import (make_apply_fn, run_batched_inference,
 from mvs_tpu_torch.fusion import FusionConfig, fuse_scene
 from mvs_tpu_torch.io import png as png_codec
 from mvs_tpu_torch.io import read_pfm, read_ply, write_pfm, write_ply
-from mvs_tpu_torch.io.dtu import DTUEvalDataset, collate_cascade
+from mvs_tpu_torch.io.dtu import (DTUEvalDataset, collate_cascade,
+                                  collate_mvsnet)
+from mvs_tpu_torch.models import mvsnet as mvsnet_module
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
+from mvs_tpu_torch.models.mvsnet import MVSNet
 from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.ops import _build
 from mvs_tpu_torch.ops.conv3d import conv3d_affine, conv3d_affine_plain
@@ -117,7 +149,8 @@ from mvs_tpu_torch.ops.warp_variance import (
     fused_variance_volume_grad_plain, fused_variance_volume_plain)
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.train.state import make_train_step
-from mvs_tpu_torch.train.tasks import CascadeTask, batch_to_device
+from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask,
+                                      batch_to_device)
 from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.make_synthetic_dtu import generate
 from mvs_tpu_torch.utils.platform import resolve_device
@@ -256,8 +289,8 @@ def warp_inputs(scene, stage, scale, c, d, dtype, device, batch=1, seed=0,
                 height=HEIGHT, width=WIDTH):
     g = torch.Generator(device="cpu").manual_seed(seed)
     h, w = height // scale, width // scale
-    feats = torch.randn((batch, VIEWS, h, w, c), generator=g).to(device,
-                                                                 dtype)
+    feats = torch.randn((batch, len(scene.extrinsics), h, w, c),
+                        generator=g).to(device, dtype)
     depth = torch.tensor(scene.depths[0][::scale, ::scale], device=device)
     if stage == 1:
         hyp = torch.linspace(8.0, 12.0, d, device=device)[:, None, None]
@@ -436,12 +469,12 @@ def phase_conv(device):
     return rows
 
 
-def model_inputs(scene, batch, device):
+def model_inputs(scene, batch, device, family="cascade"):
     sample = dict(imgs=scene.images, intrinsics=scene.intrinsics,
                   extrinsics=scene.extrinsics,
                   depth_values=np.linspace(8.0, 12.0, LADDER,
                                            dtype=np.float32))
-    return stack_model_inputs([sample] * batch, device)
+    return stack_model_inputs([sample] * batch, device, family)
 
 
 def phase_model_vs_cpu(device):
@@ -931,17 +964,22 @@ def phase_oracle(root: Path, work: Path, device, height=HEIGHT,
         fail("oracle acc / comp over their limits")
 
 
-def phase_model_fusion(root: Path, out: Path, device):
-    log("phase 6e: cli fuse over the model's maps of phase 6b "
-        "(thresholds of configs/cas_eval_dtu.yaml)")
-    ply = cli_fuse.main(["--out", str(out), "--device", str(device),
-                         f"data.eval_root={root}", *EVAL_FUSION])[0]
+def check_cloud(ply: Path) -> str:
+    """Fail unless `ply` is a valid coloured cloud; describe it."""
     cloud = read_ply(ply)
     n = len(cloud["xyz"])
     if (cloud["xyz"].shape != (n, 3) or not np.isfinite(cloud["xyz"]).all()
             or cloud["rgb"].shape != (n, 3)):
         fail(f"{ply}: not a valid coloured cloud")
-    log(f"  {ply.name}: {n} points, finite, coloured")
+    return f"{ply.name}, {n} points, finite, coloured"
+
+
+def phase_model_fusion(root: Path, out: Path, device):
+    log("phase 6e: cli fuse over the model's maps of phase 6b "
+        "(thresholds of configs/cas_eval_dtu.yaml)")
+    ply = cli_fuse.main(["--out", str(out), "--device", str(device),
+                         f"data.eval_root={root}", *EVAL_FUSION])[0]
+    log(f"  {check_cloud(ply)}")
 
 
 def phase_user_path(device, apply_ms: float):
@@ -1032,13 +1070,13 @@ def phase_warp_grad(device):
     return rows
 
 
-def train_batch(height, width, batch, seed=0):
-    """A collated cascade batch of `batch` plane scenes (tilted, seeds
-    seed..), as the DTU training split gives it: intrinsics and GT depth at
-    1/4 of the images, every pixel valid."""
+def train_samples(height, width, batch, views=VIEWS, seed=0):
+    """`batch` plane scenes (tilted, seeds seed..) as the DTU training split
+    gives them: intrinsics and GT depth at 1/4 of the images, every pixel
+    valid."""
     samples = []
     for i in range(batch):
-        scene = make_plane_scene(num_views=VIEWS, height=height, width=width,
+        scene = make_plane_scene(num_views=views, height=height, width=width,
                                  z0=10.0, seed=seed + i, tilt=(0.05, 0.02))
         intr = scene.intrinsics.copy()
         intr[:, :2] /= 4.0
@@ -1047,7 +1085,7 @@ def train_batch(height, width, batch, seed=0):
             imgs=scene.images, intrinsics=intr, extrinsics=scene.extrinsics,
             depth_values=np.linspace(8.0, 12.0, LADDER, dtype=np.float32),
             depth_gt=gt, mask=np.ones_like(gt)))
-    return collate_cascade(samples)
+    return samples
 
 
 class RecordingChain(OptaxChain):
@@ -1059,15 +1097,15 @@ class RecordingChain(OptaxChain):
         return super().step(grads)
 
 
-def train_once(state, batch, device):
-    """One f32 train step from `state` on `device`: (metrics, gradients,
-    state_dict after), all on the CPU."""
-    model = CasMVSNet(BASE, NDEPTHS)
+def train_once(make_task, state, batch, device):
+    """One f32 train step of make_task()'s model from `state` on `device`:
+    (metrics, gradients, state_dict after), all on the CPU."""
+    task = make_task()
+    model = task.model
     model.load_state_dict(state)
     model.to(device)
     opt = RecordingChain(model.parameters(), "adam", lambda step: 1e-3)
-    metrics = make_train_step(CascadeTask(model), opt)(
-        batch_to_device(batch, device))
+    metrics = make_train_step(task, opt)(batch_to_device(batch, device))
     names = [k for k, _ in model.named_parameters()]
     return ({k: float(v) for k, v in metrics.items()},
             {k: g.cpu() for k, g in zip(names, opt.grads)},
@@ -1079,15 +1117,28 @@ def phase_train_card_vs_cpu(device):
         "f32, Adam 1e-3")
     state = CasMVSNet(BASE, NDEPTHS, generator=torch.Generator().manual_seed(
         7)).state_dict()
-    batch = train_batch(128, 160, 2)
-    cpu = train_once(state, batch, "cpu")
-    card = train_once(state, batch, device)
+    check_train_step(
+        lambda: CascadeTask(CasMVSNet(BASE, NDEPTHS)), state,
+        collate_cascade(train_samples(128, 160, 2)), device,
+        ("loss", "last_stage_loss", "abs_depth_error"),
+        tuple(f"cost_reg_stage{i + 1}.FoldedConv_0.bias"
+              for i in range(len(NDEPTHS))))
+
+
+def check_train_step(make_task, state, batch, device, metric_keys,
+                     score_biases):
+    """One f32 train step card against CPU (limits: STEP_LOSS_RTOL,
+    GRAD_TOL and GRAD_NUDGE_FACTOR, GRAD_COSINE, STEP_STATS_RTOL, Adam's
+    step). `score_biases`: the score convs' biases, whose exact gradient
+    is 0 (see GRAD_TOL's note), left out of the gradient checks."""
+    cpu = train_once(make_task, state, batch, "cpu")
+    card = train_once(make_task, state, batch, device)
     sign = np.random.default_rng(0).choice([-1.0, 1.0],
                                            size=batch["imgs"].shape)
     nudged_batch = dict(batch, imgs=(batch["imgs"] * (1 + sign * 2.0 ** -24)
                                      ).astype(np.float32))
-    nudged = train_once(state, nudged_batch, "cpu")
-    for k in ("loss", "last_stage_loss", "abs_depth_error"):
+    nudged = train_once(make_task, state, nudged_batch, "cpu")
+    for k in metric_keys:
         rel = abs(card[0][k] - cpu[0][k]) / abs(cpu[0][k])
         log(f"  {k}: card {card[0][k]:.8f} CPU {cpu[0][k]:.8f} (rel "
             f"{rel:.2e}, tol {STEP_LOSS_RTOL})")
@@ -1095,8 +1146,8 @@ def phase_train_card_vs_cpu(device):
             fail(f"train step {k} differs card vs CPU")
     worst, n_tol, n_nudge = [], 0, 0
     for k, g_cpu in cpu[1].items():
-        if k.endswith("FoldedConv_0.bias") and k.startswith("cost_reg"):
-            continue  # exact gradient 0 (see GRAD_TOL's note)
+        if k in score_biases:
+            continue
         g_card = card[1][k]
         scale = g_cpu.abs().max().item()
         err = (g_card - g_cpu).abs().max().item()
@@ -1190,11 +1241,23 @@ def phase_train_full_width(device):
     model = CasMVSNet(BASE, NDEPTHS, compute_dtype=torch.bfloat16,
                       generator=torch.Generator().manual_seed(0),
                       trained=False).to(device)
-    task = CascadeTask(model)
-    opt = OptaxChain(model.parameters(), "adam", lambda step: 1e-3)
+    batch = collate_cascade(train_samples(TRAIN_H, TRAIN_W, TRAIN_BATCH))
+    return train_full_width(
+        CascadeTask(model), batch, TRAIN_LAUNCHES, device,
+        lambda run: layer_breakdown(model, run, ()))
+
+
+def train_full_width(task, batch, want, device, layers):
+    """Train `task`'s bf16 model on one batch with Adam 1e-3: the launches
+    of one step (exactly `want`), ms per step over TRAIN_STEPS (host
+    clock), samples/s, peak memory, the device ms of the step's parts, of
+    its forward by layer kind (layers(run) for run(): one step) and by
+    kernel family, then CURVE_STEPS more steps, whose losses must fall.
+    Returns (launches, ms per step, peak GiB)."""
+    opt = OptaxChain(task.model.parameters(), "adam", lambda step: 1e-3)
     step = make_train_step(task, opt)
-    batch = batch_to_device(train_batch(TRAIN_H, TRAIN_W, TRAIN_BATCH),
-                            device)
+    batch = batch_to_device(batch, device)
+    size = batch["imgs"].shape[0]
     losses = [step(batch)["loss"]]  # warm-up: cuDNN's choices, allocator
     torch.cuda.synchronize()
     reset_counts()
@@ -1202,8 +1265,8 @@ def phase_train_full_width(device):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"  launches per step {json.dumps(counts)}")
-    if counts != TRAIN_LAUNCHES:
-        fail(f"train step launches {counts}, want {TRAIN_LAUNCHES}")
+    if counts != want:
+        fail(f"train step launches {counts}, want {want}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
@@ -1212,13 +1275,12 @@ def phase_train_full_width(device):
     ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  {ms:.2f} ms per step ({TRAIN_STEPS} steps, host clock), "
-        f"{TRAIN_BATCH * 1e3 / ms:.3f} samples/s, peak {peak:.3f} GiB "
-        f"allocated")
+        f"{size * 1e3 / ms:.3f} samples/s, peak {peak:.3f} GiB allocated")
     log("  device ms of one step: "
         + json.dumps(step_split(task, opt, batch)))
     log("  forward device ms by layer kind, one step ('rest': the warp, "
         "regression and loss, then the backward and the optimizer): "
-        + json.dumps(layer_breakdown(model, lambda: step(batch), ())))
+        + json.dumps(layers(lambda: step(batch))))
     by_name = log_spans(device_spans(lambda: step(batch)))
     families = {}
     for name, t in by_name.items():
@@ -1539,74 +1601,91 @@ def cvp_vs_cpu(name, scene, dtype, device):
         *stack_model_inputs([cvp_sample(scene)], device, "pyramid"))]
     for h in hooks:
         h.remove()
-    max_tol, mean_tol = SCORE_TOL[dtype]
     for i, (s_cpu, s_card) in enumerate(zip(scores[:3], scores[3:])):
-        spread = (s_cpu.max() - s_cpu.min()).item()
-        diff = (s_card - s_cpu).abs()
-        err, mean = diff.max().item() / spread, diff.mean().item() / spread
-        lim_max, lim_mean = max_tol, mean_tol
-        note = ""
-        if moved is not None:
-            m = moved["score"][i]
-            lim_max = max(max_tol, 4 * m.max().item())
-            lim_mean = max(mean_tol, 6 * m.mean().item())
-            note = (f"; one bf16 rounding of the images moves the CPU's by "
-                    f"max {m.max().item():.3e}, mean {m.mean().item():.3e}")
-        log(f"  level {2 - i} score {tuple(s_cpu.shape)}: |card-cpu| max "
-            f"{err:.3e}, mean {mean:.3e} of its spread {spread:.4f} (limits "
-            f"{lim_max:.3e}, {lim_mean}){note}")
-        if not err <= lim_max or (lim_mean is not None
-                                  and not mean <= lim_mean):
-            fail(f"{name} level {2 - i} card scores differ from CPU scores")
+        check_scores(f"{name} level {2 - i}", s_cpu, s_card, dtype,
+                     None if moved is None else moved["score"][i])
     unit = (CVP_RANGE[1] - CVP_RANGE[0]) / (CVP_COARSE_D - 1)
-    max_tol, mean_tol = DEPTH_TOL[dtype]
     for lv, (d_cpu, d_card) in enumerate(zip(levels[0], levels[1])):
-        err = (d_card - d_cpu).abs() / unit
-        lim_max, lim_mean = max_tol, mean_tol
-        if moved is not None:
-            m = moved["depth"][lv] / unit
-            lim_max = max(max_tol, 14 * m.max().item())
-            lim_mean = max(mean_tol, 14 * m.mean().item())
-        log(f"  level {lv} depth |card-cpu| in coarse intervals ({unit:.4f}):"
-            f" max {err.max().item():.3e} mean {err.mean().item():.3e} "
-            f"(limits {lim_max:.3e}, {lim_mean:.3e}); range "
-            f"[{d_cpu.min().item():.4f}, {d_cpu.max().item():.4f}]")
-        if not (err.max() <= lim_max and err.mean() <= lim_mean):
-            fail(f"{name} level {lv} card depth differs from CPU depth")
-    c_err = (card[1] - cpu[1]).abs()
+        check_depth(f"{name} level {lv} depth", d_cpu, d_card, unit, dtype,
+                    None if moved is None else moved["depth"][lv])
+    check_confidence(name, cpu[1], card[1],
+                     None if moved is None else moved["conf"])
+
+
+def check_scores(what, s_cpu, s_card, dtype, moved=None):
+    """Pre-softmax scores card against CPU, as fractions of the CPU's
+    spread: within SCORE_TOL, or where `moved` (what one bf16 rounding of
+    the images moves the CPU's own scores, the same fraction) is given,
+    within 4x its largest and 6x its mean if those are larger."""
+    max_tol, mean_tol = SCORE_TOL[dtype]
+    spread = (s_cpu.max() - s_cpu.min()).item()
+    diff = (s_card - s_cpu).abs()
+    err, mean = diff.max().item() / spread, diff.mean().item() / spread
+    note = ""
+    if moved is not None:
+        max_tol = max(max_tol, 4 * moved.max().item())
+        mean_tol = max(mean_tol, 6 * moved.mean().item())
+        note = (f"; one bf16 rounding of the images moves the CPU's by "
+                f"max {moved.max().item():.3e}, mean "
+                f"{moved.mean().item():.3e}")
+    log(f"  {what} score {tuple(s_cpu.shape)}: |card-cpu| max {err:.3e}, "
+        f"mean {mean:.3e} of its spread {spread:.4f} (limits {max_tol:.3e}, "
+        f"{mean_tol}){note}")
+    if not err <= max_tol or (mean_tol is not None and not mean <= mean_tol):
+        fail(f"{what} card scores differ from CPU scores")
+
+
+def check_depth(what, d_cpu, d_card, unit, dtype, moved=None):
+    """Depth card against CPU in hypothesis intervals (`unit`): within
+    DEPTH_TOL, or where `moved` (what one bf16 rounding of the images moves
+    the CPU's own depth) is given, within 14x its largest and mean if
+    those are larger."""
+    err = (d_card - d_cpu).abs() / unit
+    lim_max, lim_mean = DEPTH_TOL[dtype]
+    if moved is not None:
+        lim_max = max(lim_max, 14 * (moved / unit).max().item())
+        lim_mean = max(lim_mean, 14 * (moved / unit).mean().item())
+    log(f"  {what} |card-cpu| in intervals ({unit:.4f}): max "
+        f"{err.max().item():.3e} mean {err.mean().item():.3e} (limits "
+        f"{lim_max:.3e}, {lim_mean:.3e}); range [{d_cpu.min().item():.4f}, "
+        f"{d_cpu.max().item():.4f}]")
+    if not (err.max() <= lim_max and err.mean() <= lim_mean):
+        fail(f"{what}: card differs from CPU")
+
+
+def check_confidence(what, c_cpu, c_card, moved=None):
+    """Confidence card against CPU: it sums 4 taps around the truncated
+    regressed index, which can step where the index sits on an integer, so
+    over 1e-3 apart on at most 1e-3 of the pixels (or 4x the share that
+    one bf16 rounding of the images moves by that much, `moved`)."""
+    c_err = (c_card - c_cpu).abs()
     share_lim = 1e-3
     if moved is not None:
-        share_lim = max(share_lim, 4 * (moved["conf"] > 1e-3).float().mean()
-                        .item())
+        share_lim = max(share_lim, 4 * (moved > 1e-3).float().mean().item())
     share = (c_err > 1e-3).float().mean().item()
-    log(f"  confidence |card-cpu| max {c_err.max().item():.3e} mean "
+    log(f"  {what} confidence |card-cpu| max {c_err.max().item():.3e} mean "
         f"{c_err.mean().item():.3e}, > 1e-3 on {share:.3e} of the pixels "
         f"(limit {share_lim:.3e})")
     if share > share_lim or c_err.mean() > max(1e-3, share_lim):
-        fail(f"{name} card confidence differs from CPU confidence")
+        fail(f"{what} card confidence differs from CPU confidence")
 
 
-def cvp_breakdown(model, apply_fn, args) -> dict:
-    """Device ms of one map by layer kind, from CUDA events around the
-    feature net (minus its attention), the attention, the cost volumes and
-    the regularizer; 'rest': the resizes, projections, epipolar intervals,
-    hypotheses and regressions."""
+def module_spans(kinds: dict, owner, name: str, run) -> tuple[dict, float]:
+    """({kind: device ms}, total device ms) of one run(), from CUDA events
+    around each forward of the modules in `kinds` and around every call of
+    owner.<name> (the cost volumes, as "cost volume")."""
     def event():
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         return ev
 
     spans, stack, hooks = [], [], []
-    kinds = {"feature net": model.PyramidFeatureNet_0,
-             "regularizer": model.PyramidCostRegNet_0}
-    if model.PyramidFeatureNet_0.attention:
-        kinds["attention"] = model.PyramidFeatureNet_0.AttentionConv_0
     for kind, module in kinds.items():
         hooks.append(module.register_forward_pre_hook(
             lambda m, a, kind=kind: stack.append((kind, event()))))
         hooks.append(module.register_forward_hook(
             lambda m, a, out: spans.append((*stack.pop(), event()))))
-    cost_volume = model._cost_volume
+    cost_volume = getattr(owner, name)
 
     def timed(*a):
         start = event()
@@ -1614,25 +1693,42 @@ def cvp_breakdown(model, apply_fn, args) -> dict:
         spans.append(("cost volume", start, event()))
         return out
 
-    model._cost_volume = timed
+    setattr(owner, name, timed)
     try:
         start = event()
-        apply_fn(*args)
+        run()
         end = event()
         torch.cuda.synchronize()
     finally:
-        del model._cost_volume
+        setattr(owner, name, cost_volume)
         for h in hooks:
             h.remove()
     ms = {}
     for kind, a, b in spans:
         ms[kind] = ms.get(kind, 0.0) + a.elapsed_time(b)
-    total = start.elapsed_time(end)
+    return ms, start.elapsed_time(end)
+
+
+def with_rest(ms: dict, total: float) -> dict:
+    """`ms` with 'rest' (the run's remainder) and 'total', rounded."""
+    ms = dict(ms, rest=total - sum(ms.values()), total=total)
+    return {k: round(v, 4) for k, v in ms.items()}
+
+
+def cvp_breakdown(model, apply_fn, args) -> dict:
+    """Device ms of one map by layer kind: the feature net (minus its
+    attention), the attention, the cost volumes and the regularizer;
+    'rest': the resizes, projections, epipolar intervals, hypotheses and
+    regressions."""
+    kinds = {"feature net": model.PyramidFeatureNet_0,
+             "regularizer": model.PyramidCostRegNet_0}
+    if model.PyramidFeatureNet_0.attention:
+        kinds["attention"] = model.PyramidFeatureNet_0.AttentionConv_0
+    ms, total = module_spans(kinds, model, "_cost_volume",
+                             lambda: apply_fn(*args))
     if "attention" in ms:
         ms["feature net"] -= ms["attention"]
-    ms["rest"] = total - sum(ms.values())
-    ms["total"] = total
-    return {k: round(v, 4) for k, v in ms.items()}
+    return with_rest(ms, total)
 
 
 def phase_cvp_full_width(scene, device):
@@ -1681,87 +1777,420 @@ def phase_cvp_full_width(scene, device):
     return result
 
 
-def phase_cvp_from_disk(device):
+def phase_cvp_from_disk(device, work: Path):
     """8d: cli infer with configs/cvp_eval_dtu.yaml (data.align=32) over a
-    synthetic DTU scan at 1600x1200, for CVP and AACVP, then cli fuse with
-    the config's thresholds; 8e: the same config at align 16 raises before
-    any launch."""
+    synthetic DTU scan at 1600x1200 written under `work`, for CVP and AACVP,
+    then cli fuse with the config's thresholds; 8e: the same config at
+    align 16 raises before any launch. Returns (launches of each model's
+    cli infer run, the scan's root)."""
     log(f"phase 8d: cli infer --config configs/cvp_eval_dtu.yaml "
         f"data.align=32 over a synthetic DTU scan of {CVP_SCAN_VIEWS} views "
         f"at 1600x1200 (cut to {CVP_W}x{CVP_H}), bf16, batch 1")
     cli = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        work = Path(tmp)
-        t0 = time.perf_counter()
-        # DTU's 1600x1200; align 32 cuts the rows to CVP_H.
-        root = generate(work / "dtu", num_scans=1, num_views=CVP_SCAN_VIEWS,
-                        height=CVP_H + 16, width=CVP_W, num_depth=LADDER,
-                        tilt=SCAN_TILT, train_layout=False)
-        log(f"  written in {time.perf_counter() - t0:.2f} s")
-        data = [f"data.eval_root={root}",
-                f"data.eval_list={root / 'lists' / 'test.txt'}"]
-        for name in CVP_NAMES:
-            ckpt = work / f"{name}.pt"
-            torch.save(build_model(cvp_config(name, torch.bfloat16),
-                                   torch.Generator().manual_seed(0)
-                                   ).state_dict(), ckpt)
-            out = work / f"out_{name}"
-            reset_counts()
-            result = cli_infer.main([
-                "--config", str(CVP_CONFIG), "--ckpt", str(ckpt), "--out",
-                str(out), "--device", str(device), f"model.name={name}",
-                "data.align=32", *data])
-            torch.cuda.synchronize()
-            counts = read_counts()
-            want = cvp_want(name, torch.bfloat16, CVP_SCAN_VIEWS)
-            log(f"  {name}: {result['maps']} maps in {result['seconds']:.4f} "
-                f"s through the CLI: {result['maps'] / result['seconds']:.4f}"
-                f" maps/s; launches {json.dumps(counts)}")
-            if counts != want or result["maps"] != CVP_SCAN_VIEWS:
-                fail(f"cli infer {name} launches {counts}, want {want}")
-            check_files(out / "scan1", CVP_SCAN_VIEWS, CVP_H, CVP_W)
-            cli[name] = counts
-        ply = cli_fuse.main(["--config", str(CVP_CONFIG), "--out",
-                             str(work / "out_cvp_mvsnet"), "--device",
-                             str(device), f"data.eval_root={root}"])[0]
-        cloud = read_ply(ply)
-        n = len(cloud["xyz"])
-        if (cloud["xyz"].shape != (n, 3)
-                or not np.isfinite(cloud["xyz"]).all()
-                or cloud["rgb"].shape != (n, 3)):
-            fail(f"{ply}: not a valid coloured cloud")
-        log(f"  cli fuse (the config's thresholds) over the CVP maps: "
-            f"{ply.name}, {n} points, finite, coloured")
-
-        log("phase 8e: the same config at data.align=16 (1600x1200: a "
-            "75-row coarsest level)")
+    t0 = time.perf_counter()
+    # DTU's 1600x1200; align 32 cuts the rows to CVP_H.
+    root = generate(work / "dtu", num_scans=1, num_views=CVP_SCAN_VIEWS,
+                    height=CVP_H + 16, width=CVP_W, num_depth=LADDER,
+                    tilt=SCAN_TILT, train_layout=False)
+    log(f"  written in {time.perf_counter() - t0:.2f} s")
+    data = [f"data.eval_root={root}",
+            f"data.eval_list={root / 'lists' / 'test.txt'}"]
+    for name in CVP_NAMES:
+        ckpt = work / f"{name}.pt"
+        torch.save(build_model(cvp_config(name, torch.bfloat16),
+                               torch.Generator().manual_seed(0)
+                               ).state_dict(), ckpt)
+        out = work / f"out_{name}"
         reset_counts()
-        try:
-            cli_infer.main(["--config", str(CVP_CONFIG), "--ckpt",
-                            str(work / "cvp_mvsnet.pt"), "--out",
-                            str(work / "out_align16"), "--device",
-                            str(device), *data])
-        except ValueError as err:
-            log(f"  raised ValueError: {err}")
-            if "divisible by 2^5 = 32" not in str(err):
-                fail("align 16 raised another error")
-        else:
-            fail("align 16 ran: the reference cannot")
+        result = cli_infer.main([
+            "--config", str(CVP_CONFIG), "--ckpt", str(ckpt), "--out",
+            str(out), "--device", str(device), f"model.name={name}",
+            "data.align=32", *data])
+        torch.cuda.synchronize()
         counts = read_counts()
-        if any(counts.values()):
-            fail(f"align 16 launched kernels before it raised: {counts}")
-        log(f"  launches before the error {json.dumps(counts)}")
-    return cli
+        want = cvp_want(name, torch.bfloat16, CVP_SCAN_VIEWS)
+        log(f"  {name}: {result['maps']} maps in {result['seconds']:.4f} "
+            f"s through the CLI: {result['maps'] / result['seconds']:.4f}"
+            f" maps/s; launches {json.dumps(counts)}")
+        if counts != want or result["maps"] != CVP_SCAN_VIEWS:
+            fail(f"cli infer {name} launches {counts}, want {want}")
+        check_files(out / "scan1", CVP_SCAN_VIEWS, CVP_H, CVP_W)
+        cli[name] = counts
+    ply = cli_fuse.main(["--config", str(CVP_CONFIG), "--out",
+                         str(work / "out_cvp_mvsnet"), "--device",
+                         str(device), f"data.eval_root={root}"])[0]
+    log(f"  cli fuse (the config's thresholds) over the CVP maps: "
+        + check_cloud(ply))
+
+    log("phase 8e: the same config at data.align=16 (1600x1200: a "
+        "75-row coarsest level)")
+    reset_counts()
+    try:
+        cli_infer.main(["--config", str(CVP_CONFIG), "--ckpt",
+                        str(work / "cvp_mvsnet.pt"), "--out",
+                        str(work / "out_align16"), "--device",
+                        str(device), *data])
+    except ValueError as err:
+        log(f"  raised ValueError: {err}")
+        if "divisible by 2^5 = 32" not in str(err):
+            fail("align 16 raised another error")
+    else:
+        fail("align 16 ran: the reference cannot")
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"align 16 launched kernels before it raised: {counts}")
+    log(f"  launches before the error {json.dumps(counts)}")
+    return cli, root
 
 
-def phase_cvp(device):
+def phase_cvp(device, work: Path):
     scene = make_plane_scene(num_views=VIEWS, height=CVP_H, width=CVP_W,
                              z0=10.0)
     group_rows = phase_cvp_kernels(scene, device)
     phase_cvp_vs_cpu(device)
     full = phase_cvp_full_width(scene, device)
-    cli = phase_cvp_from_disk(device)
-    return group_rows, full, cli
+    cli, root = phase_cvp_from_disk(device, work)
+    return group_rows, full, cli, root
+
+
+# Phase 9. MVSNet at its own widths (32 feature channels, regularizer base
+# 8, the 192-hypothesis ladder, 5 views, batch 1), driven as
+# tests/test_e2e_matrix.py drives it: configs/cas_eval_dtu.yaml with
+# model.name=mvsnet data.max_h=1200 data.max_w=1600, DTU's 1600x1200 cut
+# to 1600x1184 (align 32), 400x296 maps. Training:
+# configs/cas_train_dtu.yaml with model.name=mvsnet data.num_views=3,
+# 640x512, 3 views, bf16, batch 4 (the config trains at 8), Adam.
+MVS_CONFIG = CVP_CONFIG.parent / "cas_eval_dtu.yaml"
+MVS_TRAIN_CONFIG = CVP_CONFIG.parent / "cas_train_dtu.yaml"
+MVS_H, MVS_W, MVS_C, MVS_TRAIN_VIEWS = 1184, 1600, 4 * BASE, 3
+MVS_SIZE = ["data.max_h=1200", "data.max_w=1600"]
+# Launches by kernel variant (warp, .vector, warp backward, conv3d, .mma)
+# per map: one cost volume and the U-Net's 5 stride-1 convs (4 blocks and
+# the score conv); per train step: the cost volume's forward and backward
+# kernels, no conv3d (train-mode convs are cuDNN's).
+MVS_LAUNCHES = {torch.bfloat16: (1, 1, 0, 5, 5),
+                torch.float32: (1, 1, 0, 5, 0), "train": (1, 1, 1, 0, 0)}
+MVS_SCORE_BIAS = ("UNetCostRegNet_0.FoldedConv_0.bias",)
+
+
+def mvs_want(key, times=1) -> dict:
+    warp, vec, grad, conv, mma = MVS_LAUNCHES[key]
+    return {"warp_variance": times * warp,
+            "warp_variance.vector": times * vec,
+            "warp_variance_grad": times * grad,
+            "conv3d_affine": times * conv,
+            "conv3d_affine.mma": times * mma, **NO_GROUP}
+
+
+def mvs_config(dtype, *overrides, config=MVS_CONFIG):
+    return load_config(str(config), [
+        "model.name=mvsnet", f"model.compute_dtype={str(dtype)[6:]}",
+        *overrides])
+
+
+def phase_mvsnet_kernels(device):
+    """9a: the warp forward at MVSNet's sweep and its backward at MVSNet's
+    training shape, against their plain versions; bf16 timed."""
+    h, w = MVS_H // 4, MVS_W // 4
+    log(f"phase 9a: warp_variance at MVSNet's sweep (D={LADDER}, {w}x{h}, "
+        f"C={MVS_C}, {VIEWS} views) and its backward at the training shape "
+        f"(batch {TRAIN_BATCH}, {MVS_TRAIN_VIEWS - 1} sources, "
+        f"{TRAIN_W // 4}x{TRAIN_H // 4})")
+    scene = make_plane_scene(num_views=VIEWS, height=MVS_H, width=MVS_W,
+                             z0=10.0)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = warp_inputs(scene, 1, 4, MVS_C, LADDER, dtype, device,
+                           height=MVS_H, width=MVS_W)
+        vec = fused_variance_volume.vector_launches
+        err = compare("warp", fused_variance_volume(*args),
+                      fused_variance_volume_plain(*args),
+                      f"warp_variance B=1 D={LADDER} {w}x{h} C={MVS_C} "
+                      f"{str(dtype)[6:]}")
+        if fused_variance_volume.vector_launches != vec + 1:
+            fail("MVSNet's warp not on the 16-byte vector variant")
+        if dtype is torch.bfloat16:
+            ms = cuda_ms(lambda: fused_variance_volume(*args))
+            plain_ms = cuda_ms(lambda: fused_variance_volume_plain(*args),
+                               iters=3, warmup=1)
+            by, ops = warp_bound(1, VIEWS - 1, LADDER, h, w, MVS_C, 2)
+            log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{max(by, ops):.4f} ms (bytes {by:.4f}, ops {ops:.4f})")
+            rows["warp"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                bytes_ms=by, ops_ms=ops)
+        del args
+    scene = make_plane_scene(num_views=MVS_TRAIN_VIEWS, height=TRAIN_H,
+                             width=TRAIN_W, z0=10.0)
+    h, w = TRAIN_H // 4, TRAIN_W // 4
+    for dtype in (torch.float32, torch.bfloat16):
+        args = warp_inputs(scene, 1, 4, MVS_C, LADDER, dtype, device,
+                           batch=TRAIN_BATCH, seed=4, height=TRAIN_H,
+                           width=TRAIN_W)
+        grad = torch.randn((TRAIN_BATCH, LADDER, h, w, MVS_C),
+                           generator=torch.Generator().manual_seed(14)).to(
+                               device, dtype)
+        what = (f"warp backward B={TRAIN_BATCH} D={LADDER} {w}x{h} "
+                f"C={MVS_C} {MVS_TRAIN_VIEWS - 1} sources {str(dtype)[6:]}")
+        n = fused_variance_volume_grad.launches
+        got = fused_variance_volume_grad(grad, *args)
+        if fused_variance_volume_grad.launches != n + 1:
+            fail(f"{what}: backward kernel not launched")
+        want = fused_variance_volume_grad_plain(grad, *args)
+        err = max(compare("warp_grad", a, b, f"{what} {name}")
+                  for a, b, name in zip(got, want, ("dref", "dsrc")))
+        del got, want
+        if dtype is torch.bfloat16:
+            ms = cuda_ms(lambda: fused_variance_volume_grad(grad, *args))
+            plain_ms = cuda_ms(
+                lambda: fused_variance_volume_grad_plain(grad, *args),
+                iters=3, warmup=1)
+            by, ops = warp_grad_bound(TRAIN_BATCH, MVS_TRAIN_VIEWS - 1,
+                                      LADDER, h, w, MVS_C, 2)
+            log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{max(by, ops):.4f} ms (bytes {by:.4f}, ops {ops:.4f})")
+            rows["warp_grad"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                     bytes_ms=by, ops_ms=ops)
+        del args, grad
+    return rows
+
+
+def phase_mvsnet_vs_cpu(device):
+    """9b: a seeded MVSNet with RefineNet at 128x160 (D = 192), card
+    (kernels) against CPU (plain versions): the pre-softmax scores, depth,
+    refined depth and confidence, with phase 8b's limits (in bf16 at least
+    the multiples of what one bf16 rounding of the images moves the CPU's
+    own outputs)."""
+    scene = make_plane_scene(num_views=VIEWS, height=128, width=160,
+                             z0=10.0, tilt=(0.05, 0.02))
+    unit = 4.0 / (LADDER - 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        log(f"phase 9b: MVSNet with RefineNet 128x160, D={LADDER}, "
+            f"{str(dtype)[6:]}, card vs CPU")
+        model = MVSNet(BASE, refine=True, compute_dtype=dtype,
+                       generator=torch.Generator().manual_seed(7))
+        scores, refined = [], []
+        hooks = [model.UNetCostRegNet_0.register_forward_hook(
+                     lambda m, a, out: scores.append(out.float().cpu())),
+                 model.register_forward_hook(
+                     lambda m, a, out: refined.append(
+                         out["refined_depth"].float().cpu()))]
+        inputs = model_inputs(scene, 1, "cpu", "single")
+        cpu = [t.float() for t in make_apply_fn(model, "cpu")(*inputs)]
+        moved = None
+        if dtype is torch.bfloat16:  # the yardstick of the bf16 limits
+            sign = torch.from_numpy(np.random.default_rng(0).choice(
+                [-1.0, 1.0], size=tuple(inputs[0].shape)).astype(np.float32))
+            nudged = [t.float() for t in make_apply_fn(model, "cpu")(
+                inputs[0] * (1 + sign * 2.0 ** -8), *inputs[1:])]
+            moved = dict(score=(scores[1] - scores[0]).abs()
+                         / (scores[0].max() - scores[0].min()),
+                         depth=(nudged[0] - cpu[0]).abs(),
+                         refined=(refined[1] - refined[0]).abs(),
+                         conf=(nudged[1] - cpu[1]).abs())
+            del scores[1:], refined[1:]
+        card = [t.float().cpu() for t in make_apply_fn(model, device)(
+            *model_inputs(scene, 1, device, "single"))]
+        for h in hooks:
+            h.remove()
+        moved = moved or {}
+        check_scores("MVSNet", scores[0], scores[1], dtype,
+                     moved.get("score"))
+        check_depth("MVSNet depth", cpu[0], card[0], unit, dtype,
+                    moved.get("depth"))
+        check_depth("MVSNet refined depth", refined[0], refined[1], unit,
+                    dtype, moved.get("refined"))
+        check_confidence("MVSNet", cpu[1], card[1], moved.get("conf"))
+
+
+def phase_mvsnet_full_width(device) -> dict:
+    """9c: full width through cli.infer.make_apply_fn, bf16 and f32: ms per
+    map, peak memory, launches per kernel variant (exact), and in bf16 the
+    device ms by layer kind and the profiler's idle share. Returns
+    {dtype: (launches, ms, peak GiB)}."""
+    log(f"phase 9c: MVSNet at full width {MVS_W}x{MVS_H}, {VIEWS} views, "
+        f"{LADDER} hypotheses, maps {MVS_W // 4}x{MVS_H // 4}, batch 1")
+    scene = make_plane_scene(num_views=VIEWS, height=MVS_H, width=MVS_W,
+                             z0=10.0)
+    args = model_inputs(scene, 1, device, "single")
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = build_model(mvs_config(dtype, *MVS_SIZE),
+                            torch.Generator().manual_seed(0))
+        apply_fn = make_apply_fn(model, device)
+        apply_fn(*args)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        depth, conf = apply_fn(*args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        for _ in range(3):
+            apply_fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        log(f"  {str(dtype)[6:]}: {ms:.2f} ms per depth map, peak "
+            f"{peak:.3f} GiB allocated, launches {json.dumps(counts)}")
+        if counts != mvs_want(dtype):
+            fail(f"MVSNet launches {counts}, want {mvs_want(dtype)}")
+        if depth.shape != (1, MVS_H // 4, MVS_W // 4) or \
+                conf.shape != depth.shape:
+            fail(f"output shapes {tuple(depth.shape)} {tuple(conf.shape)}")
+        # Soft-argmin over the ladder: a convex combination of 8..12.
+        if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()
+                and depth.min() >= 8.0 - 1e-3 and depth.max() <= 12.0 + 1e-3
+                and ((conf >= 0) & (conf <= 1 + 1e-5)).all()):
+            fail("MVSNet full-width outputs not finite or out of range")
+        result[dtype] = (counts, ms, peak)
+        if dtype is torch.bfloat16:
+            log("  bf16 device ms by layer kind, one run: " + json.dumps(
+                with_rest(*module_spans(
+                    {"feature net": model.MVSNetFeatureNet_0,
+                     "regularizer": model.UNetCostRegNet_0},
+                    mvsnet_module, "fused_variance_volume",
+                    lambda: apply_fn(*args)))))
+            profile_run(apply_fn, args)
+        del model, apply_fn
+    return result
+
+
+def phase_mvsnet_training(device):
+    """9d: one f32 train step card against CPU (RefineNet, smooth-L1, 3
+    views at 128x160, batch 2, D = 192; phase 7b's limits), then training
+    at full width with the train config's model and task (launches per
+    step exact)."""
+    log(f"phase 9d: one MVSNet train step (RefineNet, smooth-L1), card vs "
+        f"CPU, 128x160, {MVS_TRAIN_VIEWS} views, batch 2, D={LADDER}, f32, "
+        f"Adam 1e-3")
+    state = MVSNet(BASE, refine=True, generator=torch.Generator().manual_seed(
+        7)).state_dict()
+    check_train_step(
+        lambda: MVSNetTask(MVSNet(BASE, refine=True)), state,
+        collate_mvsnet(train_samples(128, 160, 2, views=MVS_TRAIN_VIEWS)),
+        device, ("loss", "abs_depth_error"), MVS_SCORE_BIAS)
+    log(f"phase 9d: MVSNet training at full width, {TRAIN_W}x{TRAIN_H}, "
+        f"{MVS_TRAIN_VIEWS} views, {LADDER} hypotheses, bf16, batch "
+        f"{TRAIN_BATCH}, Adam 1e-3 (configs/cas_train_dtu.yaml: smooth-L1, "
+        f"no RefineNet)")
+    cfg = mvs_config(torch.bfloat16, f"data.num_views={MVS_TRAIN_VIEWS}",
+                     config=MVS_TRAIN_CONFIG)
+    model = build_model(cfg, torch.Generator().manual_seed(0),
+                        trained=False).to(device)
+    task, collate = cli_train.build_task(cfg, model)
+    batch = collate(train_samples(TRAIN_H, TRAIN_W, TRAIN_BATCH,
+                                  views=MVS_TRAIN_VIEWS))
+    return train_full_width(
+        task, batch, mvs_want("train"), device,
+        lambda run: with_rest(*module_spans(
+            {"feature net": model.MVSNetFeatureNet_0,
+             "regularizer": model.UNetCostRegNet_0},
+            mvsnet_module, "fused_variance_volume", run)))
+
+
+def phase_mvsnet_from_disk(device, root: Path, work: Path) -> dict:
+    """9e: cli infer with configs/cas_eval_dtu.yaml model.name=mvsnet
+    data.max_h=1200 data.max_w=1600 over phase 8d's scan (its batch of 6:
+    one launch of each kernel), then cli fuse with the config's
+    thresholds: a valid PLY. Returns the launches of the infer run."""
+    log(f"phase 9e: cli infer --config configs/cas_eval_dtu.yaml "
+        f"model.name=mvsnet data.max_h=1200 data.max_w=1600 over phase 8d's "
+        f"scan ({CVP_SCAN_VIEWS} views at 1600x1200, cut to {MVS_W}x{MVS_H}),"
+        f" bf16, batch 6; then cli fuse")
+    ckpt = work / "mvsnet.pt"
+    torch.save(build_model(mvs_config(torch.bfloat16),
+                           torch.Generator().manual_seed(0)).state_dict(),
+               ckpt)
+    out = work / "out_mvsnet"
+    reset_counts()
+    result = cli_infer.main([
+        "--config", str(MVS_CONFIG), "--ckpt", str(ckpt), "--out", str(out),
+        "--device", str(device), "model.name=mvsnet", *MVS_SIZE,
+        f"data.eval_root={root}",
+        f"data.eval_list={root / 'lists' / 'test.txt'}"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    batches = -(-CVP_SCAN_VIEWS // 6)
+    log(f"  {result['maps']} maps in {result['seconds']:.4f} s through the "
+        f"CLI: {result['maps'] / result['seconds']:.4f} maps/s; launches "
+        f"{json.dumps(counts)} over {batches} batch")
+    if counts != mvs_want(torch.bfloat16, batches) or \
+            result["maps"] != CVP_SCAN_VIEWS:
+        fail(f"cli infer mvsnet launches {counts}, want "
+             f"{mvs_want(torch.bfloat16, batches)}")
+    check_files(out / "scan1", CVP_SCAN_VIEWS, MVS_H // 4, MVS_W // 4)
+    ply = cli_fuse.main(["--config", str(MVS_CONFIG), "--out", str(out),
+                         "--device", str(device),
+                         f"data.eval_root={root}"])[0]
+    log(f"  cli fuse (the config's thresholds) over the MVSNet maps: "
+        + check_cloud(ply))
+    return counts
+
+
+def phase_mvsnet_cli_train(device, work: Path) -> dict:
+    """9f: cli train --config configs/cas_train_dtu.yaml model.name=mvsnet
+    with RefineNet and the OHEM loss, one epoch on a synthetic training
+    layout (images 640x512, depths 160x128, 2 steps at batch 2) with a val
+    split and a checkpoint, launches exact; then cli infer from it."""
+    log(f"phase 9f: cli train model.name=mvsnet model.refine=true "
+        f"train.loss=ohem on a synthetic DTU training layout ({TRAIN_W}x"
+        f"{TRAIN_H}), then cli infer from its checkpoint")
+    root = generate(work / "dtu_train", num_scans=2, num_views=4,
+                    height=TRAIN_H, width=TRAIN_W, num_depth=LADDER,
+                    num_lights=1, tilt=SCAN_TILT)
+    overrides = ["model.name=mvsnet", "model.refine=true",
+                 f"data.num_views={MVS_TRAIN_VIEWS}", "data.batch_size=2"]
+    reset_counts()
+    result = cli_train.main([
+        "--config", str(MVS_TRAIN_CONFIG), "--device", str(device),
+        *overrides, "train.loss=ohem", f"data.root={root}",
+        f"data.train_list={root}/lists/train.txt",
+        f"data.val_list={root}/lists/val.txt", "train.epochs=1",
+        "train.summary_every_steps=1", f"train.log_dir={work / 'run'}"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # 2 train steps, then 2 val batches in eval mode (bf16).
+    train, val = mvs_want("train", 2), mvs_want(torch.bfloat16, 2)
+    want = {k: train[k] + val[k] for k in train}
+    log(f"  {result['step']} steps, losses "
+        + " ".join(f"{x:.4f}" for x in result["losses"])
+        + f", {result['step'] * 2 / result['seconds']:.3f} samples/s "
+        f"through the CLI's steps; val {json.dumps(result['val'])}; "
+        f"launches {json.dumps(counts)}")
+    if counts != want:
+        fail(f"cli train mvsnet launches {counts}, want {want}")
+    if result["step"] != 2 or not np.isfinite(result["losses"]).all():
+        fail("cli train mvsnet did not take 2 finite steps")
+    (work / "val.txt").write_text("scan2\n")
+    out = work / "out_mvsnet_train"
+    res = cli_infer.main([
+        "--ckpt", result["ckpt_dir"], "--out", str(out), "--device",
+        str(device), *overrides, f"data.eval_root={root}",
+        f"data.eval_list={work / 'val.txt'}", f"data.max_h={TRAIN_H}",
+        f"data.max_w={TRAIN_W}"])
+    check_files(out / "scan2", 4, TRAIN_H // 4, TRAIN_W // 4)
+    log(f"  cli infer loaded step {res['step']}; {res['maps']} maps written")
+    if res["step"] != 2:
+        fail(f"cli infer loaded step {res['step']}")
+    return counts
+
+
+def phase_mvsnet(device, root: Path, work: Path) -> dict:
+    rows = phase_mvsnet_kernels(device)
+    phase_mvsnet_vs_cpu(device)
+    full = phase_mvsnet_full_width(device)
+    train_counts, train_ms, train_peak = phase_mvsnet_training(device)
+    cli = phase_mvsnet_from_disk(device, root, work)
+    cli_train_counts = phase_mvsnet_cli_train(device, work)
+    (_, bf16_ms, bf16_peak), (_, f32_ms, f32_peak) = (
+        full[torch.bfloat16], full[torch.float32])
+    log(f"  MVSNet at {MVS_W}x{MVS_H}, D={LADDER}, {VIEWS} views: bf16 "
+        f"{bf16_ms:.2f} ms per map (peak {bf16_peak:.3f} GiB), f32 "
+        f"{f32_ms:.2f} ms (peak {f32_peak:.3f} GiB); training at "
+        f"{TRAIN_W}x{TRAIN_H}, {MVS_TRAIN_VIEWS} views, batch {TRAIN_BATCH}, "
+        f"bf16: {train_ms:.2f} ms per step (peak {train_peak:.3f} GiB)")
+    return dict(rows=rows, full=full, train=train_counts, cli=cli,
+                cli_train=cli_train_counts)
 
 
 def kernel_entry(name, source, replaces, rows, launches, cli_launches,
@@ -1822,23 +2251,41 @@ def main() -> int:
     grad_rows, train_counts, cli_train_counts = timed(
         7, phase_training(device))
     del scene
-    group_rows, cvp_full, cvp_cli = timed(8, phase_cvp(device))
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        group_rows, cvp_full, cvp_cli, scan_root = timed(
+            8, phase_cvp(device, work))
+        mvs = timed(9, phase_mvsnet(device, scan_root, work))
 
     cvp, aacvp = cvp_full["cvp_mvsnet"][0], cvp_full["aacvp_mvsnet"][0]
+    mvs_map = mvs["full"][torch.bfloat16][0]
+
+    def at_mvsnet(row):
+        """One launch at MVSNet's shape (9a): its times and bound."""
+        return dict(mvsnet_ms=row["ms"], mvsnet_plain_ms=row["plain_ms"],
+                    mvsnet_bound_ms=max(row["bytes_ms"], row["ops_ms"]),
+                    mvsnet_max_abs_err=row["err"])
+
     kernels = [
         kernel_entry("warp_variance", "mvs_tpu_torch/csrc/warp_variance.cu",
                      "mvs_tpu/ops/warp_pallas.py:288", warp_rows,
                      launches["warp_variance"],
                      cli_launches["warp_variance"], library=False,
                      cvp_launches=cvp["warp_variance"],
-                     cvp_cli_launches=cvp_cli["cvp_mvsnet"]["warp_variance"]),
+                     cvp_cli_launches=cvp_cli["cvp_mvsnet"]["warp_variance"],
+                     mvsnet_launches=mvs_map["warp_variance"],
+                     mvsnet_train_launches=mvs["train"]["warp_variance"],
+                     mvsnet_cli_launches=mvs["cli"]["warp_variance"],
+                     **at_mvsnet(mvs["rows"]["warp"])),
         kernel_entry("conv3d_affine", "mvs_tpu_torch/csrc/conv3d_affine.cu",
                      "mvs_tpu/ops/conv3d_pallas.py:259", conv_rows,
                      launches["conv3d_affine"],
                      cli_launches["conv3d_affine"], library=True,
                      cvp_launches=cvp["conv3d_affine"],
                      cvp_cli_launches=cvp_cli["cvp_mvsnet"]["conv3d_affine"],
-                     aacvp_launches=aacvp["conv3d_affine"]),
+                     aacvp_launches=aacvp["conv3d_affine"],
+                     mvsnet_launches=mvs_map["conv3d_affine"],
+                     mvsnet_cli_launches=mvs["cli"]["conv3d_affine"]),
         # The backward has no Pallas counterpart (JAX trains through XLA's
         # gather path); it is the gradient of the kernel above. launches:
         # per train step (7c); cli_launches: 7d's cli train run.
@@ -1846,7 +2293,11 @@ def main() -> int:
                      "mvs_tpu_torch/csrc/warp_variance.cu",
                      "mvs_tpu/ops/warp_pallas.py:288", grad_rows,
                      train_counts["warp_variance_grad"],
-                     cli_train_counts["warp_variance_grad"], library=False),
+                     cli_train_counts["warp_variance_grad"], library=False,
+                     mvsnet_train_launches=mvs["train"]["warp_variance_grad"],
+                     mvsnet_cli_train_launches=mvs["cli_train"][
+                         "warp_variance_grad"],
+                     **at_mvsnet(mvs["rows"]["warp_grad"])),
         # No pallas_call of its own: the counterpart of the fused
         # group-correlation mode of the banded warp (hat_warp.py:413-417,
         # 477). launches: per AACVP map (8c); cli_launches: 8d's AACVP run.

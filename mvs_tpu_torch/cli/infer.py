@@ -22,8 +22,8 @@ reads: ``<scan>/depth_est/<ref>.pfm``, ``<scan>/confidence/<ref>.pfm`` and
 A sample is a dict as the JAX eval dataset yields it: imgs (V, H, W, 3),
 intrinsics (V, 3, 3), extrinsics (V, 4, 4), depth_values (D,), depth_min,
 depth_max (CVP-MVSNet's range), and scan, ref_view, depth_interval for the
-writer. The model (`model.name`: cas_mvsnet, cvp_mvsnet or aacvp_mvsnet)
-picks which of them it takes.
+writer. The model (`model.name`: mvsnet, cas_mvsnet, cvp_mvsnet or
+aacvp_mvsnet) picks which of them it takes.
 """
 
 from __future__ import annotations
@@ -53,9 +53,10 @@ __all__ = ["main", "make_apply_fn", "stack_model_inputs",
 
 def stack_model_inputs(samples, device, family: str = "cascade") -> tuple:
     """Stack same-shaped samples into a model family's inputs (the model's
-    ``family``): CasMVSNet's (imgs, proj, depth_values) for "cascade",
-    CVP-MVSNet's (imgs, intrinsics, extrinsics, depth_min, depth_max) for
-    "pyramid"."""
+    ``family``): MVSNet's (imgs, proj at 1/4 resolution, depth_values) for
+    "single", CasMVSNet's (imgs, {stageK: proj}, depth_values) for
+    "cascade", CVP-MVSNet's (imgs, intrinsics, extrinsics, depth_min,
+    depth_max) for "pyramid"."""
     def stack(key):
         return torch.from_numpy(
             np.stack([np.asarray(s[key], np.float32) for s in samples])
@@ -65,6 +66,10 @@ def stack_model_inputs(samples, device, family: str = "cascade") -> tuple:
     if family == "pyramid":
         return (stack("imgs"), intr, extr, stack("depth_min"),
                 stack("depth_max"))
+    if family == "single":
+        return (stack("imgs"),
+                compose_projection(scale_intrinsics(intr, 0.25), extr),
+                stack("depth_values"))
     if family != "cascade":
         raise ValueError(f"unknown model family {family!r}")
     proj = {f"stage{i + 1}": compose_projection(scale_intrinsics(intr, f), extr)

@@ -1,13 +1,18 @@
-"""CasMVSNet training (counterpart of mvs_tpu.cli.train, one card).
+"""MVSNet and CasMVSNet training (counterpart of mvs_tpu.cli.train, one
+card).
 
     python -m mvs_tpu_torch.cli train --config configs/cas_train_dtu.yaml \
         [--resume] [--device cpu] [section.key=value ...]
 
-One loop: the preprocessed-DTU training split (io.dtu.DTUTrainDataset
-through the threaded io.pipeline.DataLoader), the train step (forward in
-train mode, cascade loss, backward, the optimizer chain of train.optim with
-the schedule of train.schedule), JSONL/TensorBoard scalars every
-``train.summary_every_steps``, then per epoch: optional BatchNorm
+`model.name` picks the task and the collate as mvs_tpu's
+build_model_and_task does: mvsnet trains MVSNetTask (``train.loss``
+smooth_l1 or ohem) on collate_mvsnet's batches, cas_mvsnet CascadeTask on
+collate_cascade's. One loop: the preprocessed-DTU training split
+(io.dtu.DTUTrainDataset through the threaded io.pipeline.DataLoader), the
+train step (forward in train mode, the task's loss, backward, the
+optimizer chain of train.optim with the schedule of train.schedule),
+JSONL/TensorBoard scalars every ``train.summary_every_steps``, then per
+epoch: optional BatchNorm
 recalibration (``train.bn_recal_batches``), a validation pass in eval mode
 over ``data.val_list`` (lights (3,), as the JAX CLI), and every
 ``train.ckpt_every_epochs`` a checkpoint under <log_dir>/ckpt ranked by the
@@ -25,7 +30,8 @@ import time
 
 import torch
 
-from mvs_tpu_torch.io.dtu import DTUTrainDataset, collate_cascade
+from mvs_tpu_torch.io.dtu import (DTUTrainDataset, collate_cascade,
+                                  collate_mvsnet)
 from mvs_tpu_torch.io.pipeline import DataLoader
 from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.nn.blocks import BatchStats
@@ -33,12 +39,14 @@ from mvs_tpu_torch.train.checkpoint import CheckpointManager
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.train.schedule import build_schedule
 from mvs_tpu_torch.train.state import make_eval_step, make_train_step
-from mvs_tpu_torch.train.tasks import CascadeTask, batch_to_device
+from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask,
+                                      batch_to_device)
 from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.meters import DictAverageMeter, ScalarLogger
 from mvs_tpu_torch.utils.platform import full_f32, resolve_device
 
-__all__ = ["main", "build_optimizer", "read_scan_list", "recalibrate_bn"]
+__all__ = ["main", "build_optimizer", "build_task", "read_scan_list",
+           "recalibrate_bn"]
 
 
 def read_scan_list(path) -> list[str]:
@@ -81,13 +89,22 @@ def recalibrate_bn(task, batches, device) -> int:
     return n
 
 
+def build_task(cfg, model):
+    """(task, collate) for `model`, chosen by model.name as mvs_tpu's
+    build_model_and_task chooses them."""
+    if cfg.model.name == "mvsnet":
+        return (MVSNetTask(model, loss_name=cfg.train.loss,
+                           ohem_topk=cfg.train.ohem_topk), collate_mvsnet)
+    return CascadeTask(model), collate_cascade
+
+
 def _check_supported(cfg) -> None:
-    """Raise on what the port cannot train yet: other families than
-    CasMVSNet, and more than one card."""
-    if cfg.model.name != "cas_mvsnet":
+    """Raise on what the port cannot train yet: other families than MVSNet
+    and CasMVSNet, and more than one card."""
+    if cfg.model.name not in ("mvsnet", "cas_mvsnet"):
         raise NotImplementedError(
             f"training {cfg.model.name!r} is not ported yet (ROADMAP.md "
-            f"queue 1: CVP/AACVP item 11, MVSNet 10, Point-MVSNet 12)")
+            f"queue 1: CVP/AACVP item 11, Point-MVSNet 12)")
     t = cfg.train
     if max(t.mesh_data, t.mesh_view, t.mesh_depth, t.mesh_space) > 1:
         raise NotImplementedError(
@@ -119,16 +136,16 @@ def main(argv=None) -> dict:
         d.root, read_scan_list(d.val_list), num_views=d.num_views,
         num_depth=d.num_depth, interval_scale=d.interval_scale,
         lights=(3,)) if d.val_list else None
-    loader = DataLoader(train_ds, d.batch_size, collate_cascade,
+    model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed),
+                        trained=False).to(device)
+    task, collate = build_task(cfg, model)
+    loader = DataLoader(train_ds, d.batch_size, collate,
                         num_threads=d.num_threads, seed=cfg.train.seed)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise ValueError(f"{len(train_ds)} training samples make no batch of "
                          f"{d.batch_size}")
 
-    model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed),
-                        trained=False).to(device)
-    task = CascadeTask(model)
     optimizer = build_optimizer(cfg, model.parameters(), steps_per_epoch)
     ckpt = CheckpointManager(
         f"{cfg.train.log_dir}/ckpt",
@@ -171,7 +188,7 @@ def main(argv=None) -> dict:
         val_metrics = None
         if val_ds is not None:
             vmeter = DictAverageMeter()
-            for batch in DataLoader(val_ds, d.batch_size, collate_cascade,
+            for batch in DataLoader(val_ds, d.batch_size, collate,
                                     shuffle=False, num_threads=d.num_threads):
                 vmeter.update({k: float(v) for k, v in eval_fn(
                     batch_to_device(batch, device)).items()})

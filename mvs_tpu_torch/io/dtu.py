@@ -1,5 +1,5 @@
 """DTU readers (counterpart of mvs_tpu.io.dtu's read_image, _scale_to_fit,
-DTUTrainDataset, DTUEvalDataset and collate_cascade).
+DTUTrainDataset, DTUEvalDataset, collate_mvsnet and collate_cascade).
 
 Training layout (preprocessed DTU): Rectified/{scan}_train/
 rect_{v+1:03d}_{light}_r5000.png, Depths/{scan}_train/depth_map_{v:04d}.pfm
@@ -30,7 +30,7 @@ from mvs_tpu_torch.io.pfm import read_pfm
 from mvs_tpu_torch.io.png import PNG_SIGNATURE, read_png
 
 __all__ = ["read_image", "resize_bilinear", "image_path", "DTUTrainDataset",
-           "DTUEvalDataset", "collate_cascade"]
+           "DTUEvalDataset", "collate_mvsnet", "collate_cascade"]
 
 
 def _decode_jpeg(path) -> np.ndarray:
@@ -241,17 +241,29 @@ def _compose(intr: np.ndarray, extr: np.ndarray) -> np.ndarray:
     return proj
 
 
+def _stack(samples: list[dict], key: str) -> np.ndarray:
+    return np.stack([s[key] for s in samples])
+
+
+def collate_mvsnet(samples: list[dict]) -> dict:
+    """Train batch of the MVSNet task: the projections of the stored
+    (1/4-resolution) intrinsics as they are, and the GT depth and mask at
+    that resolution."""
+    return {"imgs": _stack(samples, "imgs"),
+            "proj_matrices": _compose(_stack(samples, "intrinsics"),
+                                      _stack(samples, "extrinsics")),
+            **{k: _stack(samples, k)
+               for k in ("depth_values", "depth_gt", "mask")}}
+
+
 def collate_cascade(samples: list[dict]) -> dict:
     """Train batch of the cascade task: stage projections at 1x / 2x / 4x
     the stored (1/4-resolution) intrinsics, and the GT depth and mask at
     each stage's resolution. The nearest x2 / x4 upsample of the GT is
     np.repeat along both axes, which is what cv2.resize(INTER_NEAREST)
     computes at an integer factor."""
-    def stack(key):
-        return np.stack([s[key] for s in samples])
-
-    intr, extr = stack("intrinsics"), stack("extrinsics")
-    gt, mask = stack("depth_gt"), stack("mask")
+    intr, extr = _stack(samples, "intrinsics"), _stack(samples, "extrinsics")
+    gt, mask = _stack(samples, "depth_gt"), _stack(samples, "mask")
     proj, gt_ms, mask_ms = {}, {}, {}
     for i, s in enumerate((1, 2, 4)):
         stage = f"stage{i + 1}"
@@ -260,6 +272,6 @@ def collate_cascade(samples: list[dict]) -> dict:
         proj[stage] = _compose(k, extr)
         gt_ms[stage] = gt.repeat(s, axis=1).repeat(s, axis=2)
         mask_ms[stage] = mask.repeat(s, axis=1).repeat(s, axis=2)
-    return {"imgs": stack("imgs"), "proj_matrices": proj,
-            "depth_values": stack("depth_values"),
+    return {"imgs": _stack(samples, "imgs"), "proj_matrices": proj,
+            "depth_values": _stack(samples, "depth_values"),
             "depth_gt": gt_ms, "mask": mask_ms}

@@ -1,9 +1,9 @@
 """Model factory from config (counterpart of mvs_tpu.models.registry).
 
-The port has CasMVSNet (FPN features, one cost regularizer per stage, batch
-norm) and CVP-MVSNet / AACVP-MVSNet (inference). MVSNet and Point-MVSNet
-raise NotImplementedError naming the ROADMAP.md item (queue 1) that ports
-them.
+The port has MVSNet, CasMVSNet (FPN features, one cost regularizer per
+stage), both with batch norm, and CVP-MVSNet / AACVP-MVSNet (inference).
+Point-MVSNet raises NotImplementedError naming the ROADMAP.md item (queue
+1) that ports it.
 """
 
 from __future__ import annotations
@@ -13,12 +13,13 @@ from torch import nn
 
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
 from mvs_tpu_torch.models.cvp_mvsnet import CVPMVSNet
+from mvs_tpu_torch.models.mvsnet import MVSNet
 
 __all__ = ["build_model", "MODEL_NAMES"]
 
 MODEL_NAMES = ("mvsnet", "cas_mvsnet", "cvp_mvsnet", "aacvp_mvsnet",
                "point_mvsnet")
-_ROADMAP_ITEM = {"mvsnet": 10, "point_mvsnet": 12}
+_ROADMAP_ITEM = {"point_mvsnet": 12}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -42,6 +43,10 @@ def build_model(cfg, generator: torch.Generator | None = None,
         raise ValueError(f"compute_dtype {m.compute_dtype!r}; options: "
                          f"{tuple(_DTYPES)}")
     dtype = _DTYPES[m.compute_dtype]
+    if m.name == "mvsnet":
+        return MVSNet(base_channels=m.base_channels, refine=m.refine,
+                      compute_dtype=dtype, generator=generator,
+                      trained=trained)
     if m.name in ("cvp_mvsnet", "aacvp_mvsnet"):
         # As mvs_tpu's registry: AACVP is CVP with the attention feature
         # tail and the group-correlation cost.

@@ -1,6 +1,8 @@
 """2D feature extractors (counterpart of mvs_tpu.nn.feature_nets), eval
 and train mode, channels-last. Submodules carry the Flax auto-names.
 
+* MVSNetFeatureNet: (B, H, W, 3) -> (B, H/4, W/4, 4b), seven ConvBlocks and
+  a plain 3x3 conv with bias (no norm, no ReLU);
 * CascadeFeatureNet, FPN mode (arch_mode='fpn'): (B, H, W, 3) ->
   {'stage1': (B, H/4, W/4, 4b), 'stage2': (B, H/2, W/2, 2b),
   'stage3': (B, H, W, b)};
@@ -17,7 +19,8 @@ from torch import nn
 
 from mvs_tpu_torch.nn.blocks import Conv, ConvBlock
 
-__all__ = ["CascadeFeatureNet", "AttentionConv", "PyramidFeatureNet"]
+__all__ = ["MVSNetFeatureNet", "CascadeFeatureNet", "AttentionConv",
+           "PyramidFeatureNet"]
 
 
 def _upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -26,11 +29,15 @@ def _upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     return y.movedim(1, -1).contiguous()
 
 
-class CascadeFeatureNet(nn.Module):
-    def __init__(self, base_channels: int = 8, num_stages: int = 3):
+class _Trunk(nn.Module):
+    """ConvBlock_0..6, the layers both MVSNet's and CasMVSNet's feature nets
+    open with: two 3x3 blocks at full resolution (b channels), a 5x5
+    stride-2 block and two 3x3 blocks at 1/2 (2b), a 5x5 stride-2 block and
+    a 3x3 block at 1/4 (4b)."""
+
+    def __init__(self, base_channels: int):
         super().__init__()
         b = base_channels
-        self.num_stages = num_stages
         self.ConvBlock_0 = ConvBlock(3, b, (3, 3))
         self.ConvBlock_1 = ConvBlock(b, b, (3, 3))
         self.ConvBlock_2 = ConvBlock(b, 2 * b, (5, 5), stride=2)
@@ -38,6 +45,33 @@ class CascadeFeatureNet(nn.Module):
         self.ConvBlock_4 = ConvBlock(2 * b, 2 * b, (3, 3))
         self.ConvBlock_5 = ConvBlock(2 * b, 4 * b, (5, 5), stride=2)
         self.ConvBlock_6 = ConvBlock(4 * b, 4 * b, (3, 3))
+
+    def trunk(self, x):
+        """(full-resolution output of ConvBlock_1, half-resolution output of
+        ConvBlock_4, quarter-resolution output of ConvBlock_6)."""
+        conv0 = self.ConvBlock_1(self.ConvBlock_0(x))
+        conv1 = self.ConvBlock_4(self.ConvBlock_3(self.ConvBlock_2(conv0)))
+        return conv0, conv1, self.ConvBlock_6(self.ConvBlock_5(conv1))
+
+
+class MVSNetFeatureNet(_Trunk):
+    """(B, H, W, 3) -> (B, H/4, W/4, 4b): the trunk, then a plain 3x3 conv
+    with bias, no norm and no ReLU (FoldedConv_0)."""
+
+    def __init__(self, base_channels: int = 8):
+        super().__init__(base_channels)
+        b = base_channels
+        self.FoldedConv_0 = Conv(4 * b, 4 * b, (3, 3))
+
+    def forward(self, x):
+        return self.FoldedConv_0(self.trunk(x)[2])
+
+
+class CascadeFeatureNet(_Trunk):
+    def __init__(self, base_channels: int = 8, num_stages: int = 3):
+        super().__init__(base_channels)
+        b = base_channels
+        self.num_stages = num_stages
         self.ConvBlock_7 = ConvBlock(4 * b, 4 * b, (3, 3))
         self.FoldedConv_0 = Conv(4 * b, 4 * b, (1, 1), use_bias=False)
         if num_stages >= 2:
@@ -48,9 +82,8 @@ class CascadeFeatureNet(nn.Module):
             self.FoldedConv_4 = Conv(4 * b, b, (3, 3), use_bias=False)
 
     def forward(self, x):
-        conv0 = self.ConvBlock_1(self.ConvBlock_0(x))
-        conv1 = self.ConvBlock_4(self.ConvBlock_3(self.ConvBlock_2(conv0)))
-        conv2 = self.ConvBlock_7(self.ConvBlock_6(self.ConvBlock_5(conv1)))
+        conv0, conv1, conv2 = self.trunk(x)
+        conv2 = self.ConvBlock_7(conv2)
         outputs = {"stage1": self.FoldedConv_0(conv2)}
         if self.num_stages == 1:
             return outputs

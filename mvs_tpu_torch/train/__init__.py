@@ -1,3 +1,3 @@
-"""CasMVSNet training (counterpart of mvs_tpu.train): losses, metrics,
-schedules, the optax-exact optimizer chain, the cascade task, the train
-step and checkpoints."""
+"""MVSNet and CasMVSNet training (counterpart of mvs_tpu.train): losses,
+metrics, schedules, the optax-exact optimizer chain, the MVSNet and cascade
+tasks, the train step and checkpoints."""

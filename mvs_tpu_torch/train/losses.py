@@ -1,16 +1,18 @@
-"""Depth losses of the cascade (counterpart of mvs_tpu.train.losses:
-smooth_l1, masked_smooth_l1, cascade_loss).
+"""Depth losses of MVSNet and CasMVSNet (counterpart of
+mvs_tpu.train.losses: smooth_l1, masked_smooth_l1, ohem_smooth_l1,
+cascade_loss).
 
 Pure functions of tensors with a {0, 1} float mask, safe under an
-all-masked batch (0 / 0 guarded). The OHEM, pyramid and point losses wait
-for their model families (ROADMAP.md queue 1, items 10-12).
+all-masked batch (0 / 0 guarded). The pyramid and point losses wait for
+their model families (ROADMAP.md queue 1, items 11-12).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["smooth_l1", "masked_smooth_l1", "cascade_loss"]
+__all__ = ["smooth_l1", "masked_smooth_l1", "ohem_smooth_l1",
+           "cascade_loss"]
 
 
 def smooth_l1(err: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -28,6 +30,26 @@ def masked_mean(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def masked_smooth_l1(depth_est, depth_gt, mask, beta: float = 1.0):
     return masked_mean(smooth_l1(depth_est - depth_gt, beta), mask > 0.5)
+
+
+def ohem_smooth_l1(depth_est, depth_gt, mask, topk_frac: float = 0.6):
+    """Online hard-example mining: the mean smooth-L1 over the hardest
+    k = max(floor(topk_frac * n_valid), 1) of the n_valid masked-in
+    pixels. k depends on the data, so the errors are sorted in descending
+    order with the masked-out pixels at -inf (past every valid one) and the
+    finite entries of rank < k are averaged, on the device. The gradient
+    reaches the selected pixels only. 0 for an all-masked batch."""
+    err = smooth_l1(depth_est - depth_gt).reshape(-1)
+    valid = (mask > 0.5).reshape(-1)
+    ranked = torch.sort(torch.where(valid, err, -torch.inf),
+                        descending=True).values
+    n_valid = valid.sum(dtype=torch.float32)
+    k = torch.clamp(torch.floor(topk_frac * n_valid), min=1.0)
+    ranks = torch.arange(ranked.shape[0], dtype=torch.float32,
+                         device=ranked.device)
+    take = (ranks < k) & torch.isfinite(ranked)
+    return (torch.sum(torch.where(take, ranked, 0.0))
+            / torch.clamp(take.sum(dtype=torch.float32), min=1.0))
 
 
 def cascade_loss(stage_outputs: dict, depth_gt_stages: dict,

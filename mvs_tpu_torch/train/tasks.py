@@ -1,9 +1,7 @@
-"""The cascade task (counterpart of mvs_tpu.train.tasks.CascadeTask): the
-batch layout CasMVSNet trains on, its loss and its metrics.
-
-A batch (io.dtu.collate_cascade, moved to the device by batch_to_device):
-imgs (B, V, H, W, 3), proj_matrices {stageK: (B, V, 4, 4)}, depth_values
-(B, D), depth_gt {stageK: (B, h_k, w_k)}, mask {stageK: (B, h_k, w_k)}.
+"""The MVSNet and cascade tasks (counterparts of mvs_tpu.train.tasks'
+MVSNetTask and CascadeTask): the batch layout each model trains on, its
+loss and its metrics. A collated batch (io.dtu.collate_mvsnet or
+collate_cascade) goes to the device through batch_to_device.
 """
 
 from __future__ import annotations
@@ -15,10 +13,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from mvs_tpu_torch.train.losses import cascade_loss
+from mvs_tpu_torch.train.losses import (cascade_loss, masked_smooth_l1,
+                                        ohem_smooth_l1)
 from mvs_tpu_torch.train.metrics import standard_metrics
 
-__all__ = ["CascadeTask", "batch_to_device"]
+__all__ = ["MVSNetTask", "CascadeTask", "batch_to_device"]
 
 _BATCH_KEYS = ("imgs", "proj_matrices", "depth_values", "depth_gt", "mask")
 
@@ -35,7 +34,45 @@ def batch_to_device(batch: dict, device) -> dict:
 
 
 @dataclasses.dataclass
+class MVSNetTask:
+    """batch: imgs (B, V, H, W, 3), proj_matrices (B, V, 4, 4) at 1/4
+    resolution, depth_values (B, D), depth_gt and mask (B, H/4, W/4).
+
+    loss_name: 'smooth_l1' (masked) or 'ohem' (ohem_smooth_l1 over the
+    hardest ohem_topk of the valid pixels); the loss reads refined_depth
+    when the model refines, the metrics read depth."""
+
+    model: nn.Module
+    loss_name: str = "smooth_l1"
+    ohem_topk: float = 0.6
+
+    def __post_init__(self):
+        if self.loss_name not in ("smooth_l1", "ohem"):
+            raise ValueError(f"unknown loss {self.loss_name!r}")
+
+    def forward(self, batch: dict) -> dict:
+        """Model outputs for the batch, in the model's current mode."""
+        return self.model(batch["imgs"], batch["proj_matrices"],
+                          batch["depth_values"])
+
+    def loss_and_metrics(self, batch: dict):
+        """(loss, the standard metrics of the unrefined depth)."""
+        out = self.forward(batch)
+        est = out.get("refined_depth", out["depth"])
+        if self.loss_name == "ohem":
+            loss = ohem_smooth_l1(est, batch["depth_gt"], batch["mask"],
+                                  self.ohem_topk)
+        else:
+            loss = masked_smooth_l1(est, batch["depth_gt"], batch["mask"])
+        return loss, standard_metrics(out["depth"], batch["depth_gt"],
+                                      batch["mask"])
+
+
+@dataclasses.dataclass
 class CascadeTask:
+    """batch: imgs (B, V, H, W, 3), proj_matrices {stageK: (B, V, 4, 4)},
+    depth_values (B, D), depth_gt and mask {stageK: (B, h_k, w_k)}."""
+
     model: nn.Module
     stage_weights: Any = (0.5, 1.0, 2.0)
 

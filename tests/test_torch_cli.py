@@ -43,6 +43,7 @@ from mvs_tpu_torch.fusion import FusionConfig, compact_points, fuse_scene
 from mvs_tpu_torch.io import read_cam_file, read_pfm, read_ply, read_png
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
 from mvs_tpu_torch.models.cvp_mvsnet import CVPMVSNet
+from mvs_tpu_torch.models.mvsnet import MVSNet
 from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.utils.config import load_config
 from test_torch_blocks import perturb_batch_norm
@@ -226,9 +227,11 @@ def test_registry_builds_cas_mvsnet_and_names_what_is_not_ported():
     for name in ("cvp_mvsnet", "aacvp_mvsnet"):  # ported in inference
         model = build_model(load_config(None, [f"model.name={name}"]))
         assert isinstance(model, CVPMVSNet)
-    for name, item in (("mvsnet", "item 10"), ("point_mvsnet", "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(load_config(None, [f"model.name={name}"]))
+    model = build_model(load_config(None, ["model.name=mvsnet",
+                                           "model.refine=true"]))
+    assert isinstance(model, MVSNet) and model.RefineNet_0 is not None
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build_model(load_config(None, ["model.name=point_mvsnet"]))
     with pytest.raises(NotImplementedError, match="share_cr"):
         build_model(load_config(None, ["model.share_cr=true"]))
     with pytest.raises(ValueError, match="unknown model"):

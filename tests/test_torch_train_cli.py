@@ -133,6 +133,29 @@ def test_train_refuses_what_is_not_ported(root, tmp_path, monkeypatch):
         cli_main(["train", *args[2:]])
 
 
+def test_train_mvsnet_then_infer(root, tmp_path, capsys):
+    """`train model.name=mvsnet` (OHEM loss, RefineNet) takes MVSNetTask's
+    steps on collate_mvsnet's batches, validates and checkpoints; `infer`
+    reads its checkpoint and writes 1/4-resolution maps."""
+    mvsnet = ["model.name=mvsnet", "model.refine=true"]
+    result = train.main(_train_args(root, tmp_path / "run", *mvsnet,
+                                    "train.loss=ohem", "train.epochs=1"))
+    assert result["step"] == 2 and np.isfinite(result["losses"]).all()
+    assert {"abs_depth_error", "loss"} <= set(result["val"])
+    assert "last_stage_loss" not in result["val"]
+    saved = CheckpointManager(result["ckpt_dir"]).restore("latest")
+    assert "RefineNet_0.ConvBlock_3.Norm_0.count" in saved["model"]
+    out = tmp_path / "out"
+    res = infer.main(["--ckpt", result["ckpt_dir"], "--out", str(out),
+                      "--device", "cpu", *MODEL, *mvsnet,
+                      f"data.eval_root={root}",
+                      f"data.eval_list={root / 'lists' / 'val.txt'}",
+                      "data.max_h=32", "data.max_w=64"])
+    assert res["step"] == 2 and res["maps"] == 3
+    depth, _ = read_pfm(out / "scan2" / "depth_est" / "00000001.pfm")
+    assert depth.shape == (8, 16) and np.isfinite(depth).all()
+
+
 @pytest.mark.parametrize("path", sorted(CONFIGS.glob("*.yaml")),
                          ids=lambda p: p.name)
 def test_yaml_subset_reads_the_configs_as_pyyaml(path):
