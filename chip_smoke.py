@@ -1,6 +1,6 @@
-"""Drive the PyTorch port (mvs_tpu_torch) of CasMVSNet and MVSNet inference
-and training and of CVP-MVSNet / AACVP-MVSNet inference on one CUDA card,
-holding each hand-written kernel against its plain version.
+"""Drive the PyTorch port (mvs_tpu_torch) of CasMVSNet, MVSNet, CVP-MVSNet
+and AACVP-MVSNet inference and training on one CUDA card, holding each
+hand-written kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -101,6 +101,28 @@ Phases, in order; any failure exits non-zero:
      (f) `train model.name=mvsnet model.refine=true train.loss=ohem` on a
          synthetic training layout (2 steps, a val split, a checkpoint),
          launches exact, then `infer` from its checkpoint;
+ 10. CVP-MVSNet and AACVP-MVSNet training at configs/cvp_train_dtu.yaml's
+     widths (2 levels, 48 coarse + 2 x 4 residual hypotheses at the fixed
+     interval, 16 feature channels, regularizer base 16, 3 views):
+     (a) the warp backward with and without the hypotheses' gradient and
+         the group-correlation backward with and without it, against their
+         plain versions at the training shapes (batch 4, 640x512 images:
+         level 1 D = 48 at 320x256, level 0 D = 8 at 640x512), f32 and
+         bf16, timed (kernel, plain, bound) in bf16 and for the group
+         correlation also in f32; and at batch 2, C = 12 / 20 (scalar
+         variant), C = 24, D = 1, off-image, behind-camera and
+         integer-coordinate samples;
+     (b) one f32 train step card against CPU for each family at 128x160
+         (phase 7b's limits; BatchNorm counts 2, one per level);
+     (c) training at 640x512, 3 views, bf16, batch 4 (the config: 16):
+         launches per step (exact: CVP 2 warp forward, 2 backward of which
+         1 with the hypotheses' gradient; AACVP the same of the group
+         correlation; 0 conv3d), ms per step, samples/s, peak memory,
+         device ms by layer and kernel family, 30 falling losses;
+     (d) `train --config configs/cvp_train_dtu.yaml` for each family on a
+         synthetic training layout (2 steps, a val split, a checkpoint),
+         launches exact, then `infer --config configs/cvp_eval_dtu.yaml
+         data.align=32 --step latest` from its checkpoint;
 then one JSON line listing the kernels (launches: per map, phase 4's run,
 per train step for the backward kernel, phase 7c, per AACVP map for the
 group correlation, 8c; cli_launches: phase 6b's run, 7d's and 8d's;
@@ -108,12 +130,18 @@ cvp_launches / cvp_cli_launches: CVP's per map, 8c, and through 8d;
 mvsnet_launches / mvsnet_train_launches / mvsnet_cli_launches /
 mvsnet_cli_train_launches: MVSNet's per map, 9c, per train step, 9d, and
 through 9e and 9f; mvsnet_ms / mvsnet_plain_ms / mvsnet_bound_ms /
-mvsnet_max_abs_err: one launch at MVSNet's shape, 9a), and last
+mvsnet_max_abs_err: one launch at MVSNet's shape, 9a; on every kernel
+{cvp,aacvp}_train_launches and {cvp,aacvp}_cli_train_launches: per CVP /
+AACVP train step, 10c, and through 10d's cli train runs; cvp_train_ms /
+_plain_ms / _bound_ms / _max_abs_err: the warp backward's two launches of
+one CVP train step, 10a; the group correlation's backward as a kernel of
+its own, timed over one AACVP train step, 10a), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -135,7 +163,7 @@ from mvs_tpu_torch.fusion import FusionConfig, fuse_scene
 from mvs_tpu_torch.io import png as png_codec
 from mvs_tpu_torch.io import read_pfm, read_ply, write_pfm, write_ply
 from mvs_tpu_torch.io.dtu import (DTUEvalDataset, collate_cascade,
-                                  collate_mvsnet)
+                                  collate_mvsnet, collate_pyramid)
 from mvs_tpu_torch.models import mvsnet as mvsnet_module
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
 from mvs_tpu_torch.models.mvsnet import MVSNet
@@ -143,14 +171,15 @@ from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.ops import _build
 from mvs_tpu_torch.ops.conv3d import conv3d_affine, conv3d_affine_plain
 from mvs_tpu_torch.ops.group_correlation import (
-    group_correlation_volume, group_correlation_volume_plain)
+    group_correlation_volume, group_correlation_volume_grad,
+    group_correlation_volume_grad_plain, group_correlation_volume_plain)
 from mvs_tpu_torch.ops.warp_variance import (
     fused_variance_volume, fused_variance_volume_grad,
     fused_variance_volume_grad_plain, fused_variance_volume_plain)
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.train.state import make_train_step
 from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask,
-                                      batch_to_device)
+                                      PyramidTask, batch_to_device)
 from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.make_synthetic_dtu import generate
 from mvs_tpu_torch.utils.platform import resolve_device
@@ -212,24 +241,33 @@ def reset_counts() -> None:
     fused_variance_volume.launches = 0
     fused_variance_volume.vector_launches = 0
     fused_variance_volume_grad.launches = 0
+    fused_variance_volume_grad.depth_launches = 0
     conv3d_affine.launches = 0
     conv3d_affine.mma_launches = 0
     group_correlation_volume.launches = 0
     group_correlation_volume.vector_launches = 0
+    group_correlation_volume_grad.launches = 0
+    group_correlation_volume_grad.depth_launches = 0
 
 
 def read_counts() -> dict:
     return {"warp_variance": fused_variance_volume.launches,
             "warp_variance.vector": fused_variance_volume.vector_launches,
             "warp_variance_grad": fused_variance_volume_grad.launches,
+            "warp_variance_grad.depth":
+                fused_variance_volume_grad.depth_launches,
             "conv3d_affine": conv3d_affine.launches,
             "conv3d_affine.mma": conv3d_affine.mma_launches,
             "group_correlation": group_correlation_volume.launches,
             "group_correlation.vector":
-                group_correlation_volume.vector_launches}
+                group_correlation_volume.vector_launches,
+            "group_correlation_grad": group_correlation_volume_grad.launches,
+            "group_correlation_grad.depth":
+                group_correlation_volume_grad.depth_launches}
 
 
-NO_GROUP = {"group_correlation": 0, "group_correlation.vector": 0}
+NO_GROUP = {"group_correlation": 0, "group_correlation.vector": 0,
+            "group_correlation_grad": 0, "group_correlation_grad.depth": 0}
 
 
 def log(msg: str) -> None:
@@ -326,12 +364,13 @@ def conv_bound(b, d, h, w, cin, cout, dtype):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
 
 
-def ragged_volume_inputs(dtype, device):
+def ragged_volume_inputs(dtype, device, c=12):
     """Cost-volume inputs with off-image and behind-camera samples (large
     translations, depths from -3 to 12), C = 12 (not a multiple of the
-    kernels' 8-channel chunk), ragged sizes, batch 2, 3 sources, D = 7."""
+    kernels' 8-channel chunk) unless given, ragged sizes, batch 2, 3
+    sources, D = 7."""
     g = torch.Generator(device="cpu").manual_seed(2)
-    b, v, d, h, w, c = 2, 3, 7, 37, 53, 12
+    b, v, d, h, w = 2, 3, 7, 37, 53
     feats = torch.randn((b, v + 1, h, w, c), generator=g).to(device, dtype)
     rel = torch.eye(4).repeat(b, v, 1, 1)
     rel[:, :, :3, :3] += torch.randn((b, v, 3, 3), generator=g) * 0.05
@@ -578,7 +617,8 @@ def phase_full_width(scene, device):
         log(f"  {str(dtype)[6:]}: {ms:.2f} ms per depth map, peak "
             f"{peak:.3f} GiB allocated, launches {json.dumps(counts)}")
         want = {"warp_variance": 3, "warp_variance.vector": 3,
-                "warp_variance_grad": 0, "conv3d_affine": 15,
+                "warp_variance_grad": 0, "warp_variance_grad.depth": 0,
+                "conv3d_affine": 15,
                 "conv3d_affine.mma": 15 if dtype is torch.bfloat16 else 0,
                 **NO_GROUP}
         if counts != want:
@@ -775,6 +815,7 @@ def phase_scan_from_disk(work: Path, device, apply_ms: float,
     batches = -(-SCAN_VIEWS // 2)
     want = {"warp_variance": 3 * batches,
             "warp_variance.vector": 3 * batches, "warp_variance_grad": 0,
+            "warp_variance_grad.depth": 0,
             "conv3d_affine": 15 * batches, "conv3d_affine.mma": 15 * batches,
             **NO_GROUP}
     log(f"  launches {json.dumps(counts)} over {batches} batches")
@@ -997,7 +1038,8 @@ def phase_user_path(device, apply_ms: float):
 TRAIN_H, TRAIN_W, TRAIN_BATCH = 512, 640, 4
 TRAIN_STEPS, CURVE_STEPS = 8, 30
 TRAIN_LAUNCHES = {"warp_variance": 3, "warp_variance.vector": 3,
-                  "warp_variance_grad": 3, "conv3d_affine": 0,
+                  "warp_variance_grad": 3, "warp_variance_grad.depth": 0,
+                  "conv3d_affine": 0,
                   "conv3d_affine.mma": 0, **NO_GROUP}
 # 7b, card against CPU, f32, TF32 off on both. The forward sums in another
 # order (cuDNN's convs, the kernels, the reductions of the batch moments):
@@ -1017,17 +1059,30 @@ STEP_LOSS_RTOL, STEP_STATS_RTOL = 1e-5, 1e-4
 GRAD_TOL, GRAD_NUDGE_FACTOR, GRAD_COSINE = 1e-3, 30.0, 0.999
 
 
-def warp_grad_bound(b, v, d, h, w, c, itemsize):
+# The hypotheses' gradient adds, per (depth, pixel, view), the two
+# quotient-rule terms (6 flops), and per (channel, view) the sample's two
+# corner differences along x and y (6) and their product with the cotangent
+# and the coordinates' derivatives (4); it writes (B, D, H, W) f32.
+DEPTH_GRAD_OPS = (6, 10)
+
+
+def warp_grad_bound(b, v, d, h, w, c, itemsize, depth=False):
     """Least time of the backward: G, ref, src and the hypotheses read once,
-    dsrc read-modify-written once in f32, dref written once; the least f32
-    work: per (pixel, view) the rotation (12), per (depth, pixel, view) the
+    dref and dsrc written once in the features' dtype (and ddepth in f32
+    with `depth`); the kernel's f32 buffer for dsrc is its own design, and
+    its cost lies in the gap above this bound. The least f32 work: per
+    (pixel, view) the rotation (12), per (depth, pixel, view) the
     coordinates and corner weights (16), per (channel, view) the blend (7),
     the mean's sum (1), g (f - m) (2) and four weighted scatter-adds (8),
-    per channel the mean, g and the dref term (6)."""
-    nbytes = (b * d * h * w * c * itemsize + b * (1 + v) * h * w * c * itemsize
-              + b * d * h * w * 4 + b * v * 12 * 4 + 2 * b * v * h * w * c * 4
-              + b * h * w * c * itemsize)
-    ops = b * h * w * v * 12 + b * d * h * w * (v * (16 + 18 * c) + 6 * c)
+    per channel the mean, g and the dref term (6); with `depth`,
+    DEPTH_GRAD_OPS."""
+    per_view, per_channel = (16, 18) if not depth else (
+        16 + DEPTH_GRAD_OPS[0], 18 + DEPTH_GRAD_OPS[1])
+    nbytes = (b * d * h * w * c * itemsize
+              + 2 * b * (1 + v) * h * w * c * itemsize
+              + b * d * h * w * 4 * (2 if depth else 1) + b * v * 12 * 4)
+    ops = (b * h * w * v * 12
+           + b * d * h * w * (v * (per_view + per_channel * c) + 6 * c))
     return (nbytes / HBM_BYTES_PER_S * 1e3,
             ops / PEAK_FLOPS[torch.float32] * 1e3)
 
@@ -1053,14 +1108,15 @@ def phase_warp_grad(device):
             got = fused_variance_volume_grad(grad, *args)
             if fused_variance_volume_grad.launches != n + 1:
                 fail(f"{what}: backward kernel not launched")
-            want = fused_variance_volume_grad_plain(grad, *args)
+            want = fused_variance_volume_grad_plain(grad, *args,
+                                                    depth_grad=False)
             err = max(compare("warp_grad", a, b, f"{what} {name}")
                       for a, b, name in zip(got, want, ("dref", "dsrc")))
             if dtype is torch.bfloat16:  # the training path's type: time it
                 ms = cuda_ms(lambda: fused_variance_volume_grad(grad, *args))
                 plain_ms = cuda_ms(
-                    lambda: fused_variance_volume_grad_plain(grad, *args),
-                    iters=3, warmup=1)
+                    lambda: fused_variance_volume_grad_plain(
+                        grad, *args, depth_grad=False), iters=3, warmup=1)
                 by, ops = warp_grad_bound(TRAIN_BATCH, VIEWS - 1, d, h, w, c,
                                           2)
                 log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -1073,7 +1129,7 @@ def phase_warp_grad(device):
 def train_samples(height, width, batch, views=VIEWS, seed=0):
     """`batch` plane scenes (tilted, seeds seed..) as the DTU training split
     gives them: intrinsics and GT depth at 1/4 of the images, every pixel
-    valid."""
+    valid, the ladder's range 8..12."""
     samples = []
     for i in range(batch):
         scene = make_plane_scene(num_views=views, height=height, width=width,
@@ -1084,6 +1140,7 @@ def train_samples(height, width, batch, views=VIEWS, seed=0):
         samples.append(dict(
             imgs=scene.images, intrinsics=intr, extrinsics=scene.extrinsics,
             depth_values=np.linspace(8.0, 12.0, LADDER, dtype=np.float32),
+            depth_min=np.float32(8.0), depth_max=np.float32(12.0),
             depth_gt=gt, mask=np.ones_like(gt)))
     return samples
 
@@ -1126,11 +1183,13 @@ def phase_train_card_vs_cpu(device):
 
 
 def check_train_step(make_task, state, batch, device, metric_keys,
-                     score_biases):
+                     score_biases, updates=1):
     """One f32 train step card against CPU (limits: STEP_LOSS_RTOL,
     GRAD_TOL and GRAD_NUDGE_FACTOR, GRAD_COSINE, STEP_STATS_RTOL, Adam's
     step). `score_biases`: the score convs' biases, whose exact gradient
-    is 0 (see GRAD_TOL's note), left out of the gradient checks."""
+    is 0 (see GRAD_TOL's note), left out of the gradient checks;
+    `updates`: each BatchNorm's count after the step (a module shared by
+    the levels of a pyramid updates once per level)."""
     cpu = train_once(make_task, state, batch, "cpu")
     card = train_once(make_task, state, batch, device)
     sign = np.random.default_rng(0).choice([-1.0, 1.0],
@@ -1178,7 +1237,7 @@ def check_train_step(make_task, state, batch, device, metric_keys,
     log(f"  {len(stats)} statistics: card vs CPU within {err:.2e} of each "
         f"vector's largest magnitude (tol {STEP_STATS_RTOL}); counts "
         f"{sorted(counts)}")
-    if not err <= STEP_STATS_RTOL or counts != {1.0}:
+    if not err <= STEP_STATS_RTOL or counts != {float(updates)}:
         fail("BatchNorm statistics differ card vs CPU")
     # Adam's first step is lr * g / (|g| + eps), eps = 1e-8: equal to 1e-6
     # where the gradient's sign is certain (|g| over twice the tensor's
@@ -1220,6 +1279,10 @@ def kernel_family(name: str) -> str:
         return "warp backward (kernel)"
     if "warp_variance" in low:
         return "warp forward (kernel)"
+    if "group_correlation_grad" in low:
+        return "group correlation backward (kernel)"
+    if "group_correlation" in low:
+        return "group correlation forward (kernel)"
     if "wgrad" in low:
         return "conv weight grad (cuDNN)"
     if "dgrad" in low:
@@ -1326,7 +1389,8 @@ def phase_cli_train(device):
         # 2 epochs x 2 steps of 3 + 3 warp launches; val 2 epochs x 2
         # batches of 3 warp and 15 conv launches (eval mode, bf16).
         want = {"warp_variance": 24, "warp_variance.vector": 24,
-                "warp_variance_grad": 12, "conv3d_affine": 60,
+                "warp_variance_grad": 12, "warp_variance_grad.depth": 0,
+                "conv3d_affine": 60,
                 "conv3d_affine.mma": 60, **NO_GROUP}
         log(f"  {result['step']} steps, losses "
             + " ".join(f"{x:.4f}" for x in result["losses"])
@@ -1396,10 +1460,12 @@ CVP_SCAN_VIEWS = 6
 def cvp_want(name, dtype, maps=1) -> dict:
     warp, vec, conv, mma, group, gvec = CVP_LAUNCHES[(name, dtype)]
     return {"warp_variance": maps * warp, "warp_variance.vector": maps * vec,
-            "warp_variance_grad": 0, "conv3d_affine": maps * conv,
+            "warp_variance_grad": 0, "warp_variance_grad.depth": 0,
+            "conv3d_affine": maps * conv,
             "conv3d_affine.mma": maps * mma,
             "group_correlation": maps * group,
-            "group_correlation.vector": maps * gvec}
+            "group_correlation.vector": maps * gvec,
+            "group_correlation_grad": 0, "group_correlation_grad.depth": 0}
 
 
 def cvp_levels():
@@ -1409,15 +1475,16 @@ def cvp_levels():
 
 
 def cvp_volume_inputs(scene, level, d, dtype, device, c=CVP_C, batch=1,
-                      seed=0):
-    """Features, rel projections and hypotheses of one level's cost volume:
-    the coarsest level sweeps a global ladder, the finer ones 8 residual
+                      seed=0, height=CVP_H, width=CVP_W, levels=CVP_LEVELS):
+    """Features, rel projections and hypotheses of one level's cost volume
+    of a `levels`-level pyramid over height x width images of `scene`: the
+    coarsest level sweeps a global ladder, the finer ones 8 residual
     hypotheses around a noisy plane depth, as the model does."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    h, w = CVP_H >> level, CVP_W >> level
-    feats = torch.randn((batch, VIEWS, h, w, c), generator=g).to(device,
-                                                                 dtype)
-    if level == CVP_LEVELS - 1:
+    h, w = height >> level, width >> level
+    feats = torch.randn((batch, len(scene.extrinsics), h, w, c),
+                        generator=g).to(device, dtype)
+    if level == levels - 1:
         hyp = torch.linspace(*CVP_RANGE, d, device=device)[:, None, None]
         hyp = hyp.expand(d, h, w)
     else:
@@ -1877,7 +1944,7 @@ def mvs_want(key, times=1) -> dict:
     warp, vec, grad, conv, mma = MVS_LAUNCHES[key]
     return {"warp_variance": times * warp,
             "warp_variance.vector": times * vec,
-            "warp_variance_grad": times * grad,
+            "warp_variance_grad": times * grad, "warp_variance_grad.depth": 0,
             "conv3d_affine": times * conv,
             "conv3d_affine.mma": times * mma, **NO_GROUP}
 
@@ -1935,15 +2002,16 @@ def phase_mvsnet_kernels(device):
         got = fused_variance_volume_grad(grad, *args)
         if fused_variance_volume_grad.launches != n + 1:
             fail(f"{what}: backward kernel not launched")
-        want = fused_variance_volume_grad_plain(grad, *args)
+        want = fused_variance_volume_grad_plain(grad, *args,
+                                                depth_grad=False)
         err = max(compare("warp_grad", a, b, f"{what} {name}")
                   for a, b, name in zip(got, want, ("dref", "dsrc")))
         del got, want
         if dtype is torch.bfloat16:
             ms = cuda_ms(lambda: fused_variance_volume_grad(grad, *args))
             plain_ms = cuda_ms(
-                lambda: fused_variance_volume_grad_plain(grad, *args),
-                iters=3, warmup=1)
+                lambda: fused_variance_volume_grad_plain(
+                    grad, *args, depth_grad=False), iters=3, warmup=1)
             by, ops = warp_grad_bound(TRAIN_BATCH, MVS_TRAIN_VIEWS - 1,
                                       LADDER, h, w, MVS_C, 2)
             log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -2193,13 +2261,333 @@ def phase_mvsnet(device, root: Path, work: Path) -> dict:
                 cli_train=cli_train_counts)
 
 
+# Phase 10. CVP-MVSNet and AACVP-MVSNet training at the widths of
+# configs/cvp_train_dtu.yaml: 2 levels, 48 coarse and 2 x 4 residual
+# hypotheses at the fixed training interval, 16 feature channels,
+# regularizer base 16, 3 views. Images 640x512 (the DTU training split's),
+# bf16, batch 4 (the config trains at 16, in f32), Adam.
+CVP_TRAIN_CONFIG = CVP_CONFIG.parent / "cvp_train_dtu.yaml"
+CVP_TRAIN_VIEWS, CVP_TRAIN_LEVELS = 3, 2
+CVP_TRAIN_SCORE_BIAS = ("PyramidCostRegNet_0.FoldedConv_0.bias",)
+# The regularizer's stride-1 convs per level in eval mode (7 blocks, the
+# stride-1 transposed block, the score conv).
+CVP_CONVS_PER_LEVEL = 9
+
+
+def pyramid_want(name, steps=0, val_batches=0, levels=CVP_TRAIN_LEVELS):
+    """Exact launches of `steps` train steps and `val_batches` f32
+    eval-mode batches of a `levels`-level pyramid: per level and batch one
+    cost volume (16-byte variant) and, in eval mode, the regularizer's
+    convs on the conv3d kernel; per level and step one backward, with the
+    hypotheses' gradient at every level but the coarsest (whose ladder has
+    none); no conv3d in train mode (cuDNN's)."""
+    cost, grad = ("warp_variance", "warp_variance_grad") if \
+        name == "cvp_mvsnet" else ("group_correlation",
+                                   "group_correlation_grad")
+    want = dict.fromkeys(read_counts(), 0)
+    want[cost] = want[cost + ".vector"] = levels * (steps + val_batches)
+    want[grad] = levels * steps
+    want[grad + ".depth"] = (levels - 1) * steps
+    want["conv3d_affine"] = CVP_CONVS_PER_LEVEL * levels * val_batches
+    return want
+
+
+def cvp_train_config(name, dtype, *overrides):
+    return load_config(str(CVP_TRAIN_CONFIG), [
+        f"model.name={name}", f"model.compute_dtype={str(dtype)[6:]}",
+        *overrides])
+
+
+def group_grad_bound(b, v, d, h, w, c, g, itemsize, depth=False):
+    """Least time of the group correlation's backward: grad, ref, src and
+    the hypotheses read once, dref and dsrc written once in the features'
+    dtype (and ddepth in f32 with `depth`), as warp_grad_bound counts them;
+    the least f32 work: per (pixel, view) the rotation (12), per (depth,
+    pixel, view) the coordinates and corner weights (16), per (channel,
+    view) the blend (7), the sum over views (1) and four weighted
+    scatter-adds (8), per channel the cotangent q = grad * scale, q * ref
+    and the dref term (4); with `depth`, DEPTH_GRAD_OPS."""
+    per_view, per_channel = (16, 16) if not depth else (
+        16 + DEPTH_GRAD_OPS[0], 16 + DEPTH_GRAD_OPS[1])
+    nbytes = (b * d * h * w * g * itemsize
+              + 2 * b * (1 + v) * h * w * c * itemsize
+              + b * d * h * w * 4 * (2 if depth else 1) + b * v * 12 * 4)
+    ops = (b * h * w * v * 12
+           + b * d * h * w * (v * (per_view + per_channel * c) + 4 * c))
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / PEAK_FLOPS[torch.float32] * 1e3)
+
+
+def integer_volume_inputs(dtype, device, c):
+    """Cost-volume inputs whose every sample lands on integer coordinates:
+    identity rotations, shifts of -4, 0 or 4 pixels, per-pixel depths 1, 2
+    or 4 (so x + shift / depth is exact), among them x = W - 1, y = H - 1
+    and x = -1; batch 2, 2 sources, D = 3, 24x40."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    b, v, d, h, w = 2, 2, 3, 24, 40
+    feats = torch.randn((b, v + 1, h, w, c), generator=g).to(device, dtype)
+    rel = torch.eye(4).repeat(b, v, 1, 1)
+    rel[:, :, :2, 3] = 4.0 * torch.randint(-1, 2, (b, v, 2), generator=g)
+    rel[0, 0, :2, 3] = torch.tensor([-4.0, 4.0])
+    hyp = 2.0 ** torch.randint(0, 3, (b, d, h, w), generator=g).float()
+    return (feats[:, 0].contiguous(), feats[:, 1:].contiguous(),
+            rel.to(device), hyp.to(device))
+
+
+def check_grad_kernel(fn, plain, grad, args, depth, what, groups=()):
+    """The backward kernel `fn` (fused_variance_volume_grad or
+    group_correlation_volume_grad; `groups` = (G,) for the latter) against
+    autograd through its plain version: dref and dsrc (in the inputs'
+    dtype) and, with `depth`, ddepth (f32), each within phase 2's limit for
+    its own dtype. Checks that the kernel launched once, with the depth
+    variant exactly when asked. Returns the largest error."""
+    n, nd = fn.launches, fn.depth_launches
+    got = fn(grad, *args, *groups, depth_grad=depth)
+    if fn.launches != n + 1 or fn.depth_launches != nd + int(depth):
+        fail(f"{what}: backward kernel not launched as asked")
+    if (got[2] is not None) != depth:
+        fail(f"{what}: ddepth returned {got[2] is not None}, asked {depth}")
+    want = plain(grad, *args, *groups, depth_grad=depth)
+    names = ("dref", "dsrc", "ddepth") if depth else ("dref", "dsrc")
+    return max(compare("warp_grad", a, b, f"{what} {name}")
+               for a, b, name in zip(got, want, names))
+
+
+def phase_cvp_train_kernels(device, warp_grad_rows):
+    """10a: the warp backward with and without the hypotheses' gradient
+    and the group-correlation backward with and without it, against their
+    plain versions at the training shapes (batch 4, 640x512 images, 2
+    sources: level 1 D = 48 at 320x256, level 0 D = 8 at 640x512, C = 16,
+    G = 4) in f32 and bf16, timed in bf16 (the group correlation also in
+    f32, as AACVP feeds it), and at awkward shapes. Returns the rows of
+    one train step's launches: CVP's warp backward in bf16 (level 1
+    without, level 0 with the hypotheses' gradient) and AACVP's group
+    correlation backward in f32."""
+    log(f"phase 10a: backward kernels at the CVP training shapes, batch "
+        f"{TRAIN_BATCH}, {CVP_TRAIN_VIEWS - 1} sources, {TRAIN_W}x{TRAIN_H} "
+        f"images, C={CVP_C}, G={CVP_GROUPS}")
+    scene = make_plane_scene(num_views=CVP_TRAIN_VIEWS, height=TRAIN_H,
+                             width=TRAIN_W, z0=10.0)
+    rows = {"warp": [], "group": []}
+    kernels = (("warp", fused_variance_volume_grad,
+                fused_variance_volume_grad_plain, (), warp_grad_bound),
+               ("group", group_correlation_volume_grad,
+                group_correlation_volume_grad_plain, (CVP_GROUPS,),
+                group_grad_bound))
+    for level, d in ((1, CVP_COARSE_D), (0, CVP_FINE_D)):
+        h, w = TRAIN_H >> level, TRAIN_W >> level
+        main_depth = level < CVP_TRAIN_LEVELS - 1  # as the model asks
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cvp_volume_inputs(scene, level, d, dtype, device,
+                                     batch=TRAIN_BATCH, seed=20 + level,
+                                     height=TRAIN_H, width=TRAIN_W,
+                                     levels=CVP_TRAIN_LEVELS)
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            for kind, fn, plain, groups, bound in kernels:
+                last = CVP_C if kind == "warp" else CVP_GROUPS
+                grad = torch.randn(
+                    (TRAIN_BATCH, d, h, w, last),
+                    generator=torch.Generator().manual_seed(30 + level)).to(
+                        device, dtype)
+                errs = {}
+                for depth in (False, True):
+                    what = (f"{fn.__name__} level{level} B={TRAIN_BATCH} "
+                            f"D={d} {w}x{h} C={CVP_C} {str(dtype)[6:]} "
+                            f"depth={depth}")
+                    errs[depth] = check_grad_kernel(fn, plain, grad, args,
+                                                    depth, what, groups)
+                timed = dtype is torch.bfloat16 or kind == "group"
+                if not timed:
+                    continue
+                ms = {depth: cuda_ms(lambda: fn(grad, *args, *groups,
+                                                depth_grad=depth))
+                      for depth in (False, True)}
+                plain_ms = cuda_ms(lambda: plain(grad, *args, *groups,
+                                                 depth_grad=main_depth),
+                                   iters=3, warmup=1)
+                by, ops = bound(TRAIN_BATCH, CVP_TRAIN_VIEWS - 1, d, h, w,
+                                CVP_C, *groups, itemsize, depth=main_depth)
+                log(f"    {kind} backward {str(dtype)[6:]}: kernel "
+                    f"{ms[False]:.4f} ms, with ddepth {ms[True]:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, bound of the main path's "
+                    f"variant (ddepth {main_depth}) {max(by, ops):.4f} ms "
+                    f"(bytes {by:.4f}, ops {ops:.4f})")
+                main_type = torch.bfloat16 if kind == "warp" else \
+                    torch.float32
+                if dtype is main_type:
+                    rows[kind].append(dict(
+                        err=errs[main_depth], ms=ms[main_depth],
+                        plain_ms=plain_ms, bytes_ms=by, ops_ms=ops))
+            del args
+    # Awkward: batch 2, 3 sources, C = 12 and 20 (scalar variant), C = 24
+    # (16-byte variant; with 12 and 20 the layouts whose chunks of a pixel
+    # are not one aligned lane group), off-image and behind-camera samples,
+    # D = 1, and samples on integer coordinates.
+    for dtype in (torch.float32, torch.bfloat16):
+        t = str(dtype)[6:]
+        for c, groups in ((12, 3), (20, 4), (24, 4)):
+            args = ragged_volume_inputs(dtype, device, c=c)
+            one = (*args[:3], args[3][:, 3:4].contiguous())
+            for case, a in (("off-image/behind-camera", args), ("D=1", one)):
+                b, dd, h, w = a[3].shape
+                for kind, fn, plain, _, _ in kernels:
+                    last = c if kind == "warp" else groups
+                    g = torch.randn((b, dd, h, w, last),
+                                    generator=torch.Generator().manual_seed(
+                                        c)).to(device, dtype)
+                    check_grad_kernel(
+                        fn, plain, g, a, True,
+                        f"{kind} backward {case} C={c} {t}",
+                        (groups,) if kind == "group" else ())
+        for c in (16, 12):
+            args = integer_volume_inputs(dtype, device, c)
+            b, dd, h, w = args[3].shape
+            for kind, fn, plain, _, _ in kernels:
+                last = c if kind == "warp" else 4
+                g = torch.randn((b, dd, h, w, last),
+                                generator=torch.Generator().manual_seed(
+                                    40 + c)).to(device, dtype)
+                check_grad_kernel(
+                    fn, plain, g, args, True,
+                    f"{kind} backward integer coordinates C={c} {t}",
+                    (4,) if kind == "group" else ())
+    warp, group = rows["warp"], rows["group"]
+    log(f"  one CVP train step's warp backward (bf16, 1 of 2 launches with "
+        f"ddepth): {sum(r['ms'] for r in warp):.4f} ms, bound "
+        f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in warp):.4f}; one "
+        f"AACVP step's group-correlation backward (f32): "
+        f"{sum(r['ms'] for r in group):.4f} ms, bound "
+        f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in group):.4f}; the "
+        f"warp backward without ddepth at phase 7a's shapes (this run): "
+        f"{sum(r['ms'] for r in warp_grad_rows):.4f} ms per CasMVSNet step")
+    return rows
+
+
+def phase_cvp_train_vs_cpu(device):
+    """10b: one f32 train step card against CPU for each family, 2 levels
+    at 128x160, 3 views, batch 2, phase 7b's limits; each BatchNorm counts
+    one update per level."""
+    batch = collate_pyramid(train_samples(128, 160, 2,
+                                          views=CVP_TRAIN_VIEWS))
+    for name in CVP_NAMES:
+        log(f"phase 10b: one {name} train step, card vs CPU, 128x160, "
+            f"{CVP_TRAIN_LEVELS} levels, {CVP_TRAIN_VIEWS} views, batch 2, "
+            f"f32, Adam 1e-3")
+        cfg = cvp_train_config(name, torch.float32)
+        state = build_model(cfg, torch.Generator().manual_seed(7)
+                            ).state_dict()
+        check_train_step(lambda: PyramidTask(build_model(cfg)), state, batch,
+                         device, ("loss", "abs_depth_error"),
+                         CVP_TRAIN_SCORE_BIAS, updates=CVP_TRAIN_LEVELS)
+
+
+def phase_cvp_train_full_width(device) -> dict:
+    """10c: each family trained at 640x512, 3 views, bf16, batch 4 through
+    cli.train.build_task (train_full_width: exact launches per step, ms
+    per step, samples/s, peak memory, device ms by layer and kernel
+    family, 30 falling losses). Returns {name: (launches, ms, peak)}."""
+    out = {}
+    for name in CVP_NAMES:
+        # Each family starts from an empty allocator cache, as in a process
+        # of its own: AACVP's step peaks near the card's 80 GB.
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 10c: {name} training at {TRAIN_W}x{TRAIN_H}, "
+            f"{CVP_TRAIN_VIEWS} views, {CVP_TRAIN_LEVELS} levels, "
+            f"{CVP_COARSE_D} + 2 x 4 hypotheses, bf16, batch {TRAIN_BATCH}, "
+            f"Adam 1e-3 (configs/cvp_train_dtu.yaml: batch 16, f32)")
+        cfg = cvp_train_config(name, torch.bfloat16)
+        model = build_model(cfg, torch.Generator().manual_seed(0),
+                            trained=False).to(device)
+        task, collate = cli_train.build_task(cfg, model)
+        batch = collate(train_samples(TRAIN_H, TRAIN_W, TRAIN_BATCH,
+                                      views=CVP_TRAIN_VIEWS))
+        out[name] = train_full_width(
+            task, batch, pyramid_want(name, steps=1), device,
+            lambda run: cvp_breakdown(model, run, ()))
+        del model, task
+    return out
+
+
+def phase_cvp_cli_train(device, work: Path) -> dict:
+    """10d: cli train --config configs/cvp_train_dtu.yaml for each family
+    on a synthetic DTU training layout (images 640x512, depths 160x128; 2
+    steps at batch 2, a val split, a checkpoint), launches exact; then cli
+    infer --config configs/cvp_eval_dtu.yaml data.align=32 --step latest
+    from its checkpoint; both without --device, so on the first card.
+    Returns {name: launches of the train run}."""
+    log(f"phase 10d: cli train --config configs/cvp_train_dtu.yaml on a "
+        f"synthetic DTU training layout ({TRAIN_W}x{TRAIN_H}), then cli "
+        f"infer --config configs/cvp_eval_dtu.yaml --step latest")
+    root = generate(work / "dtu_cvp_train", num_scans=2, num_views=4,
+                    height=TRAIN_H, width=TRAIN_W, num_depth=LADDER,
+                    num_lights=1, tilt=SCAN_TILT)
+    (work / "val_cvp.txt").write_text("scan2\n")
+    out = {}
+    for name in CVP_NAMES:
+        reset_counts()
+        # No --device: the CLIs run on the card by default.
+        result = cli_train.main([
+            "--config", str(CVP_TRAIN_CONFIG),
+            f"model.name={name}", "data.batch_size=2", f"data.root={root}",
+            f"data.train_list={root}/lists/train.txt",
+            f"data.val_list={root}/lists/val.txt", "train.epochs=1",
+            "train.summary_every_steps=1",
+            f"train.log_dir={work / ('run_' + name)}"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        # 2 train steps, then 2 val batches in eval mode (the config's f32).
+        want = pyramid_want(name, steps=2, val_batches=2)
+        log(f"  {name}: {result['step']} steps, losses "
+            + " ".join(f"{x:.4f}" for x in result["losses"])
+            + f", {result['step'] * 2 / result['seconds']:.3f} samples/s "
+            f"through the CLI's steps; val {json.dumps(result['val'])}; "
+            f"launches {json.dumps(counts)}")
+        if counts != want:
+            fail(f"cli train {name} launches {counts}, want {want}")
+        if result["step"] != 2 or not np.isfinite(result["losses"]).all():
+            fail(f"cli train {name} did not take 2 finite steps")
+        dest = work / f"out_{name}_train"
+        reset_counts()
+        res = cli_infer.main([
+            "--config", str(CVP_CONFIG), "--ckpt", result["ckpt_dir"],
+            "--step", "latest", "--out", str(dest), f"model.name={name}",
+            "data.align=32", f"data.eval_root={root}",
+            f"data.eval_list={work / 'val_cvp.txt'}", "data.num_views=3",
+            f"data.max_h={TRAIN_H}", f"data.max_w={TRAIN_W}"])
+        torch.cuda.synchronize()
+        infer_counts = read_counts()
+        check_files(dest / "scan2", 4, TRAIN_H, TRAIN_W)
+        log(f"  cli infer loaded step {res['step']}; {res['maps']} maps "
+            f"written; launches {json.dumps(infer_counts)}")
+        if res["step"] != 2 or infer_counts != cvp_want(name, torch.bfloat16,
+                                                        res["maps"]):
+            fail(f"cli infer {name} from the checkpoint: step {res['step']},"
+                 f" launches {infer_counts}")
+        out[name] = counts
+    return out
+
+
+def phase_cvp_training(device, work: Path, warp_grad_rows) -> dict:
+    rows = phase_cvp_train_kernels(device, warp_grad_rows)
+    phase_cvp_train_vs_cpu(device)
+    full = phase_cvp_train_full_width(device)
+    cli = phase_cvp_cli_train(device, work)
+    for name, (_, ms, peak) in full.items():
+        log(f"  {name} training at {TRAIN_W}x{TRAIN_H}, {CVP_TRAIN_VIEWS} "
+            f"views, batch {TRAIN_BATCH}, bf16: {ms:.2f} ms per step "
+            f"({TRAIN_BATCH * 1e3 / ms:.3f} samples/s), peak {peak:.3f} GiB")
+    return dict(rows=rows, train={k: v[0] for k, v in full.items()}, cli=cli)
+
+
 def kernel_entry(name, source, replaces, rows, launches, cli_launches,
                  library, **extra):
     """Times and bounds are sums over one bf16 map's launches (phase 2; 7a
     for the backward: one train step's three; 8a for the group correlation:
-    an AACVP map's five, f32 as its bf16 model feeds them); launches are per
-    map (phase 4, 8c) or per train step (7c), cli_launches over phase 6b's
-    11 maps, 7d's cli train run or 8d's 6 maps."""
+    an AACVP map's five, f32 as its bf16 model feeds them; 10a for its
+    backward: one AACVP train step's two, f32); launches are per map (phase
+    4, 8c) or per train step (7c, 10c), cli_launches over phase 6b's 11
+    maps, 7d's cli train run, 8d's 6 maps or 10d's AACVP cli train run."""
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
@@ -2256,6 +2644,7 @@ def main() -> int:
         group_rows, cvp_full, cvp_cli, scan_root = timed(
             8, phase_cvp(device, work))
         mvs = timed(9, phase_mvsnet(device, scan_root, work))
+        pyr = timed(10, phase_cvp_training(device, work, grad_rows))
 
     cvp, aacvp = cvp_full["cvp_mvsnet"][0], cvp_full["aacvp_mvsnet"][0]
     mvs_map = mvs["full"][torch.bfloat16][0]
@@ -2265,6 +2654,16 @@ def main() -> int:
         return dict(mvsnet_ms=row["ms"], mvsnet_plain_ms=row["plain_ms"],
                     mvsnet_bound_ms=max(row["bytes_ms"], row["ops_ms"]),
                     mvsnet_max_abs_err=row["err"])
+
+    def pyramid_training(key):
+        """The kernel's launches per CVP / AACVP train step (10c) and
+        through their cli train runs (10d)."""
+        return {f"{short}_{run}_launches": pyr[src][name][key]
+                for short, name in (("cvp", "cvp_mvsnet"),
+                                    ("aacvp", "aacvp_mvsnet"))
+                for run, src in (("train", "train"), ("cli_train", "cli"))}
+
+    step_rows = pyr["rows"]["warp"]
 
     kernels = [
         kernel_entry("warp_variance", "mvs_tpu_torch/csrc/warp_variance.cu",
@@ -2276,7 +2675,8 @@ def main() -> int:
                      mvsnet_launches=mvs_map["warp_variance"],
                      mvsnet_train_launches=mvs["train"]["warp_variance"],
                      mvsnet_cli_launches=mvs["cli"]["warp_variance"],
-                     **at_mvsnet(mvs["rows"]["warp"])),
+                     **at_mvsnet(mvs["rows"]["warp"]),
+                     **pyramid_training("warp_variance")),
         kernel_entry("conv3d_affine", "mvs_tpu_torch/csrc/conv3d_affine.cu",
                      "mvs_tpu/ops/conv3d_pallas.py:259", conv_rows,
                      launches["conv3d_affine"],
@@ -2285,7 +2685,8 @@ def main() -> int:
                      cvp_cli_launches=cvp_cli["cvp_mvsnet"]["conv3d_affine"],
                      aacvp_launches=aacvp["conv3d_affine"],
                      mvsnet_launches=mvs_map["conv3d_affine"],
-                     mvsnet_cli_launches=mvs["cli"]["conv3d_affine"]),
+                     mvsnet_cli_launches=mvs["cli"]["conv3d_affine"],
+                     **pyramid_training("conv3d_affine")),
         # The backward has no Pallas counterpart (JAX trains through XLA's
         # gather path); it is the gradient of the kernel above. launches:
         # per train step (7c); cli_launches: 7d's cli train run.
@@ -2297,7 +2698,17 @@ def main() -> int:
                      mvsnet_train_launches=mvs["train"]["warp_variance_grad"],
                      mvsnet_cli_train_launches=mvs["cli_train"][
                          "warp_variance_grad"],
-                     **at_mvsnet(mvs["rows"]["warp_grad"])),
+                     **at_mvsnet(mvs["rows"]["warp_grad"]),
+                     **pyramid_training("warp_variance_grad"),
+                     cvp_train_depth_launches=pyr["train"]["cvp_mvsnet"][
+                         "warp_variance_grad.depth"],
+                     # One CVP train step's two bf16 launches (10a), the
+                     # finer level's with the hypotheses' gradient.
+                     cvp_train_ms=sum(r["ms"] for r in step_rows),
+                     cvp_train_plain_ms=sum(r["plain_ms"] for r in step_rows),
+                     cvp_train_bound_ms=sum(max(r["bytes_ms"], r["ops_ms"])
+                                            for r in step_rows),
+                     cvp_train_max_abs_err=max(r["err"] for r in step_rows)),
         # No pallas_call of its own: the counterpart of the fused
         # group-correlation mode of the banded warp (hat_warp.py:413-417,
         # 477). launches: per AACVP map (8c); cli_launches: 8d's AACVP run.
@@ -2306,7 +2717,20 @@ def main() -> int:
                      "mvs_tpu/ops/hat_warp.py:413", group_rows,
                      aacvp["group_correlation"],
                      cvp_cli["aacvp_mvsnet"]["group_correlation"],
-                     library=False),
+                     library=False, **pyramid_training("group_correlation")),
+        # The group correlation's backward (none in JAX, which autodiffs
+        # the gather path): times over one AACVP train step's two f32
+        # launches (10a), the finer level's with the hypotheses' gradient;
+        # launches per AACVP train step (10c), cli_launches: 10d's run.
+        kernel_entry("group_correlation_grad",
+                     "mvs_tpu_torch/csrc/group_correlation.cu",
+                     "mvs_tpu/ops/cost_volume.py:94", pyr["rows"]["group"],
+                     pyr["train"]["aacvp_mvsnet"]["group_correlation_grad"],
+                     pyr["cli"]["aacvp_mvsnet"]["group_correlation_grad"],
+                     library=False,
+                     **pyramid_training("group_correlation_grad"),
+                     aacvp_train_depth_launches=pyr["train"]["aacvp_mvsnet"][
+                         "group_correlation_grad.depth"]),
     ]
     log(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))

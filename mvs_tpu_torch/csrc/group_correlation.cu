@@ -37,6 +37,14 @@
 // group's sum when its last channel is done. Blocks split the depths until
 // the card has 8 blocks per SM.
 //
+// The backward (group_correlation_grad_kernel) has no TPU counterpart: the
+// JAX package trains AACVP through autodiff of the gather path. It recomputes
+// the forward's samples and gives dref, dsrc and, with a template flag chosen
+// when the hypotheses require a gradient, ddepth. Simple first: one thread
+// per pixel walks every depth (no depth split, so dref and ddepth have one
+// owner each, and a batch-4 training level still launches >= 81,920
+// threads); dsrc is scattered with f32 atomics as the warp backward's is.
+//
 // C interface (loaded with ctypes, see mvs_tpu_torch/ops/group_correlation.py):
 // every pointer is a device pointer to contiguous memory,
 //   ref  (B, H, W, C)      T
@@ -45,17 +53,24 @@
 //   hyp  (B, D, H, W)      f32 per-pixel depth hypotheses
 //   out  (B, D, H, W, G)   T
 // with T = float (dtype 0) or __nv_bfloat16 (dtype 1) and C % G == 0; vec = 1
-// selects the 16-byte loads (C % 8 == 0, 16-byte-aligned pointers). It
-// launches on `stream` and returns cudaGetLastError().
+// selects the 16-byte loads (C % 8 == 0, 16-byte-aligned pointers). The
+// backward entry also takes
+//   grad   (B, D, H, W, G)  T    dL/dout
+//   dref   (B, H, W, C)     T    written
+//   dsrc   (B, V, H, W, C)  f32  zero-filled by the caller, accumulated
+//   ddepth (B, D, H, W)     f32  written, or null for no depth gradient
+// Each launches on `stream` and returns cudaGetLastError().
 
 #include "mvs_common.cuh"
 
 namespace {
 
 using mvs::blend;
+using mvs::blend_diff;
 using mvs::from_f32;
 using mvs::load8;
 using mvs::sample_record;
+using mvs::scatter_corners;
 
 constexpr int kThreads = 128;       // one pixel per thread
 constexpr int kMinBlocksPerSm = 8;  // split depths until this many blocks
@@ -139,6 +154,117 @@ group_correlation_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   }
 }
 
+// The backward: given grad = dL/dout (B, D, H, W, G), with s_v[c] the
+// bilinear sample of view v and q[c] = grad[g(c)] / (V Cg) the cotangent of
+// the product s_v[c] ref[c]:
+//   dref[c]  = sum_d q[c] sum_v s_v[c];
+//   dsrc     : q[c] ref[c] scattered to the valid corners of each view's
+//              sample, weighted as the forward blended them (f32 atomics
+//              into an f32 buffer, float4 on the 16-byte path);
+//   ddepth   = sum_v sum_c q[c] ref[c] (ds_v/dx dx/ddep + ds_v/dy dy/ddep),
+//              with kDepth (a template flag), as the warp backward takes it.
+// One thread per pixel walks every depth, so each pixel's dref ([C] f32
+// sums in shared memory) and each (pixel, depth)'s ddepth have one owner.
+template <typename T, bool kVec, bool kDepth>
+__global__ void __launch_bounds__(kThreads)
+group_correlation_grad_kernel(const T* __restrict__ ref,
+                              const T* __restrict__ src,
+                              const float* __restrict__ geom,
+                              const float* __restrict__ hyp,
+                              const T* __restrict__ grad, T* __restrict__ dref,
+                              float* __restrict__ dsrc,
+                              float* __restrict__ ddep, int V, int D, int H,
+                              int W, int C, int G) {
+  // [V][kThreads] sample records, [V][3][kThreads] rotated pixels, [C]
+  // [kThreads] dref sums (thread t owns column t of each), with kDepth
+  // [V][kThreads] depth jacobians, then the batch's (V, 12) geometry.
+  extern __shared__ int4 smem[];
+  const int tid = threadIdx.x;
+  int4* rec = smem;
+  float* rot = reinterpret_cast<float*>(smem + V * kThreads);
+  float* acc = rot + 3 * V * kThreads;
+  float2* jac = reinterpret_cast<float2*>(acc + C * kThreads);
+  float* sgeom = reinterpret_cast<float*>(jac + (kDepth ? V * kThreads : 0));
+
+  const int b = blockIdx.y;
+  const int hw = H * W;
+  for (int i = tid; i < V * 12; i += kThreads)
+    sgeom[i] = geom[(int64_t)b * V * 12 + i];
+  __syncthreads();
+
+  const int p = blockIdx.x * kThreads + tid;
+  if (p >= hw) return;  // no barrier follows
+  const int px = p % W, py = p / W;
+  for (int v = 0; v < V; ++v) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      rot[(v * 3 + i) * kThreads + tid] =
+          mvs::rotate_row(sgeom + v * 12, i, px, py);
+  }
+  for (int c = 0; c < C; ++c) acc[c * kThreads + tid] = 0.f;
+
+  const int vstride = hw * C;  // < 2^31, checked at launch
+  const int rowc = W * C;
+  const T* refp = ref + (int64_t)b * vstride + p * C;
+  const T* srcb = src + (int64_t)b * V * vstride;
+  float* dsrcb = dsrc + (int64_t)b * V * vstride;
+  const int cg = C / G;
+  const float scale = 1.f / (float)(cg * V);
+
+  for (int d = 0; d < D; ++d) {
+    const int64_t at = ((int64_t)b * D + d) * hw + p;
+    const float dep = __ldg(hyp + at);
+    for (int v = 0; v < V; ++v) {
+      rec[v * kThreads + tid] =
+          sample_record(rot + v * 3 * kThreads + tid, kThreads,
+                        sgeom + v * 12, dep, W, H, C);
+      if constexpr (kDepth)
+        jac[v * kThreads + tid] = mvs::depth_jacobian(
+            rot + v * 3 * kThreads + tid, kThreads, sgeom + v * 12, dep);
+    }
+    const T* go = grad + at * G;
+    float dd = 0.f;
+    for (int c0 = 0; c0 < C; c0 += 8) {
+      const int nc = min(8, C - c0);
+      float r[8], q[8], qr[8], sum[8];
+      load8<kVec>(refp + c0, true, nc, r);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        q[k] = k < nc ? mvs::to_f32(go[(c0 + k) / cg]) * scale : 0.f;
+        qr[k] = q[k] * r[k];
+        sum[k] = 0.f;
+      }
+      for (int v = 0; v < V; ++v) {
+        const int4 rv = rec[v * kThreads + tid];
+        const T* sv = srcb + (int64_t)v * vstride + c0;
+        float f[8];
+        if constexpr (kDepth) {
+          float fx[8], fy[8];
+          blend_diff<kVec>(sv, rv, nc, C, rowc, f, fx, fy);
+          const float2 j = jac[v * kThreads + tid];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            dd += qr[k] * (fx[k] * j.x + fy[k] * j.y);
+        } else {
+          blend<kVec>(sv, rv, nc, C, rowc, f);
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) sum[k] += f[k];
+        scatter_corners<kVec>(dsrcb + (int64_t)v * vstride + c0, rv, nc, C,
+                              rowc, qr);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < nc) acc[(c0 + k) * kThreads + tid] += q[k] * sum[k];
+    }
+    if constexpr (kDepth) ddep[at] = dd;
+  }
+
+  // dref, rounded once to T.
+  T* o = dref + (int64_t)b * vstride + p * C;
+  for (int c = 0; c < C; ++c) o[c] = from_f32<T>(acc[c * kThreads + tid]);
+}
+
 template <typename T, bool kVec>
 int launch(const void* ref, const void* src, const void* geom,
            const void* hyp, void* out, int B, int V, int D, int H, int W,
@@ -147,15 +273,10 @@ int launch(const void* ref, const void* src, const void* geom,
   if (B == 0 || D == 0 || hw == 0) return cudaSuccess;
   if (V <= 0 || C <= 0 || G <= 0 || C % G != 0)
     return (int)cudaErrorInvalidValue;
-  if ((hw + W + 1) * C > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (!mvs::offsets_fit(hw, W, C)) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)V * (kThreads * 16 + 3 * kThreads * 4 + 48);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {  // many views: opt in to more shared memory
-    cudaError_t err = cudaFuncSetAttribute(
-        group_correlation_kernel<T, kVec>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = mvs::reserve_smem(group_correlation_kernel<T, kVec>, smem);
+  if (err != cudaSuccess) return err;
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -191,6 +312,36 @@ int launch_t(const void* ref, const void* src, const void* geom,
                           stream);
 }
 
+template <typename T, bool kVec, bool kDepth>
+int launch_grad(const void* ref, const void* src, const void* geom,
+                const void* hyp, const void* grad, void* dref, void* dsrc,
+                void* ddep, int B, int V, int D, int H, int W, int C, int G,
+                cudaStream_t stream) {
+  const int64_t hw = (int64_t)H * W;
+  if (B == 0 || hw == 0) return cudaSuccess;
+  if (V <= 0 || C <= 0 || G <= 0 || C % G != 0)
+    return (int)cudaErrorInvalidValue;
+  if (!mvs::offsets_fit(hw, W, C)) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)V * (kThreads * 16 + 3 * kThreads * 4 + 48) +
+                      (size_t)C * kThreads * 4 +
+                      (kDepth ? (size_t)V * kThreads * 8 : 0);
+  const int err =
+      mvs::reserve_smem(group_correlation_grad_kernel<T, kVec, kDepth>, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (hw + kThreads - 1) / kThreads;
+  if (tiles > INT32_MAX || B > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)tiles, (unsigned)B);
+  group_correlation_grad_kernel<T, kVec, kDepth>
+      <<<grid, kThreads, smem, stream>>>(
+          static_cast<const T*>(ref), static_cast<const T*>(src),
+          static_cast<const float*>(geom), static_cast<const float*>(hyp),
+          static_cast<const T*>(grad), static_cast<T*>(dref),
+          static_cast<float*>(dsrc), static_cast<float*>(ddep), V, D, H, W,
+          C, G);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int mvs_group_correlation(const void* ref, const void* src,
@@ -207,4 +358,20 @@ extern "C" int mvs_group_correlation(const void* ref, const void* src,
     return launch_t<__nv_bfloat16>(ref, src, geom, hyp, out, B, V, D, H, W, C,
                                    G, vec, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int mvs_group_correlation_grad(const void* ref, const void* src,
+                                          const void* geom, const void* hyp,
+                                          const void* grad, void* dref,
+                                          void* dsrc, void* ddepth, int B,
+                                          int V, int D, int H, int W, int C,
+                                          int G, int dtype, int vec,
+                                          void* stream) {
+  return mvs::dispatch_grad(
+      dtype, vec, ddepth != nullptr, C, [&](auto type, auto kvec, auto kdep) {
+        return launch_grad<typename decltype(type)::type, decltype(kvec)::value,
+                           decltype(kdep)::value>(
+            ref, src, geom, hyp, grad, dref, dsrc, ddepth, B, V, D, H, W, C, G,
+            static_cast<cudaStream_t>(stream));
+      });
 }

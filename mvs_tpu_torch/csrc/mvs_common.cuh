@@ -3,13 +3,16 @@
 // group-correlation kernels share (so that both round the projected
 // coordinates as plane_sweep_coords does and sample the same corners), and
 // the sm_80+ primitives the tensor-core conv is built from (16-byte cp.async
-// with zero fill, ldmatrix, bf16 mma.sync).
+// with zero fill, ldmatrix, bf16 mma.sync), and the host-side launch checks
+// and variant dispatch that the two backward kernels share.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mvs {
 
@@ -142,6 +145,85 @@ __device__ __forceinline__ void blend(const T* sv, int4 r, int nc, int C,
     f[k] = v00[k] * w[0] + v01[k] * w[1] + v10[k] * w[2] + v11[k] * w[3];
 }
 
+// ---- Gradients of a sample -------------------------------------------------
+
+// (dx/ddep, dy/ddep) of the source coordinates of a rotated pixel (rot, as
+// sample_record reads it) at depth `dep`: the quotient rule of
+// plane_sweep_coords' divisions, (r_x - x r_z) / q_z and (r_y - y r_z) / q_z,
+// with q and the coordinates rounded as sample_record rounds them. A point
+// with q_z <= 1e-3 gets (0, 0): plane_sweep_coords' `where` gives it no
+// gradient.
+__device__ __forceinline__ float2 depth_jacobian(const float* rot, int stride,
+                                                 const float* g, float dep) {
+  const float rz = rot[2 * stride];
+  const float qx = __fadd_rn(__fmul_rn(rot[0], dep), g[9]);
+  const float qy = __fadd_rn(__fmul_rn(rot[stride], dep), g[10]);
+  const float qz = __fadd_rn(__fmul_rn(rz, dep), g[11]);
+  if (!(qz > 1e-3f)) return make_float2(0.f, 0.f);
+  const float xs = __fdiv_rn(qx, qz), ys = __fdiv_rn(qy, qz);
+  return make_float2(__fdiv_rn(rot[0] - xs * rz, qz),
+                     __fdiv_rn(rot[stride] - ys * rz, qz));
+}
+
+// blend's f, and the sample's derivatives along x and y with the corners
+// held: fx = (1 - wy)(v01 - v00) + wy (v11 - v10), fy = (1 - wx)(v10 - v00)
+// + wx (v11 - v01), each corner off the image read as zero. JAX
+// differentiates x - floor(x) with slope 1 everywhere, so at an integer x
+// these are the right-hand differences (and -v00 at x = W - 1).
+template <bool kVec, typename T>
+__device__ __forceinline__ void blend_diff(const T* sv, int4 r, int nc, int C,
+                                           int rowc, float* f, float* fx,
+                                           float* fy) {
+  float w[4];
+  corner_weights(r, w);
+  const float wx = __int_as_float(r.y), wy = __int_as_float(r.z);
+  sv += r.x;
+  float v00[8], v01[8], v10[8], v11[8];
+  load8<kVec>(sv, r.w & 1, nc, v00);
+  load8<kVec>(sv + C, r.w & 2, nc, v01);
+  load8<kVec>(sv + rowc, r.w & 4, nc, v10);
+  load8<kVec>(sv + rowc + C, r.w & 8, nc, v11);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    f[k] = v00[k] * w[0] + v01[k] * w[1] + v10[k] * w[2] + v11[k] * w[3];
+    fx[k] = (1.f - wy) * (v01[k] - v00[k]) + wy * (v11[k] - v10[k]);
+    fy[k] = (1.f - wx) * (v10[k] - v00[k]) + wx * (v11[k] - v01[k]);
+  }
+}
+
+// dst[k] += w * dv[k] for the first nc channels, as f32 atomics: two
+// 16-byte vector atomics on the 16-byte path (sm_90), else scalar ones.
+template <bool kVec>
+__device__ __forceinline__ void scatter8(float* dst, float w, int nc,
+                                         const float* dv) {
+  if constexpr (kVec) {
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(w * dv[0], w * dv[1], w * dv[2], w * dv[3]));
+    atomicAdd(reinterpret_cast<float4*>(dst) + 1,
+              make_float4(w * dv[4], w * dv[5], w * dv[6], w * dv[7]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < nc) atomicAdd(dst + k, w * dv[k]);
+  }
+}
+
+// Scatter a sample's cotangent dv to the valid corners of record r (dst
+// points at the view's f32 gradient plus c0), each corner's share weighted
+// as the forward blended it.
+template <bool kVec>
+__device__ __forceinline__ void scatter_corners(float* dst, int4 r, int nc,
+                                                int C, int rowc,
+                                                const float* dv) {
+  float w[4];
+  corner_weights(r, w);
+  dst += r.x;
+  if (r.w & 1) scatter8<kVec>(dst, w[0], nc, dv);
+  if (r.w & 2) scatter8<kVec>(dst + C, w[1], nc, dv);
+  if (r.w & 4) scatter8<kVec>(dst + rowc, w[2], nc, dv);
+  if (r.w & 8) scatter8<kVec>(dst + rowc + C, w[3], nc, dv);
+}
+
 // ---- sm_80+ primitives of the tensor-core conv ------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -196,6 +278,50 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---- Host-side launch helpers ----------------------------------------------
+
+// Whether every corner offset into an (H, W, C) feature map, hw = H * W,
+// fits the kernels' int32 element offsets.
+inline bool offsets_fit(int64_t hw, int W, int C) {
+  return (hw + W + 1) * C <= INT32_MAX;
+}
+
+// Let `kernel` take `smem` bytes of dynamic shared memory: refuses more than
+// an sm_90 block can have (227 KB), opts in above the default 48 KB.
+template <typename Kernel>
+int reserve_smem(Kernel* kernel, size_t smem) {
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T>
+struct TypeTag {
+  using type = T;
+};
+template <bool B>
+using Flag = std::integral_constant<bool, B>;
+
+// A backward kernel's variant chosen at run time: returns
+// launch(TypeTag<T>{}, Flag<kVec>{}, Flag<kDepth>{}) with T = float (dtype 0)
+// or __nv_bfloat16 (dtype 1), kVec = vec (the 16-byte path, which needs
+// C % 8 == 0) and kDepth = depth (the hypotheses' gradient).
+template <typename Launch>
+int dispatch_grad(int dtype, bool vec, bool depth, int C, Launch launch) {
+  if (vec && C % 8 != 0) return (int)cudaErrorInvalidValue;
+  auto flags = [&](auto type) -> int {
+    if (depth)
+      return vec ? launch(type, Flag<true>{}, Flag<true>{})
+                 : launch(type, Flag<false>{}, Flag<true>{});
+    return vec ? launch(type, Flag<true>{}, Flag<false>{})
+               : launch(type, Flag<false>{}, Flag<false>{});
+  };
+  if (dtype == 0) return flags(TypeTag<float>{});
+  if (dtype == 1) return flags(TypeTag<__nv_bfloat16>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace mvs

@@ -65,7 +65,18 @@
 //     across all depths and sums in shared memory, so no atomics;
 //   * dsrc[v, corner, c] += w_corner g (f_v - m), f_v the blended sample,
 //     scattered with f32 atomics into an f32 buffer (16-byte vector atomics
-//     on the 16-byte path), valid corners only (the forward's zero fill).
+//     on the 16-byte path), valid corners only (the forward's zero fill);
+//   * with kDepth (a template flag, chosen by the wrapper when the
+//     hypotheses require a gradient), ddepth[p, d] = sum_v sum_c g (f_v - m)
+//     (df_v/dx dx/ddep + df_v/dy dy/ddep): the sample's corner differences
+//     (mvs::blend_diff, JAX's right-hand differences at an integer
+//     coordinate) times the quotient rule of the projection
+//     (mvs::depth_jacobian, kept per (pixel, view) in shared memory beside
+//     the records). A pixel's channels are split over nch lanes, so the
+//     chunk sums are reduced before one f32 store per (pixel, depth): with
+//     shuffles where those lanes are one aligned group, else through
+//     [32][nch] partial sums in shared memory that lane l adds in order.
+//     Launches without the flag compile to the kernel without that code.
 // One block covers every depth of its tile. Its least time is bound by f32
 // operations at stages 1-2 and by bytes at stage 3 of a batch-4 640x512
 // step (chip_smoke.py computes both); what it pays on top is the scatter's
@@ -86,6 +97,7 @@
 //   grad (B, D, H, W, C)   T    dL/dvar
 //   dref (B, H, W, C)      T    written
 //   dsrc (B, V, H, W, C)   f32  zero-filled by the caller, accumulated
+//   ddepth (B, D, H, W)    f32  written, or null for no depth gradient
 // Each launches on `stream` and returns cudaGetLastError().
 
 #include "mvs_common.cuh"
@@ -93,10 +105,12 @@
 namespace {
 
 using mvs::blend;
+using mvs::blend_diff;
 using mvs::corner_weights;
 using mvs::from_f32;
 using mvs::load8;
 using mvs::sample_record;
+using mvs::scatter_corners;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;  // one pixel per thread per tile
@@ -249,41 +263,31 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   }
 }
 
-// dst[k] += w * dv[k] for the first nc channels, as f32 atomics: two
-// 16-byte vector atomics on the 16-byte path (sm_90), else scalar ones.
-template <bool kVec>
-__device__ __forceinline__ void scatter8(float* dst, float w, int nc,
-                                         const float* dv) {
-  if constexpr (kVec) {
-    atomicAdd(reinterpret_cast<float4*>(dst),
-              make_float4(w * dv[0], w * dv[1], w * dv[2], w * dv[3]));
-    atomicAdd(reinterpret_cast<float4*>(dst) + 1,
-              make_float4(w * dv[4], w * dv[5], w * dv[6], w * dv[7]));
-  } else {
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (k < nc) atomicAdd(dst + k, w * dv[k]);
-  }
-}
-
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kDepth>
 __global__ void __launch_bounds__(kThreads)
 warp_variance_grad_kernel(const T* __restrict__ ref,
                           const T* __restrict__ src,
                           const float* __restrict__ geom,
                           const float* __restrict__ hyp,
                           const T* __restrict__ grad, T* __restrict__ dref,
-                          float* __restrict__ dsrc, int V, int D, int H,
-                          int W, int C) {
+                          float* __restrict__ dsrc, float* __restrict__ ddep,
+                          int V, int D, int H, int W, int C) {
   // Per warp: [V][32] sample records and [V][3][32] rotated pixels as in
   // the forward, then [32][C] f32 sums of dref; then the (V, 12) geometry.
+  // kDepth adds per warp [V][32] depth jacobians and, when a pixel's chunks
+  // are not one aligned lane group (!even), [32][nch] partial sums.
   extern __shared__ int4 smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nch = (C + 7) >> 3;
   int4* rec = smem + warp * V * 32;
   float* fsm = reinterpret_cast<float*>(smem + kWarps * V * 32);
   float* rot = fsm + warp * V * 96;
   float* acc = fsm + kWarps * V * 96 + warp * 32 * C;
   float* sgeom = fsm + kWarps * V * 96 + kWarps * 32 * C;
+  float2* jac_all = reinterpret_cast<float2*>(sgeom + V * 12);
+  float2* jac = jac_all + warp * V * 32;
+  float* part =
+      reinterpret_cast<float*>(jac_all + kWarps * V * 32) + warp * 32 * nch;
 
   const int b = blockIdx.z;
   const int hw = H * W;
@@ -302,7 +306,6 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
 
   // The forward's chunk walk; item (pixel pl, chunk c0) of pass k belongs to
   // the same lane at every depth, so its dref sum in `acc` has one owner.
-  const int nch = (C + 7) >> 3;
   const bool even = 32 % nch == 0;
   const int lane_pl = lane / nch, lane_c0 = (lane - lane_pl * nch) * 8;
   const int vstride = hw * C;
@@ -317,9 +320,13 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
     const int64_t plane = ((int64_t)b * D + d) * hw;
     if (pix_ok) {
       const float dep = __ldg(hyp + plane + pix);
-      for (int v = 0; v < V; ++v)
+      for (int v = 0; v < V; ++v) {
         rec[v * 32 + lane] = sample_record(rot + v * 96 + lane, 32,
                                            sgeom + v * 12, dep, W, H, C);
+        if constexpr (kDepth)
+          jac[v * 32 + lane] = mvs::depth_jacobian(rot + v * 96 + lane, 32,
+                                                   sgeom + v * 12, dep);
+      }
     }
     __syncwarp();
 
@@ -330,42 +337,75 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
         c0 = (pass * 32 + lane - pl * nch) * 8;
       }
       const int x = wx0 + (pl & 7), y = wy0 + (pl >> 3);
-      if (x >= W || y >= H) continue;
-      const int p = y * W + x;
-      const int nc = min(8, C - c0);
-      float g[8], r[8], m[8];
-      load8<kVec>(grad + plane * C + p * C + c0, true, nc, g);
-      load8<kVec>(refb + p * C + c0, true, nc, r);
+      const bool ok = x < W && y < H;
+      // With kDepth every lane reaches the reduction below.
+      if (!kDepth && !ok) continue;
+      float dd = 0.f;  // this item's share of ddepth
+      if (ok) {
+        const int p = y * W + x;
+        const int nc = min(8, C - c0);
+        float g[8], r[8], m[8];
+        load8<kVec>(grad + plane * C + p * C + c0, true, nc, g);
+        load8<kVec>(refb + p * C + c0, true, nc, r);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) m[k] = r[k];
-      for (int v = 0; v < V; ++v) {
-        float f[8];
-        blend<kVec>(srcb + (int64_t)v * vstride + c0, rec[v * 32 + pl], nc, C,
-                    rowc, f);
+        for (int k = 0; k < 8; ++k) m[k] = r[k];
+        for (int v = 0; v < V; ++v) {
+          float f[8];
+          blend<kVec>(srcb + (int64_t)v * vstride + c0, rec[v * 32 + pl], nc,
+                      C, rowc, f);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) m[k] += f[k];
+          for (int k = 0; k < 8; ++k) m[k] += f[k];
+        }
+        float* a = acc + pl * C + c0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          m[k] *= rn;
+          g[k] *= g2;
+          if (k < nc) a[k] += g[k] * (r[k] - m[k]);
+        }
+        // Each view's sample again (its corners are in L1 from the pass
+        // above); its cotangent g (f - m) is scattered to the valid corners
+        // and, with kDepth, moved along the sample's coordinates.
+        for (int v = 0; v < V; ++v) {
+          const int4 rv = rec[v * 32 + pl];
+          const T* sv = srcb + (int64_t)v * vstride + c0;
+          float f[8];
+          if constexpr (kDepth) {
+            float fx[8], fy[8];
+            blend_diff<kVec>(sv, rv, nc, C, rowc, f, fx, fy);
+            const float2 j = jac[v * 32 + pl];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              f[k] = g[k] * (f[k] - m[k]);
+              dd += f[k] * (fx[k] * j.x + fy[k] * j.y);
+            }
+          } else {
+            blend<kVec>(sv, rv, nc, C, rowc, f);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) f[k] = g[k] * (f[k] - m[k]);
+          }
+          scatter_corners<kVec>(dsrcb + (int64_t)v * vstride + c0, rv, nc, C,
+                                rowc, f);
+        }
       }
-      float* a = acc + pl * C + c0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        m[k] *= rn;
-        g[k] *= g2;
-        if (k < nc) a[k] += g[k] * (r[k] - m[k]);
+      if constexpr (kDepth) {
+        if (even) {  // the pixel's nch chunks are lanes of one aligned group
+          for (int o = nch >> 1; o > 0; o >>= 1)
+            dd += __shfl_xor_sync(0xffffffffu, dd, o);
+          if (ok && lane_c0 == 0) ddep[plane + y * W + x] = dd;
+        } else {  // item pass * 32 + lane is chunk c0 / 8 of pixel pl
+          part[pass * 32 + lane] = dd;
+        }
       }
-      // Each view's sample again (its corners are in L1 from the pass
-      // above), and its gradient scattered to the valid corners.
-      for (int v = 0; v < V; ++v) {
-        const int4 rv = rec[v * 32 + pl];
-        float f[8], w[4];
-        blend<kVec>(srcb + (int64_t)v * vstride + c0, rv, nc, C, rowc, f);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) f[k] = g[k] * (f[k] - m[k]);
-        corner_weights(rv, w);
-        float* dv = dsrcb + (int64_t)v * vstride + c0 + rv.x;
-        if (rv.w & 1) scatter8<kVec>(dv, w[0], nc, f);
-        if (rv.w & 2) scatter8<kVec>(dv + C, w[1], nc, f);
-        if (rv.w & 4) scatter8<kVec>(dv + rowc, w[2], nc, f);
-        if (rv.w & 8) scatter8<kVec>(dv + rowc + C, w[3], nc, f);
+    }
+    if constexpr (kDepth) {
+      if (!even) {  // lane l sums pixel l's chunks in order: one writer
+        __syncwarp();
+        if (pix_ok) {
+          float s = 0.f;
+          for (int j = 0; j < nch; ++j) s += part[lane * nch + j];
+          ddep[plane + pix] = s;
+        }
       }
     }
     __syncwarp();  // records are rewritten for the next depth
@@ -394,14 +434,10 @@ int launch(const void* ref, const void* src, const void* geom,
            int C, cudaStream_t stream) {
   const int64_t hw = (int64_t)H * W;
   if (B == 0 || V == 0 || D == 0 || hw == 0 || C == 0) return cudaSuccess;
-  if ((hw + W + 1) * C > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (!mvs::offsets_fit(hw, W, C)) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)V * (kWarps * 32 * 16 + kWarps * 96 * 4 + 48);
-  if (smem > 48 * 1024) {  // many views: opt in to more shared memory
-    cudaError_t err = cudaFuncSetAttribute(
-        warp_variance_kernel<T, kVec>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = mvs::reserve_smem(warp_variance_kernel<T, kVec>, smem);
+  if (err != cudaSuccess) return err;
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -436,45 +472,33 @@ int launch_t(const void* ref, const void* src, const void* geom,
   return launch<T, false>(ref, src, geom, hyp, out, B, V, D, H, W, C, stream);
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kDepth>
 int launch_grad(const void* ref, const void* src, const void* geom,
                 const void* hyp, const void* grad, void* dref, void* dsrc,
-                int B, int V, int D, int H, int W, int C,
+                void* ddep, int B, int V, int D, int H, int W, int C,
                 cudaStream_t stream) {
   const int64_t hw = (int64_t)H * W;
   if (B == 0 || V == 0 || D == 0 || hw == 0 || C == 0) return cudaSuccess;
-  if ((hw + W + 1) * C > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)V * (kWarps * 32 * 16 + kWarps * 96 * 4 + 48) +
-                      (size_t)kWarps * 32 * C * 4;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        warp_variance_grad_kernel<T, kVec>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (!mvs::offsets_fit(hw, W, C)) return (int)cudaErrorInvalidValue;
+  const int nch = (C + 7) / 8;
+  size_t smem = (size_t)V * (kWarps * 32 * 16 + kWarps * 96 * 4 + 48) +
+                (size_t)kWarps * 32 * C * 4;
+  if (kDepth)
+    smem += (size_t)kWarps * V * 32 * 8 +
+            (32 % nch ? (size_t)kWarps * 32 * nch * 4 : 0);
+  const int err =
+      mvs::reserve_smem(warp_variance_grad_kernel<T, kVec, kDepth>, smem);
+  if (err != cudaSuccess) return err;
   const int64_t tx = (W + kTileW - 1) / kTileW, ty = (H + kTileH - 1) / kTileH;
   if (tx > INT32_MAX || ty > 65535 || B > 65535)
     return (int)cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)tx, (unsigned)ty, (unsigned)B);
-  warp_variance_grad_kernel<T, kVec><<<grid, kThreads, smem, stream>>>(
+  warp_variance_grad_kernel<T, kVec, kDepth><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(ref), static_cast<const T*>(src),
       static_cast<const float*>(geom), static_cast<const float*>(hyp),
       static_cast<const T*>(grad), static_cast<T*>(dref),
-      static_cast<float*>(dsrc), V, D, H, W, C);
+      static_cast<float*>(dsrc), static_cast<float*>(ddep), V, D, H, W, C);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_grad_t(const void* ref, const void* src, const void* geom,
-                  const void* hyp, const void* grad, void* dref, void* dsrc,
-                  int B, int V, int D, int H, int W, int C, int vec,
-                  cudaStream_t stream) {
-  if (vec)
-    return launch_grad<T, true>(ref, src, geom, hyp, grad, dref, dsrc, B, V,
-                                D, H, W, C, stream);
-  return launch_grad<T, false>(ref, src, geom, hyp, grad, dref, dsrc, B, V, D,
-                               H, W, C, stream);
 }
 
 }  // namespace
@@ -497,16 +521,14 @@ extern "C" int mvs_warp_variance(const void* ref, const void* src,
 extern "C" int mvs_warp_variance_grad(const void* ref, const void* src,
                                       const void* geom, const void* hyp,
                                       const void* grad, void* dref,
-                                      void* dsrc, int B, int V, int D, int H,
-                                      int W, int C, int dtype, int vec,
-                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec && C % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_grad_t<float>(ref, src, geom, hyp, grad, dref, dsrc, B, V,
-                                D, H, W, C, vec, s);
-  if (dtype == 1)
-    return launch_grad_t<__nv_bfloat16>(ref, src, geom, hyp, grad, dref, dsrc,
-                                        B, V, D, H, W, C, vec, s);
-  return (int)cudaErrorInvalidValue;
+                                      void* dsrc, void* ddepth, int B, int V,
+                                      int D, int H, int W, int C, int dtype,
+                                      int vec, void* stream) {
+  return mvs::dispatch_grad(
+      dtype, vec, ddepth != nullptr, C, [&](auto type, auto kvec, auto kdep) {
+        return launch_grad<typename decltype(type)::type, decltype(kvec)::value,
+                           decltype(kdep)::value>(
+            ref, src, geom, hyp, grad, dref, dsrc, ddepth, B, V, D, H, W, C,
+            static_cast<cudaStream_t>(stream));
+      });
 }

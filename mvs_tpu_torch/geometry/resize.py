@@ -45,20 +45,21 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def cubic_weight_matrix(in_size: int, out_size: int,
-                        device=None) -> torch.Tensor:
-    """(in_size, out_size) f32 weights of jax.image.resize(method="cubic")
+def cubic_weight_matrix(in_size: int, out_size: int, device=None,
+                        dtype=torch.float32) -> torch.Tensor:
+    """(in_size, out_size) weights of jax.image.resize(method="cubic")
     along one axis: column j holds the taps of output sample j, whose
     position in the input is (j + 0.5) * in/out - 0.5. On a downsample the
     kernel is widened by in/out (antialiasing); each column is divided by
     its sum, so taps past the border drop out and the rest are
-    renormalized."""
+    renormalized. Computed in `dtype` (jax.image computes them in its
+    scale's type: f32, or float64 under jax_enable_x64)."""
     inv_scale = 1.0 / (out_size / in_size)
     kernel_scale = max(inv_scale, 1.0)
-    sample = ((torch.arange(out_size, dtype=torch.float32, device=device)
+    sample = ((torch.arange(out_size, dtype=dtype, device=device)
                + 0.5) * inv_scale - 0.5)
     dist = (sample[None, :] - torch.arange(
-        in_size, dtype=torch.float32, device=device)[:, None]).abs()
+        in_size, dtype=dtype, device=device)[:, None]).abs()
     weights = _keys_cubic(dist / kernel_scale)
     total = weights.sum(dim=0, keepdim=True)
     weights = torch.where(
@@ -76,7 +77,7 @@ def resize_cubic(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     x = x.float()
     if h != height:
         x = torch.einsum("bhw,hy->byw", x,
-                         cubic_weight_matrix(h, height, x.device))
+                         cubic_weight_matrix(h, height, x.device, x.dtype))
     if w != width:
-        x = x @ cubic_weight_matrix(w, width, x.device)
+        x = x @ cubic_weight_matrix(w, width, x.device, x.dtype)
     return x

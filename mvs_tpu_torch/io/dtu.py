@@ -1,5 +1,6 @@
 """DTU readers (counterpart of mvs_tpu.io.dtu's read_image, _scale_to_fit,
-DTUTrainDataset, DTUEvalDataset, collate_mvsnet and collate_cascade).
+DTUTrainDataset, DTUEvalDataset, collate_mvsnet, collate_cascade and
+collate_pyramid).
 
 Training layout (preprocessed DTU): Rectified/{scan}_train/
 rect_{v+1:03d}_{light}_r5000.png, Depths/{scan}_train/depth_map_{v:04d}.pfm
@@ -30,7 +31,8 @@ from mvs_tpu_torch.io.pfm import read_pfm
 from mvs_tpu_torch.io.png import PNG_SIGNATURE, read_png
 
 __all__ = ["read_image", "resize_bilinear", "image_path", "DTUTrainDataset",
-           "DTUEvalDataset", "collate_mvsnet", "collate_cascade"]
+           "DTUEvalDataset", "collate_mvsnet", "collate_cascade",
+           "collate_pyramid"]
 
 
 def _decode_jpeg(path) -> np.ndarray:
@@ -275,3 +277,24 @@ def collate_cascade(samples: list[dict]) -> dict:
     return {"imgs": _stack(samples, "imgs"), "proj_matrices": proj,
             "depth_values": _stack(samples, "depth_values"),
             "depth_gt": gt_ms, "mask": mask_ms}
+
+
+def collate_pyramid(samples: list[dict], num_levels: int = 2) -> dict:
+    """Train batch of the pyramid task (CVP / AACVP): the intrinsics at the
+    images' resolution (the stored 1/4-resolution ones x4), and the GT
+    pyramid finest first: the GT upsampled x4 to the images (np.repeat, as
+    collate_cascade), each coarser level its every other row and column,
+    each level's mask gt > depth_min of its sample."""
+    intr = _stack(samples, "intrinsics").copy()
+    intr[..., :2, :] *= 4.0
+    gt = _stack(samples, "depth_gt")
+    levels = [gt.repeat(4, axis=1).repeat(4, axis=2)]
+    for _ in range(num_levels - 1):
+        levels.append(levels[-1][:, ::2, ::2])
+    dmin = _stack(samples, "depth_min")
+    return {"imgs": _stack(samples, "imgs"), "intrinsics": intr,
+            "extrinsics": _stack(samples, "extrinsics"), "depth_min": dmin,
+            "depth_max": _stack(samples, "depth_max"),
+            "depth_gt_levels": levels,
+            "mask_levels": [(g > dmin[:, None, None]).astype(np.float32)
+                            for g in levels]}

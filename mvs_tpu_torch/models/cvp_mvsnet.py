@@ -1,5 +1,6 @@
-"""CVP-MVSNet / AACVP-MVSNet inference: a cost-volume pyramid, coarse to
-fine (counterpart of mvs_tpu.models.cvp_mvsnet.CVPMVSNet, eval mode).
+"""CVP-MVSNet / AACVP-MVSNet: a cost-volume pyramid, coarse to fine
+(counterpart of mvs_tpu.models.cvp_mvsnet.CVPMVSNet), in eval and train
+mode.
 
 An image pyramid (x0.5 per level, antialiased bilinear) feeds one
 stride-1 feature extractor shared by every level. The coarsest level sweeps
@@ -14,11 +15,17 @@ depth and confidence in f32.
 CVP-MVSNet builds each level's variance volume with the fused warp-variance
 kernel; AACVP-MVSNet (``attention=True``, ``cost_mode="group_correlation"``)
 ends the feature net with local self-attention and builds a group-wise
-correlation volume with the group-correlation kernel. Every stride-1 3D
-block, the stride-1 transposed block and the score conv of the regularizer
-run on the fused conv3d kernel.
+correlation volume with the group-correlation kernel. In eval mode every
+stride-1 3D block, the stride-1 transposed block and the score conv of the
+regularizer run on the fused conv3d kernel.
 
-Training (mvs_tpu's pyramid loss and PyramidTask) is not ported yet.
+In train mode (``model.train()``), as mvs_tpu with ``train=True``: the
+shared feature net and regularizer update their BatchNorm statistics once
+per level call, in level order, and the upsampled depth keeps its gradient,
+so a finer level's loss reaches the coarser levels through the regression
+over its hypotheses and through the cost volume's sampling coordinates
+(the kernels' hypothesis gradient). Only the epipolar interval is taken
+from the depth without a gradient; the coarse ladder has none.
 """
 
 from __future__ import annotations
@@ -110,10 +117,6 @@ class CVPMVSNet(nn.Module):
         3) at image resolution; extrinsics (B, V, 4, 4); depth_min /
         depth_max (B,). Returns depth and photometric_confidence (B, H, W)
         and depth_levels, finest first."""
-        if self.training:
-            raise NotImplementedError(
-                "CVP-MVSNet training is not ported yet (ROADMAP.md queue 1, "
-                "item 11); call .eval()")
         b, v, h, w, _ = imgs.shape
         self._check_sizes(h, w)
         intrinsics, extrinsics = intrinsics.float(), extrinsics.float()
@@ -149,7 +152,9 @@ class CVPMVSNet(nn.Module):
         for level in range(self.num_levels - 2, -1, -1):
             lh, lw = feats[level].shape[2:4]
             scale = 0.5 ** level
-            depth_up = resize_cubic(depth.detach(), lh, lw)
+            # mvs_tpu stops this gradient in eval mode only.
+            depth_up = resize_cubic(depth if self.training else depth.detach(),
+                                    lh, lw)
             if self.use_epipolar_interval:
                 k = scale_intrinsics(intrinsics, scale)
                 interval = epipolar_depth_interval(
@@ -157,8 +162,7 @@ class CVPMVSNet(nn.Module):
                     extrinsics[:, 1])
             else:
                 interval = torch.full((b,), self.train_interval,
-                                      dtype=torch.float32,
-                                      device=depth.device)
+                                      dtype=depth.dtype, device=depth.device)
             hyp = residual_depth_hypotheses(depth_up, interval,
                                             self.num_offsets).contiguous()
             volume = self._cost_volume(feats[level], level_rel_projs(scale),

@@ -1,9 +1,9 @@
 """Model factory from config (counterpart of mvs_tpu.models.registry).
 
 The port has MVSNet, CasMVSNet (FPN features, one cost regularizer per
-stage), both with batch norm, and CVP-MVSNet / AACVP-MVSNet (inference).
-Point-MVSNet raises NotImplementedError naming the ROADMAP.md item (queue
-1) that ports it.
+stage), CVP-MVSNet and AACVP-MVSNet, all with batch norm, for inference
+and training. Point-MVSNet raises NotImplementedError naming the
+ROADMAP.md item (queue 1) that ports it.
 """
 
 from __future__ import annotations

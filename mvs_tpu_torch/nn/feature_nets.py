@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mvs_tpu_torch.nn.blocks import Conv, ConvBlock
 
@@ -111,7 +112,10 @@ class AttentionConv(nn.Module):
     Plain PyTorch, as the JAX package leaves it to XLA: the softmax over the
     window is taken in two passes over the k^2 shifted key views (the max,
     then the exponentials and the weighted values), so no (B, H, W, k^2, C)
-    tensor is formed.
+    tensor is formed. With autograd on, the window's passes are recomputed
+    in the backward instead of keeping their ~5 f32 (B, H, W, C) tensors
+    per tap (about 12 GiB of a batch-4 640x512 AACVP train step, which then
+    no longer fits an 80 GB card reliably).
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
@@ -130,7 +134,6 @@ class AttentionConv(nn.Module):
 
     def forward(self, x):
         k = self.kernel_size
-        h, w = x.shape[1:3]
         c = 2 * self.rel_h.shape[-1]
         q = self.query(x).float()
         pad = (0, 0, k // 2, k // 2, k // 2, k // 2)
@@ -138,21 +141,34 @@ class AttentionConv(nn.Module):
         val = F.pad(self.value(x), pad)
         rel = torch.cat([self.rel_h.expand(k, k, c // 2),
                          self.rel_w.expand(k, k, c // 2)], dim=-1)
+        if torch.is_grad_enabled():
+            out = checkpoint(_window_softmax, q, key, val, rel,
+                             use_reentrant=False)
+        else:
+            out = _window_softmax(q, key, val, rel)
+        return F.leaky_relu(out, negative_slope=0.1)
 
-        def logit(dy, dx):
-            return q * (key[:, dy:dy + h, dx:dx + w] + rel[dy, dx])
 
-        taps = [(dy, dx) for dy in range(k) for dx in range(k)]
-        peak = logit(*taps[0])
-        for t in taps[1:]:
-            peak = torch.maximum(peak, logit(*t))
-        total = torch.zeros_like(peak)
-        out = torch.zeros_like(peak)
-        for dy, dx in taps:
-            e = torch.exp(logit(dy, dx) - peak)
-            total += e
-            out += e * val[:, dy:dy + h, dx:dx + w]
-        return F.leaky_relu(out / total, negative_slope=0.1)
+def _window_softmax(q, key, val, rel):
+    """sum_w softmax_w(q * (key[p+w] + rel[w])) val[p+w] over the k x k
+    window (rel (k, k, C)), keys and values padded by k // 2."""
+    k = rel.shape[0]
+    h, w = q.shape[1:3]
+
+    def logit(dy, dx):
+        return q * (key[:, dy:dy + h, dx:dx + w] + rel[dy, dx])
+
+    taps = [(dy, dx) for dy in range(k) for dx in range(k)]
+    peak = logit(*taps[0])
+    for t in taps[1:]:
+        peak = torch.maximum(peak, logit(*t))
+    total = torch.zeros_like(peak)
+    out = torch.zeros_like(peak)
+    for dy, dx in taps:
+        e = torch.exp(logit(dy, dx) - peak)
+        total += e
+        out += e * val[:, dy:dy + h, dx:dx + w]
+    return out / total
 
 
 class PyramidFeatureNet(nn.Module):

@@ -1,3 +1,4 @@
-"""MVSNet and CasMVSNet training (counterpart of mvs_tpu.train): losses,
-metrics, schedules, the optax-exact optimizer chain, the MVSNet and cascade
-tasks, the train step and checkpoints."""
+"""MVSNet, CasMVSNet and CVP / AACVP-MVSNet training (counterpart of
+mvs_tpu.train): losses, metrics, schedules, the optax-exact optimizer
+chain, the MVSNet, cascade and pyramid tasks, the train step and
+checkpoints."""

@@ -1,10 +1,10 @@
-"""Depth losses of MVSNet and CasMVSNet (counterpart of
-mvs_tpu.train.losses: smooth_l1, masked_smooth_l1, ohem_smooth_l1,
-cascade_loss).
+"""Depth losses of MVSNet, CasMVSNet and CVP / AACVP-MVSNet (counterpart
+of mvs_tpu.train.losses: smooth_l1, masked_smooth_l1, ohem_smooth_l1,
+cascade_loss, pyramid_loss).
 
 Pure functions of tensors with a {0, 1} float mask, safe under an
-all-masked batch (0 / 0 guarded). The pyramid and point losses wait for
-their model families (ROADMAP.md queue 1, items 11-12).
+all-masked batch (0 / 0 guarded). The point loss waits for its model
+family (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["smooth_l1", "masked_smooth_l1", "ohem_smooth_l1",
-           "cascade_loss"]
+           "cascade_loss", "pyramid_loss"]
 
 
 def smooth_l1(err: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -65,3 +65,12 @@ def cascade_loss(stage_outputs: dict, depth_gt_stages: dict,
                                 depth_gt_stages[key], mask_stages[key])
         total = total + w * last
     return total, last
+
+
+def pyramid_loss(depth_est_levels, depth_gt_levels, mask_levels):
+    """sum over the zipped levels of the masked smooth-L1, equal weights:
+    the levels past the shortest list are not supervised."""
+    total = 0.0
+    for est, gt, mask in zip(depth_est_levels, depth_gt_levels, mask_levels):
+        total = total + masked_smooth_l1(est, gt, mask)
+    return total

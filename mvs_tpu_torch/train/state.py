@@ -1,5 +1,5 @@
 """The train step (counterpart of mvs_tpu.train.state.make_train_step): the
-forward in train mode, the cascade loss, the backward pass and one update of
+forward in train mode, the task's loss, the backward pass and one update of
 the optimizer chain, with the schedule read at the update count.
 
 The model and the chain's state live on one explicit device; the step runs
@@ -22,9 +22,9 @@ __all__ = ["make_train_step", "make_eval_step"]
 def make_train_step(task, optimizer: OptaxChain,
                     mark: Callable[[str], None] | None = None
                     ) -> Callable[[dict], dict]:
-    """step(batch) -> metrics (0-d tensors on the device: the loss,
-    'last_stage_loss' and the last stage's standard metrics), after one
-    update of task.model's parameters and BatchNorm statistics.
+    """step(batch) -> metrics (0-d tensors on the device: the loss and the
+    task's metrics), after one update of task.model's parameters and
+    BatchNorm statistics.
 
     `mark`, when given, is called with "start", "forward", "backward" and
     "optimizer" as the step reaches the end of each part on the host (a

@@ -1,7 +1,8 @@
-"""The MVSNet and cascade tasks (counterparts of mvs_tpu.train.tasks'
-MVSNetTask and CascadeTask): the batch layout each model trains on, its
-loss and its metrics. A collated batch (io.dtu.collate_mvsnet or
-collate_cascade) goes to the device through batch_to_device.
+"""The MVSNet, cascade and pyramid tasks (counterparts of
+mvs_tpu.train.tasks' MVSNetTask, CascadeTask and PyramidTask): the batch
+layout each model trains on, its loss and its metrics. A collated batch
+(io.dtu.collate_mvsnet, collate_cascade or collate_pyramid) goes to the
+device through batch_to_device.
 """
 
 from __future__ import annotations
@@ -14,20 +15,24 @@ import torch
 from torch import nn
 
 from mvs_tpu_torch.train.losses import (cascade_loss, masked_smooth_l1,
-                                        ohem_smooth_l1)
+                                        ohem_smooth_l1, pyramid_loss)
 from mvs_tpu_torch.train.metrics import standard_metrics
 
-__all__ = ["MVSNetTask", "CascadeTask", "batch_to_device"]
+__all__ = ["MVSNetTask", "CascadeTask", "PyramidTask", "batch_to_device"]
 
-_BATCH_KEYS = ("imgs", "proj_matrices", "depth_values", "depth_gt", "mask")
+_BATCH_KEYS = ("imgs", "proj_matrices", "depth_values", "depth_gt", "mask",
+               "intrinsics", "extrinsics", "depth_min", "depth_max",
+               "depth_gt_levels", "mask_levels")
 
 
 def batch_to_device(batch: dict, device) -> dict:
     """The model's keys of a collated batch as float32 tensors on `device`
-    (nested stage dicts kept)."""
+    (nested stage dicts and level lists kept)."""
     def move(x):
         if isinstance(x, dict):
             return {k: move(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [move(v) for v in x]
         return torch.as_tensor(np.asarray(x, np.float32)).to(device)
 
     return {k: move(batch[k]) for k in _BATCH_KEYS if k in batch}
@@ -93,3 +98,32 @@ class CascadeTask:
                                    batch["mask"][last_stage])
         metrics["last_stage_loss"] = last.detach()
         return loss, metrics
+
+
+@dataclasses.dataclass
+class PyramidTask:
+    """CVP / AACVP. batch: imgs (B, V, H, W, 3), intrinsics (B, V, 3, 3) at
+    the images' resolution, extrinsics (B, V, 4, 4), depth_min and
+    depth_max (B,), depth_gt_levels and mask_levels (finest first)."""
+
+    model: nn.Module
+
+    def forward(self, batch: dict) -> dict:
+        """Model outputs for the batch, in the model's current mode."""
+        return self.model(batch["imgs"], batch["intrinsics"],
+                          batch["extrinsics"], batch["depth_min"],
+                          batch["depth_max"])
+
+    def loss_and_metrics(self, batch: dict):
+        """(loss, metrics): the pyramid loss over the model's levels that
+        the GT pyramid has (zipped, as mvs_tpu's: a model with more levels
+        than the collate made leaves its coarsest ones unsupervised), and
+        the finest level's standard metrics."""
+        out = self.forward(batch)
+        n = len(out["depth_levels"])
+        loss = pyramid_loss(out["depth_levels"],
+                            batch["depth_gt_levels"][:n],
+                            batch["mask_levels"][:n])
+        return loss, standard_metrics(out["depth"],
+                                      batch["depth_gt_levels"][0],
+                                      batch["mask_levels"][0])

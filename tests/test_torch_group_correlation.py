@@ -8,11 +8,11 @@ mvs_tpu.ops.cost_volume.group_correlation_cost_volume to 1e-5 of the largest
 magnitude: shared ladders and per-pixel hypotheses, batch 2, D = 1, C = 12
 in 3 groups, off-image and behind-camera samples. The wrapper runs the plain
 version only for CPU tensors: on any other device it launches the kernel or
-raises. The kernel itself runs only on the card (chip_smoke.py phase 8a
-holds it against the plain version there). AACVP-MVSNet (3 levels at 64x80,
-3 views, batch 2, epipolar interval on, Flax parameters through convert.py)
-is held to the CasMVSNet bounds: depth rtol 1e-4 at every level, confidence
-atol 1e-4.
+raises. The kernel itself runs only on the card (chip_smoke.py phases 8a
+and 10a hold it and its backward against the plain versions there).
+AACVP-MVSNet (3 levels at 64x80, 3 views, batch 2, epipolar interval on,
+Flax parameters through convert.py) is held to the CasMVSNet bounds: depth
+rtol 1e-4 at every level, confidence atol 1e-4.
 """
 
 import jax
@@ -28,6 +28,7 @@ from mvs_tpu.ops.cost_volume import \
 from mvs_tpu_torch.convert import flax_to_state_dict
 from mvs_tpu_torch.models.cvp_mvsnet import CVPMVSNet
 from mvs_tpu_torch.nn.feature_nets import PyramidFeatureNet
+from mvs_tpu_torch.ops import group_correlation
 from mvs_tpu_torch.ops.group_correlation import (
     group_correlation_volume, group_correlation_volume_plain)
 from test_torch_cvp import _t, init_variables, scenes
@@ -83,18 +84,27 @@ def test_plain_sums_bf16_in_f32():
     torch.testing.assert_close(got, want.to(torch.bfloat16), atol=0, rtol=0)
 
 
-def test_wrapper_never_falls_back_from_a_device():
-    """Off the CPU the wrapper launches the kernel or raises: a feature that
-    requires a gradient has no backward yet, another device is refused, and
-    the geometry never takes a gradient."""
+def test_wrapper_never_falls_back_from_a_device(monkeypatch):
+    """Off the CPU the wrapper launches the kernel or raises: a feature or
+    hypotheses that require a gradient go through the autograd Function
+    (whose forward is the kernel), another device is refused, and the
+    cameras never take a gradient."""
     ref = torch.empty((1, 4, 4, 16), device="meta")
     src = torch.empty((1, 2, 4, 4, 16), device="meta")
     rel = torch.empty((1, 2, 4, 4), device="meta")
     hyp = torch.empty((1, 3, 4, 4), device="meta")
-    with pytest.raises(NotImplementedError, match="no backward"):
-        group_correlation_volume(ref.requires_grad_(), src, rel, hyp, 4)
+    applied = []
+    apply = group_correlation._GroupCorrelation.apply
+    monkeypatch.setattr(group_correlation._GroupCorrelation, "apply",
+                        lambda *a: applied.append(a) or apply(*a))
+    for args in ((ref.requires_grad_(), src, rel, hyp),
+                 (ref.detach(), src, rel, hyp.requires_grad_())):
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            group_correlation_volume(*args, 4)
+    assert len(applied) == 2
     with pytest.raises(ValueError, match="unsupported device meta"):
-        group_correlation_volume(ref.detach(), src, rel, hyp, 4)
+        group_correlation_volume(ref.detach(), src, rel, hyp.detach(), 4)
+    assert len(applied) == 2
     with pytest.raises(ValueError, match="rel_projs requires grad"):
         group_correlation_volume(torch.zeros(1, 4, 4, 16),
                                  torch.zeros(1, 2, 4, 4, 16),

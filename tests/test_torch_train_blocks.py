@@ -262,8 +262,11 @@ def test_warp_gradient_matches_jax(seed, c):
 
 
 def test_warp_refuses_geometry_gradients():
+    """The cameras take no gradient (rel_projs raises); the hypotheses do
+    (tests/test_torch_cost_volume_grad.py holds that gradient)."""
     ref, src, rel, hyp, _ = (torch.tensor(a) for a in _warp_inputs(52))
-    for args in ((ref, src, rel.requires_grad_(), hyp),
-                 (ref, src, rel.detach(), hyp.requires_grad_())):
-        with pytest.raises(ValueError, match="requires grad"):
-            fused_variance_volume(*args)
+    with pytest.raises(ValueError, match="rel_projs requires grad"):
+        fused_variance_volume(ref, src, rel.requires_grad_(), hyp)
+    hyp.requires_grad_()
+    fused_variance_volume(ref, src, rel.detach(), hyp).sum().backward()
+    assert hyp.grad is not None and hyp.grad.abs().max() > 0

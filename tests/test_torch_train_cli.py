@@ -3,7 +3,9 @@ DTU training layout written by the port's generator (2 scans x 3 views at
 32x64, 2 lights): 2 steps with a val split and a checkpoint per epoch,
 --resume, then `infer --step best | latest | N` from the checkpoints, a
 state_dict written before the statistics had a count, BatchNorm
-recalibration, and the configs read without PyYAML.
+recalibration, MVSNet, CVP-MVSNet and AACVP-MVSNet (configs/cvp_train_dtu.yaml,
+then `infer --config configs/cvp_eval_dtu.yaml --step latest`), and the
+configs read without PyYAML.
 """
 
 import json
@@ -122,8 +124,8 @@ def test_infer_reads_a_state_dict_without_counts(root, tmp_path):
 def test_train_refuses_what_is_not_ported(root, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 9"):
         train.main(_train_args(root, tmp_path, "train.mesh_data=2"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train.main(_train_args(root, tmp_path, "model.name=cvp_mvsnet"))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        train.main(_train_args(root, tmp_path, "model.name=point_mvsnet"))
     with pytest.raises(NotImplementedError, match="lookahead"):
         train.main(_train_args(root, tmp_path, "train.optimizer=ranger"))
     # No silent fallback to the CPU: without --device the run is on the card.
@@ -154,6 +156,50 @@ def test_train_mvsnet_then_infer(root, tmp_path, capsys):
     assert res["step"] == 2 and res["maps"] == 3
     depth, _ = read_pfm(out / "scan2" / "depth_est" / "00000001.pfm")
     assert depth.shape == (8, 16) and np.isfinite(depth).all()
+
+
+@pytest.mark.parametrize("name", ["cvp_mvsnet", "aacvp_mvsnet"])
+def test_train_cvp_then_infer(root, tmp_path, capsys, monkeypatch, name):
+    """`train --config configs/cvp_train_dtu.yaml model.name=<name>` (2
+    levels, 16 coarse hypotheses at this size) takes PyramidTask's steps on
+    collate_pyramid's batches, validates and checkpoints; every BatchNorm
+    counts one update per level and step. `infer --config
+    configs/cvp_eval_dtu.yaml --step latest` (5 levels, epipolar interval,
+    bf16; the pyramid shares its modules over the levels, so the 2-level
+    checkpoint loads) writes maps at the images' resolution."""
+    result = train.main([
+        "--config", str(CONFIGS / "cvp_train_dtu.yaml"), "--device", "cpu",
+        f"model.name={name}", "model.coarse_depths=16", "data.num_depth=16",
+        f"data.root={root}", f"data.train_list={root / 'lists' / 'train.txt'}",
+        f"data.val_list={root / 'lists' / 'val.txt'}", "data.batch_size=3",
+        "train.epochs=1", "train.summary_every_steps=1",
+        f"train.log_dir={tmp_path / 'run'}"])
+    assert result["step"] == 2 and np.isfinite(result["losses"]).all()
+    assert {"abs_depth_error", "loss"} <= set(result["val"])
+    saved = CheckpointManager(result["ckpt_dir"]).restore("latest")
+    counts = {float(v) for k, v in saved["model"].items()
+              if k.endswith("count")}
+    assert counts == {4.0}  # 2 steps x 2 levels
+    assert ("PyramidFeatureNet_0.AttentionConv_0.rel_h" in saved["model"]
+            ) == (name == "aacvp_mvsnet")
+    out = tmp_path / "out"
+    res = infer.main([
+        "--config", str(CONFIGS / "cvp_eval_dtu.yaml"), "--ckpt",
+        result["ckpt_dir"], "--step", "latest", "--out", str(out),
+        "--device", "cpu", f"model.name={name}", "model.coarse_depths=16",
+        f"data.eval_root={root}",
+        f"data.eval_list={root / 'lists' / 'val.txt'}", "data.num_views=3",
+        "data.max_h=32", "data.max_w=64", "data.align=32"])
+    assert res["step"] == 2 and res["maps"] == 3
+    assert "using checkpoint step 2 (latest)" in capsys.readouterr().out
+    depth, _ = read_pfm(out / "scan2" / "depth_est" / "00000001.pfm")
+    assert depth.shape == (32, 64) and np.isfinite(depth).all()
+    # Without --device the run is on the card: no silent CPU fallback.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main(["train", "--config", str(CONFIGS / "cvp_train_dtu.yaml"),
+                  f"model.name={name}", f"data.root={root}",
+                  f"data.train_list={root / 'lists' / 'train.txt'}"])
 
 
 @pytest.mark.parametrize("path", sorted(CONFIGS.glob("*.yaml")),
