@@ -41,7 +41,9 @@ Phases, in order; any failure exits non-zero:
      (bench.py --train: 640x512, 5 views, 48/32/8, bf16, batch 4, Adam):
      (a) the warp's backward kernel against autograd through the plain
          version at the three stage shapes, f32 and bf16 (timed in bf16:
-         kernel, plain, bound);
+         kernel, plain, bound), on make_plane_scene's default rig and on a
+         DTU-like rig (focal 1446 px, DTU_FOCAL), each launch with its
+         sources' sweep in pixels and its rate of dsrc adds;
      (b) one train step card against CPU in f32 at phase 3's size: loss,
          every parameter's gradient, the new BatchNorm statistics and
          count, the parameters after one Adam step;
@@ -82,8 +84,8 @@ Phases, in order; any failure exits non-zero:
      400x296 maps):
      (a) the warp forward at that sweep (a 1.455 GB bf16 volume), bf16 and
          f32, and its backward at the training shape (batch 4, 2 sources,
-         160x128, D = 192), against their plain versions, bf16 timed
-         (kernel, plain, bound);
+         160x128, D = 192) on both rigs of 7a, against their plain
+         versions, bf16 timed (kernel, plain, bound);
      (b) a seeded MVSNet with RefineNet at 128x160, f32 and bf16, card
          against CPU: the pre-softmax scores, depth, refined depth and
          confidence;
@@ -109,9 +111,12 @@ Phases, in order; any failure exits non-zero:
          plain versions at the training shapes (batch 4, 640x512 images:
          level 1 D = 48 at 320x256, level 0 D = 8 at 640x512), f32 and
          bf16, timed (kernel, plain, bound) in bf16 and for the group
-         correlation also in f32; and at batch 2, C = 12 / 20 (scalar
-         variant), C = 24, D = 1, off-image, behind-camera and
-         integer-coordinate samples;
+         correlation also in f32; the main path's variants again on 7a's
+         DTU-like rig; a case built to need the kernels' spill branch (a
+         source at 10x the reference's focal, one with depths behind it),
+         f32 and bf16, with and without the hypotheses' gradient; and at
+         batch 2, C = 12 / 20 (scalar variant), C = 24, D = 1 and 2,
+         off-image, behind-camera and integer-coordinate samples;
      (b) one f32 train step card against CPU for each family at 128x160
          (phase 7b's limits; BatchNorm counts 2, one per level);
      (c) training at 640x512, 3 views, bf16, batch 4 (the config: 16):
@@ -135,7 +140,10 @@ mvsnet_max_abs_err: one launch at MVSNet's shape, 9a; on every kernel
 AACVP train step, 10c, and through 10d's cli train runs; cvp_train_ms /
 _plain_ms / _bound_ms / _max_abs_err: the warp backward's two launches of
 one CVP train step, 10a; the group correlation's backward as a kernel of
-its own, timed over one AACVP train step, 10a), and last
+its own, timed over one AACVP train step, 10a; dtu_rig_ms /
+dtu_rig_max_abs_err on both backwards, and dtu_rig_mvsnet_* and
+dtu_rig_cvp_train_* on the warp's: the same launches on the DTU-like rig),
+and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -160,6 +168,7 @@ from mvs_tpu_torch.cli import train as cli_train
 from mvs_tpu_torch.cli.infer import (make_apply_fn, run_batched_inference,
                                      stack_model_inputs, write_depth_outputs)
 from mvs_tpu_torch.fusion import FusionConfig, fuse_scene
+from mvs_tpu_torch.geometry.homography import plane_sweep_coords
 from mvs_tpu_torch.io import png as png_codec
 from mvs_tpu_torch.io import read_pfm, read_ply, write_pfm, write_ply
 from mvs_tpu_torch.io.dtu import (DTUEvalDataset, collate_cascade,
@@ -207,8 +216,10 @@ STAGES = ((1, 4, 4 * BASE), (2, 2, 2 * BASE), (3, 1, BASE))
 # maximum is up to 2^-7 of it, allow two.
 # Warp backward (7a), f32: the recomputed samples and means round as the
 # forward's; dref sums D terms in another order and dsrc sums its scattered
-# contributions with atomics in no fixed order, a few f32 ulps of the
-# largest partial sums. bf16: both sum in f32 and round once.
+# contributions in the kernel's shared-memory window, then in the f32
+# buffer (the TMA's reductions and the spill branch's atomics, in no fixed
+# order), a few f32 ulps of the largest partial sums. bf16: both sum in
+# f32 and round once.
 # Group correlation (8a), f32: the same corners and weights as the plain
 # version; the kernel sums each channel over the views before the product
 # with ref, the plain version each view's group mean, a few f32 ulps of the
@@ -1087,42 +1098,102 @@ def warp_grad_bound(b, v, d, h, w, c, itemsize, depth=False):
             ops / PEAK_FLOPS[torch.float32] * 1e3)
 
 
+# The backward kernels are timed on two rigs of make_plane_scene (baseline
+# 0.6 at z0 = 10): its default (focal 100 px at 640x512 images, 25 px at
+# 1/4 resolution) and a DTU-like one (focal 1446 px at 640x512, 361.5 px at
+# 160x128, the focal of DTU's preprocessed training cameras). A stage-1
+# sweep over 8..12 moves a sample by under 1.3 px on the first, by 9-18 px
+# on the second; the kernels' dsrc window is sized by that sweep.
+DTU_FOCAL = 1446.0
+
+
+def rig_scenes(views, height, width):
+    """{rig: scene}: the default rig and the DTU-like rig."""
+    return {rig: make_plane_scene(num_views=views, height=height, width=width,
+                                  z0=10.0, **kw)
+            for rig, kw in (("default", {}), ("dtu", dict(focal=DTU_FOCAL)))}
+
+
+def sweep_stats(rel, hyp):
+    """([per source view: the largest move of a sample across its
+    hypotheses, in source pixels, over the hypotheses where it has a corner
+    on the image], the number of on-image corners of all samples)."""
+    b, d, h, w = hyp.shape
+    nv = rel.shape[1]
+    xy = plane_sweep_coords(rel, hyp[:, None].expand(b, nv, d, h, w), h, w)
+    cell = xy.floor()
+    cx, cy = cell[..., 0], cell[..., 1]
+    nx = ((cx >= 0) & (cx <= w - 1)).int() + ((cx >= -1) & (cx <= w - 2)).int()
+    ny = ((cy >= 0) & (cy <= h - 1)).int() + ((cy >= -1) & (cy <= h - 2)).int()
+    corners = int((nx * ny).sum())
+    on = ((nx > 0) & (ny > 0))[..., None]
+    lo = torch.where(on, xy, float("inf")).amin(2)
+    hi = torch.where(on, xy, -float("inf")).amax(2)
+    move = torch.where(on.any(2)[..., 0], (hi - lo).norm(dim=-1), 0.0)
+    return [move[:, v].max().item() for v in range(nv)], corners
+
+
+def rig_launch(fn, plain, grad, args, depth, what, groups=(), timed=False):
+    """A backward kernel (fused_variance_volume_grad or
+    group_correlation_volume_grad) at these inputs: each source's sweep,
+    the kernel against its plain version (check_grad_kernel) and, if
+    `timed`, its ms and the rate of its dsrc corner-channel adds (on-image
+    corners x C). Returns (largest error, ms or None)."""
+    sweeps, corners = sweep_stats(args[2], args[3])
+    log(f"  {what}: sweep per source "
+        + " / ".join(f"{x:.2f}" for x in sweeps) + " px")
+    err = check_grad_kernel(fn, plain, grad, args, depth, what, groups)
+    if not timed:
+        return err, None
+    ms = cuda_ms(lambda: fn(grad, *args, *groups, depth_grad=depth))
+    adds = corners * args[0].shape[-1]
+    log(f"    kernel {ms:.4f} ms: {adds / 1e6:.1f} M corner-channel adds of "
+        f"dsrc, {adds / ms / 1e6:.1f} G/s")
+    return err, ms
+
+
 def phase_warp_grad(device):
     log(f"phase 7a: warp_variance backward kernel vs plain autograd, batch "
-        f"{TRAIN_BATCH}, {VIEWS - 1} sources, {TRAIN_W}x{TRAIN_H} stages")
-    scene = make_plane_scene(num_views=VIEWS, height=TRAIN_H, width=TRAIN_W,
-                             z0=10.0)
+        f"{TRAIN_BATCH}, {VIEWS - 1} sources, {TRAIN_W}x{TRAIN_H} stages, "
+        f"default and DTU-like rigs (focal {DTU_FOCAL} px)")
+    scenes = rig_scenes(VIEWS, TRAIN_H, TRAIN_W)
     rows = []
     for stage, scale, c in STAGES:
         d, h, w = NDEPTHS[stage - 1], TRAIN_H // scale, TRAIN_W // scale
-        for dtype in (torch.float32, torch.bfloat16):
-            args = warp_inputs(scene, stage, scale, c, d, dtype, device,
-                               batch=TRAIN_BATCH, seed=stage,
-                               height=TRAIN_H, width=TRAIN_W)
-            g = torch.Generator().manual_seed(10 + stage)
-            grad = torch.randn((TRAIN_BATCH, d, h, w, c), generator=g).to(
-                device, dtype)
-            what = (f"stage{stage} B={TRAIN_BATCH} D={d} {h}x{w} C={c} "
-                    f"{str(dtype)[6:]}")
-            n = fused_variance_volume_grad.launches
-            got = fused_variance_volume_grad(grad, *args)
-            if fused_variance_volume_grad.launches != n + 1:
-                fail(f"{what}: backward kernel not launched")
-            want = fused_variance_volume_grad_plain(grad, *args,
-                                                    depth_grad=False)
-            err = max(compare("warp_grad", a, b, f"{what} {name}")
-                      for a, b, name in zip(got, want, ("dref", "dsrc")))
-            if dtype is torch.bfloat16:  # the training path's type: time it
-                ms = cuda_ms(lambda: fused_variance_volume_grad(grad, *args))
+        row = {}
+        for rig, scene in scenes.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                args = warp_inputs(scene, stage, scale, c, d, dtype, device,
+                                   batch=TRAIN_BATCH, seed=stage,
+                                   height=TRAIN_H, width=TRAIN_W)
+                g = torch.Generator().manual_seed(10 + stage)
+                grad = torch.randn((TRAIN_BATCH, d, h, w, c),
+                                   generator=g).to(device, dtype)
+                # bf16 is the training path's type: time it
+                timed = dtype is torch.bfloat16
+                err, ms = rig_launch(
+                    fused_variance_volume_grad,
+                    fused_variance_volume_grad_plain, grad, args, False,
+                    f"stage{stage} {rig} rig B={TRAIN_BATCH} D={d} {h}x{w} "
+                    f"C={c} {str(dtype)[6:]}", timed=timed)
+                if not timed:
+                    continue
+                if rig == "dtu":
+                    row.update(dtu_err=err, dtu_ms=ms)
+                    continue
                 plain_ms = cuda_ms(
                     lambda: fused_variance_volume_grad_plain(
                         grad, *args, depth_grad=False), iters=3, warmup=1)
                 by, ops = warp_grad_bound(TRAIN_BATCH, VIEWS - 1, d, h, w, c,
                                           2)
-                log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                    f"{max(by, ops):.4f} ms (bytes {by:.4f}, ops {ops:.4f})")
-                rows.append(dict(err=err, ms=ms, plain_ms=plain_ms,
-                                 bytes_ms=by, ops_ms=ops))
+                log(f"    plain {plain_ms:.4f} ms, bound {max(by, ops):.4f} "
+                    f"ms (bytes {by:.4f}, ops {ops:.4f})")
+                row.update(err=err, ms=ms, plain_ms=plain_ms, bytes_ms=by,
+                           ops_ms=ops)
+        rows.append(row)
+    log(f"  one CasMVSNet train step's warp backward (bf16): "
+        f"{sum(r['ms'] for r in rows):.4f} ms on the default rig, "
+        f"{sum(r['dtu_ms'] for r in rows):.4f} ms on the DTU-like rig")
     return rows
 
 
@@ -1957,12 +2028,13 @@ def mvs_config(dtype, *overrides, config=MVS_CONFIG):
 
 def phase_mvsnet_kernels(device):
     """9a: the warp forward at MVSNet's sweep and its backward at MVSNet's
-    training shape, against their plain versions; bf16 timed."""
+    training shape (the latter on the default and DTU-like rigs), against
+    their plain versions; bf16 timed."""
     h, w = MVS_H // 4, MVS_W // 4
     log(f"phase 9a: warp_variance at MVSNet's sweep (D={LADDER}, {w}x{h}, "
         f"C={MVS_C}, {VIEWS} views) and its backward at the training shape "
         f"(batch {TRAIN_BATCH}, {MVS_TRAIN_VIEWS - 1} sources, "
-        f"{TRAIN_W // 4}x{TRAIN_H // 4})")
+        f"{TRAIN_W // 4}x{TRAIN_H // 4}) on the default and DTU-like rigs")
     scene = make_plane_scene(num_views=VIEWS, height=MVS_H, width=MVS_W,
                              z0=10.0)
     rows = {}
@@ -1986,39 +2058,37 @@ def phase_mvsnet_kernels(device):
             rows["warp"] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                 bytes_ms=by, ops_ms=ops)
         del args
-    scene = make_plane_scene(num_views=MVS_TRAIN_VIEWS, height=TRAIN_H,
-                             width=TRAIN_W, z0=10.0)
     h, w = TRAIN_H // 4, TRAIN_W // 4
-    for dtype in (torch.float32, torch.bfloat16):
-        args = warp_inputs(scene, 1, 4, MVS_C, LADDER, dtype, device,
-                           batch=TRAIN_BATCH, seed=4, height=TRAIN_H,
-                           width=TRAIN_W)
-        grad = torch.randn((TRAIN_BATCH, LADDER, h, w, MVS_C),
-                           generator=torch.Generator().manual_seed(14)).to(
-                               device, dtype)
-        what = (f"warp backward B={TRAIN_BATCH} D={LADDER} {w}x{h} "
-                f"C={MVS_C} {MVS_TRAIN_VIEWS - 1} sources {str(dtype)[6:]}")
-        n = fused_variance_volume_grad.launches
-        got = fused_variance_volume_grad(grad, *args)
-        if fused_variance_volume_grad.launches != n + 1:
-            fail(f"{what}: backward kernel not launched")
-        want = fused_variance_volume_grad_plain(grad, *args,
-                                                depth_grad=False)
-        err = max(compare("warp_grad", a, b, f"{what} {name}")
-                  for a, b, name in zip(got, want, ("dref", "dsrc")))
-        del got, want
-        if dtype is torch.bfloat16:
-            ms = cuda_ms(lambda: fused_variance_volume_grad(grad, *args))
-            plain_ms = cuda_ms(
-                lambda: fused_variance_volume_grad_plain(
-                    grad, *args, depth_grad=False), iters=3, warmup=1)
-            by, ops = warp_grad_bound(TRAIN_BATCH, MVS_TRAIN_VIEWS - 1,
-                                      LADDER, h, w, MVS_C, 2)
-            log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{max(by, ops):.4f} ms (bytes {by:.4f}, ops {ops:.4f})")
-            rows["warp_grad"] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                     bytes_ms=by, ops_ms=ops)
-        del args, grad
+    row = {}
+    for rig, scene in rig_scenes(MVS_TRAIN_VIEWS, TRAIN_H, TRAIN_W).items():
+        for dtype in (torch.float32, torch.bfloat16):
+            args = warp_inputs(scene, 1, 4, MVS_C, LADDER, dtype, device,
+                               batch=TRAIN_BATCH, seed=4, height=TRAIN_H,
+                               width=TRAIN_W)
+            grad = torch.randn((TRAIN_BATCH, LADDER, h, w, MVS_C),
+                               generator=torch.Generator().manual_seed(14)).to(
+                                   device, dtype)
+            timed = dtype is torch.bfloat16
+            err, ms = rig_launch(
+                fused_variance_volume_grad, fused_variance_volume_grad_plain,
+                grad, args, False,
+                f"warp backward {rig} rig B={TRAIN_BATCH} D={LADDER} {w}x{h} "
+                f"C={MVS_C} {MVS_TRAIN_VIEWS - 1} sources {str(dtype)[6:]}",
+                timed=timed)
+            if timed and rig == "dtu":
+                row.update(dtu_err=err, dtu_ms=ms)
+            elif timed:
+                plain_ms = cuda_ms(
+                    lambda: fused_variance_volume_grad_plain(
+                        grad, *args, depth_grad=False), iters=3, warmup=1)
+                by, ops = warp_grad_bound(TRAIN_BATCH, MVS_TRAIN_VIEWS - 1,
+                                          LADDER, h, w, MVS_C, 2)
+                log(f"    plain {plain_ms:.4f} ms, bound {max(by, ops):.4f} "
+                    f"ms (bytes {by:.4f}, ops {ops:.4f})")
+                row.update(err=err, ms=ms, plain_ms=plain_ms, bytes_ms=by,
+                           ops_ms=ops)
+            del args, grad
+    rows["warp_grad"] = row
     return rows
 
 
@@ -2334,6 +2404,48 @@ def integer_volume_inputs(dtype, device, c):
             rel.to(device), hyp.to(device))
 
 
+# The most 8-channel f32 slots a backward block's dsrc window could hold:
+# all of a block's 227 KB of shared memory, 32 bytes a slot.
+MAX_WINDOW_SLOTS = 227 * 1024 // 32
+
+
+def spill_volume_inputs(dtype, device, c=16):
+    """Cost-volume inputs that need the backward kernels' spill branch:
+    batch 2, 2 sources, D = 4 over 8..12, 160x128. Source 1 sees the
+    reference at 10x its focal, the centre of the tile at columns 80-95
+    and rows 56-63 on its own image centre, shifted along x by 40 /
+    depth, so that this tile covers some 150x70 source pixels at one
+    depth; source 2 has the reference camera 9.5 in front of it, so that
+    the nearer depths lie behind it and the next ones near its pole."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    b, v, d, h, w = 2, 2, 4, 128, 160
+    feats = torch.randn((b, v + 1, h, w, c), generator=g).to(device, dtype)
+    rel = torch.eye(4).repeat(b, v, 1, 1)
+    (cx, cy), (sx, sy) = (87.5, 59.5), ((w - 1) / 2, (h - 1) / 2)
+    rel[:, 0, 0] = torch.tensor([10.0, 0.0, sx - 10.0 * cx, 40.0])
+    rel[:, 0, 1] = torch.tensor([0.0, 10.0, sy - 10.0 * cy, 0.0])
+    rel[:, 1, :3, 3] = torch.tensor([30.0, 0.0, -9.5])
+    hyp = torch.linspace(8.0, 12.0, d)[None, :, None, None] + 0.1 * torch.rand(
+        (b, d, h, w), generator=g)
+    return (feats[:, 0].contiguous(), feats[:, 1:].contiguous(),
+            rel.to(device), hyp.contiguous().to(device))
+
+
+def largest_tile_box(rel, hyp, view):
+    """The largest box of source cells (x0 and y0 extents + 2, multiplied)
+    that one 16x8 tile's on-image samples at the first depth span in
+    `view`; H and W multiples of 8 and 16."""
+    b, _, h, w = hyp.shape
+    xy = plane_sweep_coords(rel[:, view], hyp[:, :1], h, w)[:, 0].floor()
+    on = ((xy[..., 0] >= -1) & (xy[..., 0] <= w - 1) & (xy[..., 1] >= -1)
+          & (xy[..., 1] <= h - 1))[..., None]
+    tiles = lambda t: t.reshape(b, h // 8, 8, w // 16, 16, 2)
+    lo = tiles(torch.where(on, xy, float("inf"))).amin((2, 4))
+    hi = tiles(torch.where(on, xy, -float("inf"))).amax((2, 4))
+    ext = (hi - lo + 2).clamp(min=0).nan_to_num(0.0, 0.0, 0.0)
+    return int((ext[..., 0] * ext[..., 1]).max())
+
+
 def check_grad_kernel(fn, plain, grad, args, depth, what, groups=()):
     """The backward kernel `fn` (fused_variance_volume_grad or
     group_correlation_volume_grad; `groups` = (G,) for the latter) against
@@ -2359,13 +2471,15 @@ def phase_cvp_train_kernels(device, warp_grad_rows):
     plain versions at the training shapes (batch 4, 640x512 images, 2
     sources: level 1 D = 48 at 320x256, level 0 D = 8 at 640x512, C = 16,
     G = 4) in f32 and bf16, timed in bf16 (the group correlation also in
-    f32, as AACVP feeds it), and at awkward shapes. Returns the rows of
-    one train step's launches: CVP's warp backward in bf16 (level 1
-    without, level 0 with the hypotheses' gradient) and AACVP's group
-    correlation backward in f32."""
+    f32, as AACVP feeds it); the main path's variants again on the
+    DTU-like rig; a case that needs the kernels' spill branch; and awkward
+    shapes. Returns the rows of one train step's launches: CVP's warp
+    backward in bf16 (level 1 without, level 0 with the hypotheses'
+    gradient) and AACVP's group correlation backward in f32, each with its
+    DTU-like rig's time."""
     log(f"phase 10a: backward kernels at the CVP training shapes, batch "
         f"{TRAIN_BATCH}, {CVP_TRAIN_VIEWS - 1} sources, {TRAIN_W}x{TRAIN_H} "
-        f"images, C={CVP_C}, G={CVP_GROUPS}")
+        f"images, C={CVP_C}, G={CVP_GROUPS}, default and DTU-like rigs")
     scene = make_plane_scene(num_views=CVP_TRAIN_VIEWS, height=TRAIN_H,
                              width=TRAIN_W, z0=10.0)
     rows = {"warp": [], "group": []}
@@ -2383,6 +2497,9 @@ def phase_cvp_train_kernels(device, warp_grad_rows):
                                      height=TRAIN_H, width=TRAIN_W,
                                      levels=CVP_TRAIN_LEVELS)
             itemsize = torch.tensor([], dtype=dtype).element_size()
+            sweeps, corners = sweep_stats(args[2], args[3])
+            log(f"  level{level} default rig {str(dtype)[6:]}: sweep per "
+                f"source " + " / ".join(f"{x:.2f}" for x in sweeps) + " px")
             for kind, fn, plain, groups, bound in kernels:
                 last = CVP_C if kind == "warp" else CVP_GROUPS
                 grad = torch.randn(
@@ -2411,7 +2528,9 @@ def phase_cvp_train_kernels(device, warp_grad_rows):
                     f"{ms[False]:.4f} ms, with ddepth {ms[True]:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, bound of the main path's "
                     f"variant (ddepth {main_depth}) {max(by, ops):.4f} ms "
-                    f"(bytes {by:.4f}, ops {ops:.4f})")
+                    f"(bytes {by:.4f}, ops {ops:.4f}); "
+                    f"{corners * CVP_C / ms[main_depth] / 1e6:.1f} G "
+                    f"corner-channel adds of dsrc per s")
                 main_type = torch.bfloat16 if kind == "warp" else \
                     torch.float32
                 if dtype is main_type:
@@ -2419,16 +2538,66 @@ def phase_cvp_train_kernels(device, warp_grad_rows):
                         err=errs[main_depth], ms=ms[main_depth],
                         plain_ms=plain_ms, bytes_ms=by, ops_ms=ops))
             del args
+    # The same launches on the DTU-like rig, the main path's variants.
+    scene = rig_scenes(CVP_TRAIN_VIEWS, TRAIN_H, TRAIN_W)["dtu"]
+    for i, (level, d) in enumerate(((1, CVP_COARSE_D), (0, CVP_FINE_D))):
+        h, w = TRAIN_H >> level, TRAIN_W >> level
+        main_depth = level < CVP_TRAIN_LEVELS - 1
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cvp_volume_inputs(scene, level, d, dtype, device,
+                                     batch=TRAIN_BATCH, seed=20 + level,
+                                     height=TRAIN_H, width=TRAIN_W,
+                                     levels=CVP_TRAIN_LEVELS)
+            for kind, fn, plain, groups, _ in kernels:
+                last = CVP_C if kind == "warp" else CVP_GROUPS
+                grad = torch.randn(
+                    (TRAIN_BATCH, d, h, w, last),
+                    generator=torch.Generator().manual_seed(30 + level)).to(
+                        device, dtype)
+                timed = dtype is (torch.bfloat16 if kind == "warp" else
+                                  torch.float32)
+                err, ms = rig_launch(
+                    fn, plain, grad, args, main_depth,
+                    f"{fn.__name__} dtu rig level{level} B={TRAIN_BATCH} "
+                    f"D={d} {w}x{h} C={CVP_C} {str(dtype)[6:]} "
+                    f"depth={main_depth}", groups, timed=timed)
+                if timed:
+                    rows[kind][i].update(dtu_err=err, dtu_ms=ms)
+            del args
+    # The spill branch: a source at 10x the reference's focal (one depth's
+    # tile spans more source pixels than any window holds) and one that
+    # puts the nearer depths behind it; both kernels, with and without
+    # ddepth.
+    for dtype in (torch.float32, torch.bfloat16):
+        args = spill_volume_inputs(dtype, device)
+        box = largest_tile_box(args[2], args[3], 0)
+        log(f"  spill case {str(dtype)[6:]}: one depth's 16x8 tile spans up "
+            f"to {box} source cells of the zoomed source (a window holds at "
+            f"most {MAX_WINDOW_SLOTS})")
+        if box <= MAX_WINDOW_SLOTS:
+            fail(f"spill case: a tile spans {box} cells, which a window "
+                 f"could hold")
+        b, dd, h, w = args[3].shape
+        for kind, fn, plain, groups, _ in kernels:
+            last = CVP_C if kind == "warp" else CVP_GROUPS
+            g = torch.randn((b, dd, h, w, last),
+                            generator=torch.Generator().manual_seed(50)).to(
+                                device, dtype)
+            for depth in (False, True):
+                check_grad_kernel(fn, plain, g, args, depth,
+                                  f"{kind} backward spill case "
+                                  f"{str(dtype)[6:]} depth={depth}", groups)
     # Awkward: batch 2, 3 sources, C = 12 and 20 (scalar variant), C = 24
-    # (16-byte variant; with 12 and 20 the layouts whose chunks of a pixel
-    # are not one aligned lane group), off-image and behind-camera samples,
-    # D = 1, and samples on integer coordinates.
+    # (16-byte variant), off-image and behind-camera samples, D = 1 and 2,
+    # and samples on integer coordinates.
     for dtype in (torch.float32, torch.bfloat16):
         t = str(dtype)[6:]
         for c, groups in ((12, 3), (20, 4), (24, 4)):
             args = ragged_volume_inputs(dtype, device, c=c)
             one = (*args[:3], args[3][:, 3:4].contiguous())
-            for case, a in (("off-image/behind-camera", args), ("D=1", one)):
+            two = (*args[:3], args[3][:, 3:5].contiguous())
+            for case, a in (("off-image/behind-camera", args), ("D=1", one),
+                            ("D=2", two)):
                 b, dd, h, w = a[3].shape
                 for kind, fn, plain, _, _ in kernels:
                     last = c if kind == "warp" else groups
@@ -2453,13 +2622,16 @@ def phase_cvp_train_kernels(device, warp_grad_rows):
                     (4,) if kind == "group" else ())
     warp, group = rows["warp"], rows["group"]
     log(f"  one CVP train step's warp backward (bf16, 1 of 2 launches with "
-        f"ddepth): {sum(r['ms'] for r in warp):.4f} ms, bound "
+        f"ddepth): {sum(r['ms'] for r in warp):.4f} ms (DTU-like rig "
+        f"{sum(r['dtu_ms'] for r in warp):.4f}), bound "
         f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in warp):.4f}; one "
         f"AACVP step's group-correlation backward (f32): "
-        f"{sum(r['ms'] for r in group):.4f} ms, bound "
+        f"{sum(r['ms'] for r in group):.4f} ms (DTU-like rig "
+        f"{sum(r['dtu_ms'] for r in group):.4f}), bound "
         f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in group):.4f}; the "
         f"warp backward without ddepth at phase 7a's shapes (this run): "
-        f"{sum(r['ms'] for r in warp_grad_rows):.4f} ms per CasMVSNet step")
+        f"{sum(r['ms'] for r in warp_grad_rows):.4f} ms per CasMVSNet step "
+        f"(DTU-like rig {sum(r['dtu_ms'] for r in warp_grad_rows):.4f})")
     return rows
 
 
@@ -2655,6 +2827,12 @@ def main() -> int:
                     mvsnet_bound_ms=max(row["bytes_ms"], row["ops_ms"]),
                     mvsnet_max_abs_err=row["err"])
 
+    def on_dtu_rig(rows, prefix=""):
+        """The rows' launches on the DTU-like rig: ms and largest error."""
+        return {f"dtu_rig_{prefix}ms": sum(r["dtu_ms"] for r in rows),
+                f"dtu_rig_{prefix}max_abs_err": max(r["dtu_err"]
+                                                    for r in rows)}
+
     def pyramid_training(key):
         """The kernel's launches per CVP / AACVP train step (10c) and
         through their cli train runs (10d)."""
@@ -2699,6 +2877,9 @@ def main() -> int:
                      mvsnet_cli_train_launches=mvs["cli_train"][
                          "warp_variance_grad"],
                      **at_mvsnet(mvs["rows"]["warp_grad"]),
+                     **on_dtu_rig(grad_rows),
+                     **on_dtu_rig([mvs["rows"]["warp_grad"]], "mvsnet_"),
+                     **on_dtu_rig(step_rows, "cvp_train_"),
                      **pyramid_training("warp_variance_grad"),
                      cvp_train_depth_launches=pyr["train"]["cvp_mvsnet"][
                          "warp_variance_grad.depth"],
@@ -2727,7 +2908,7 @@ def main() -> int:
                      "mvs_tpu/ops/cost_volume.py:94", pyr["rows"]["group"],
                      pyr["train"]["aacvp_mvsnet"]["group_correlation_grad"],
                      pyr["cli"]["aacvp_mvsnet"]["group_correlation_grad"],
-                     library=False,
+                     library=False, **on_dtu_rig(pyr["rows"]["group"]),
                      **pyramid_training("group_correlation_grad"),
                      aacvp_train_depth_launches=pyr["train"]["aacvp_mvsnet"][
                          "group_correlation_grad.depth"]),

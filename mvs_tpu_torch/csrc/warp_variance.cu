@@ -59,30 +59,36 @@
 // the JAX package trains through XLA's gather path under jax.checkpoint,
 // which recomputes the warp in the backward pass. It does the same: given
 // G = dL/dvar it recomputes each (pixel, depth)'s V source samples with the
-// forward's records (the same coordinate rounding) and their mean m over
-// N = V + 1 views, and with g = 2 G / N
-//   * dref[p, c] = sum_d g (ref - m): a lane owns a pixel's 8-channel chunk
-//     across all depths and sums in shared memory, so no atomics;
+// forward's coordinate rounding and their mean m over N = V + 1 views, and
+// with g = 2 G / N
+//   * dref[p, c] = sum_d g (ref - m), summed in the pixel's thread;
 //   * dsrc[v, corner, c] += w_corner g (f_v - m), f_v the blended sample,
-//     scattered with f32 atomics into an f32 buffer (16-byte vector atomics
-//     on the 16-byte path), valid corners only (the forward's zero fill);
+//     valid corners only (the forward's zero fill);
 //   * with kDepth (a template flag, chosen by the wrapper when the
 //     hypotheses require a gradient), ddepth[p, d] = sum_v sum_c g (f_v - m)
 //     (df_v/dx dx/ddep + df_v/dy dy/ddep): the sample's corner differences
 //     (mvs::blend_diff, JAX's right-hand differences at an integer
 //     coordinate) times the quotient rule of the projection
-//     (mvs::depth_jacobian, kept per (pixel, view) in shared memory beside
-//     the records). A pixel's channels are split over nch lanes, so the
-//     chunk sums are reduced before one f32 store per (pixel, depth): with
-//     shuffles where those lanes are one aligned group, else through
-//     [32][nch] partial sums in shared memory that lane l adds in order.
-//     Launches without the flag compile to the kernel without that code.
-// One block covers every depth of its tile. Its least time is bound by f32
-// operations at stages 1-2 and by bytes at stage 3 of a batch-4 640x512
-// step (chip_smoke.py computes both); what it pays on top is the scatter's
-// atomics. On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 7a) it takes
-// 6.7 / 8.0 / 4.0 ms per stage against bounds of 0.15 / 0.21 / 0.20 ms;
-// with scalar atomics it took 23.5 / 31.6 / 15.4 ms.
+//     (mvs::depth_jacobian), one f32 store per (pixel, depth).
+// A block owns a 16 x 8 tile, a thread one pixel across every depth. The
+// channels go in slices of 8: without kDepth each slice is a block of its
+// own (a 160x128 batch-4 stage still fills the card), with it the block
+// walks every slice and adds each slice's share of ddepth to the last, so
+// ddepth has one writer. dsrc goes through the dsrc window of
+// mvs_common.cuh: each warp plans chunks of depths whose samples fit a box
+// of source cells per view in its part of 56 KB of shared memory, adds the
+// samples' shares there with plain 16-byte read-modify-writes, and hands
+// the window to the TMA unit's bulk reduce-add once per chunk; a sample
+// outside its window (a sweep that is not monotone in depth, a footprint
+// larger than the window) takes the spill branch, float4 atomics to dsrc.
+// What bounded the first version was those float4 atomics for
+// every sample: 70-90 G/s at every launch shape, 18.7 ms per CasMVSNet
+// train step. With the window, measured on one H100 80GB HBM3 at 700 W,
+// a step takes 6.56 ms on make_plane_scene's default rig and 6.93
+// ms on a DTU-like rig (sweeps of 9-18 px at stage 1), against a 0.48 ms
+// bound; the rest is the recomputed gathers (the corners of each sample
+// are read twice, the second time mostly from L2), the records (recomputed
+// per slice) and the window's adds (a quarter of the time).
 //
 // C interface (loaded with ctypes, see mvs_tpu_torch/ops/warp_variance.py):
 // every pointer is a device pointer to contiguous memory,
@@ -110,7 +116,6 @@ using mvs::corner_weights;
 using mvs::from_f32;
 using mvs::load8;
 using mvs::sample_record;
-using mvs::scatter_corners;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;  // one pixel per thread per tile
@@ -264,116 +269,92 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
 }
 
 template <typename T, bool kVec, bool kDepth>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mvs::kWinThreads, mvs::kGradBlocksPerSm)
 warp_variance_grad_kernel(const T* __restrict__ ref,
                           const T* __restrict__ src,
                           const float* __restrict__ geom,
                           const float* __restrict__ hyp,
                           const T* __restrict__ grad, T* __restrict__ dref,
                           float* __restrict__ dsrc, float* __restrict__ ddep,
-                          int V, int D, int H, int W, int C) {
-  // Per warp: [V][32] sample records and [V][3][32] rotated pixels as in
-  // the forward, then [32][C] f32 sums of dref; then the (V, 12) geometry.
-  // kDepth adds per warp [V][32] depth jacobians and, when a pixel's chunks
-  // are not one aligned lane group (!even), [32][nch] partial sums.
+                          int V, int D, int H, int W, int C, int slots) {
   extern __shared__ int4 smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nch = (C + 7) >> 3;
-  int4* rec = smem + warp * V * 32;
-  float* fsm = reinterpret_cast<float*>(smem + kWarps * V * 32);
-  float* rot = fsm + warp * V * 96;
-  float* acc = fsm + kWarps * V * 96 + warp * 32 * C;
-  float* sgeom = fsm + kWarps * V * 96 + kWarps * 32 * C;
-  float2* jac_all = reinterpret_cast<float2*>(sgeom + V * 12);
-  float2* jac = jac_all + warp * V * 32;
-  float* part =
-      reinterpret_cast<float*>(jac_all + kWarps * V * 32) + warp * 32 * nch;
-
+  const mvs::GradSmem sm = mvs::carve_grad_smem(smem, V, slots, kDepth);
+  const int tid = threadIdx.x;
   const int b = blockIdx.z;
   const int hw = H * W;
-  const int wx0 = blockIdx.x * kTileW + (warp & 1) * 8;
-  const int wy0 = blockIdx.y * kTileH + (warp >> 1) * 4;
-
-  for (int i = threadIdx.x; i < V * 12; i += kThreads)
-    sgeom[i] = geom[(int64_t)b * V * 12 + i];
-  for (int i = lane; i < 32 * C; i += 32) acc[i] = 0.f;
-  __syncthreads();
-
-  const int px = wx0 + (lane & 7), py = wy0 + (lane >> 3);
-  const bool pix_ok = px < W && py < H;
+  // Without kDepth each slice of 8 channels is a block of its own; with
+  // it a block walks every slice, so ddepth has one writer.
+  const int split = kDepth ? 1 : (C + 7) >> 3;
+  const int c_begin = blockIdx.y % split * 8;
+  const int c_end = kDepth ? C : c_begin + 8;
+  const int2 off = mvs::tile_offset(tid);
+  const int px = blockIdx.x * mvs::kWinTileW + off.x;
+  const int py = blockIdx.y / split * mvs::kWinTileH + off.y;
+  const bool ok = px < W && py < H;
   const int pix = py * W + px;
-  rotate_pixel(sgeom, rot, V, px, py, lane);
+  mvs::grad_setup(sm, geom + (int64_t)b * V * 12, V, px, py);
 
-  // The forward's chunk walk; item (pixel pl, chunk c0) of pass k belongs to
-  // the same lane at every depth, so its dref sum in `acc` has one owner.
-  const bool even = 32 % nch == 0;
-  const int lane_pl = lane / nch, lane_c0 = (lane - lane_pl * nch) * 8;
-  const int vstride = hw * C;
+  const int vstride = hw * C;  // < 2^31, checked at launch
   const int rowc = W * C;
-  const T* refb = ref + (int64_t)b * vstride;
+  const T* refp = ref + (int64_t)b * vstride + pix * C;
   const T* srcb = src + (int64_t)b * V * vstride;
   float* dsrcb = dsrc + (int64_t)b * V * vstride;
+  const float* hypp = hyp + (int64_t)b * D * hw + pix;
   const float rn = __frcp_rn((float)(V + 1));
   const float g2 = 2.f * rn;  // dvar/df_i = (2 / N) (f_i - m)
+  int4* rec = sm.rec + tid;
+  float2* jac = sm.jac + tid;
 
-  for (int d = 0; d < D; ++d) {
-    const int64_t plane = ((int64_t)b * D + d) * hw;
-    if (pix_ok) {
-      const float dep = __ldg(hyp + plane + pix);
-      for (int v = 0; v < V; ++v) {
-        rec[v * 32 + lane] = sample_record(rot + v * 96 + lane, 32,
-                                           sgeom + v * 12, dep, W, H, C);
-        if constexpr (kDepth)
-          jac[v * 32 + lane] = mvs::depth_jacobian(rot + v * 96 + lane, 32,
-                                                   sgeom + v * 12, dep);
-      }
-    }
-    __syncwarp();
-
-    for (int pass = 0; pass < nch; ++pass) {
-      int pl = pass * (32 / nch) + lane_pl, c0 = lane_c0;
-      if (!even) {
-        pl = (pass * 32 + lane) / nch;
-        c0 = (pass * 32 + lane - pl * nch) * 8;
-      }
-      const int x = wx0 + (pl & 7), y = wy0 + (pl >> 3);
-      const bool ok = x < W && y < H;
-      // With kDepth every lane reaches the reduction below.
-      if (!kDepth && !ok) continue;
-      float dd = 0.f;  // this item's share of ddepth
-      if (ok) {
-        const int p = y * W + x;
-        const int nc = min(8, C - c0);
-        float g[8], r[8], m[8];
-        load8<kVec>(grad + plane * C + p * C + c0, true, nc, g);
-        load8<kVec>(refb + p * C + c0, true, nc, r);
+  for (int c0 = c_begin; c0 < c_end; c0 += 8) {
+    const int nc = min(8, C - c0);
+    float r[8], dr[8];
+    load8<kVec>(refp + c0, ok, nc, r);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dr[k] = 0.f;
+    for (int d0 = 0, want = D; d0 < D;) {
+      int used;
+      const int L = mvs::window_plan(sm, hypp, hw, ok, d0, min(want, D - d0),
+                                     V, W, H, slots, &used);
+      // Every lane walks the chunk (the window's adds take the whole
+      // warp); a lane whose pixel is off the image has no valid sample.
+      for (int d = d0; d < d0 + L; ++d) {
+        const int64_t at = ((int64_t)b * D + d) * hw + pix;
+        const float dep = ok ? __ldg(hyp + at) : 1.f;
+        for (int v = 0; v < V; ++v) {
+          rec[v * mvs::kWinThreads] =
+              mvs::grad_record(sm, v, dep, ok, W, H, C);
+          if constexpr (kDepth)
+            jac[v * mvs::kWinThreads] = mvs::grad_jacobian(sm, v, dep);
+        }
+        float g[8], m[8];
+        load8<kVec>(grad + at * C + c0, ok, nc, g);
 #pragma unroll
         for (int k = 0; k < 8; ++k) m[k] = r[k];
         for (int v = 0; v < V; ++v) {
           float f[8];
-          blend<kVec>(srcb + (int64_t)v * vstride + c0, rec[v * 32 + pl], nc,
-                      C, rowc, f);
+          blend<kVec>(srcb + (int64_t)v * vstride + c0,
+                      rec[v * mvs::kWinThreads], nc, C, rowc, f);
 #pragma unroll
           for (int k = 0; k < 8; ++k) m[k] += f[k];
         }
-        float* a = acc + pl * C + c0;
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           m[k] *= rn;
           g[k] *= g2;
-          if (k < nc) a[k] += g[k] * (r[k] - m[k]);
+          dr[k] += g[k] * (r[k] - m[k]);
         }
         // Each view's sample again (its corners are in L1 from the pass
-        // above); its cotangent g (f - m) is scattered to the valid corners
-        // and, with kDepth, moved along the sample's coordinates.
+        // above); its cotangent g (f - m) goes to the valid corners and,
+        // with kDepth, along the sample's coordinates.
+        float dd = 0.f;
         for (int v = 0; v < V; ++v) {
-          const int4 rv = rec[v * 32 + pl];
+          const int4 rv = rec[v * mvs::kWinThreads];
           const T* sv = srcb + (int64_t)v * vstride + c0;
           float f[8];
           if constexpr (kDepth) {
             float fx[8], fy[8];
             blend_diff<kVec>(sv, rv, nc, C, rowc, f, fx, fy);
-            const float2 j = jac[v * 32 + pl];
+            const float2 j = jac[v * mvs::kWinThreads];
 #pragma unroll
             for (int k = 0; k < 8; ++k) {
               f[k] = g[k] * (f[k] - m[k]);
@@ -384,48 +365,20 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
 #pragma unroll
             for (int k = 0; k < 8; ++k) f[k] = g[k] * (f[k] - m[k]);
           }
-          scatter_corners<kVec>(dsrcb + (int64_t)v * vstride + c0, rv, nc, C,
-                                rowc, f);
+          mvs::scatter_sample<kVec>(sm, v, dsrcb + (int64_t)v * vstride + c0,
+                                    rv, nc, C, rowc, f);
         }
+        // One writer per (pixel, depth): this thread, slice by slice.
+        if (kDepth && ok) ddep[at] = c0 == 0 ? dd : ddep[at] + dd;
       }
-      if constexpr (kDepth) {
-        if (even) {  // the pixel's nch chunks are lanes of one aligned group
-          for (int o = nch >> 1; o > 0; o >>= 1)
-            dd += __shfl_xor_sync(0xffffffffu, dd, o);
-          if (ok && lane_c0 == 0) ddep[plane + y * W + x] = dd;
-        } else {  // item pass * 32 + lane is chunk c0 / 8 of pixel pl
-          part[pass * 32 + lane] = dd;
-        }
-      }
+      mvs::window_flush(sm, used, V, dsrcb + c0, vstride, W, H, C, nc);
+      d0 += L;
+      want = 2 * L;
     }
-    if constexpr (kDepth) {
-      if (!even) {  // lane l sums pixel l's chunks in order: one writer
-        __syncwarp();
-        if (pix_ok) {
-          float s = 0.f;
-          for (int j = 0; j < nch; ++j) s += part[lane * nch + j];
-          ddep[plane + pix] = s;
-        }
-      }
-    }
-    __syncwarp();  // records are rewritten for the next depth
+    // dref, rounded once to T.
+    if (ok) store8<kVec>(dref + (int64_t)b * vstride + pix * C + c0, nc, dr);
   }
-
-  // dref, rounded once to T.
-  for (int pass = 0; pass < nch; ++pass) {
-    int pl = pass * (32 / nch) + lane_pl, c0 = lane_c0;
-    if (!even) {
-      pl = (pass * 32 + lane) / nch;
-      c0 = (pass * 32 + lane - pl * nch) * 8;
-    }
-    const int x = wx0 + (pl & 7), y = wy0 + (pl >> 3);
-    if (x >= W || y >= H) continue;
-    const int nc = min(8, C - c0);
-    float o[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = k < nc ? acc[pl * C + c0 + k] : 0.f;
-    store8<kVec>(dref + (int64_t)b * vstride + (y * W + x) * C + c0, nc, o);
-  }
+  mvs::bulk_wait_all();
 }
 
 template <typename T, bool kVec>
@@ -480,24 +433,20 @@ int launch_grad(const void* ref, const void* src, const void* geom,
   const int64_t hw = (int64_t)H * W;
   if (B == 0 || V == 0 || D == 0 || hw == 0 || C == 0) return cudaSuccess;
   if (!mvs::offsets_fit(hw, W, C)) return (int)cudaErrorInvalidValue;
-  const int nch = (C + 7) / 8;
-  size_t smem = (size_t)V * (kWarps * 32 * 16 + kWarps * 96 * 4 + 48) +
-                (size_t)kWarps * 32 * C * 4;
-  if (kDepth)
-    smem += (size_t)kWarps * V * 32 * 8 +
-            (32 % nch ? (size_t)kWarps * 32 * nch * 4 : 0);
-  const int err =
-      mvs::reserve_smem(warp_variance_grad_kernel<T, kVec, kDepth>, smem);
+  auto* kernel = warp_variance_grad_kernel<T, kVec, kDepth>;
+  dim3 grid;
+  size_t smem;
+  int slots;
+  const int err = mvs::grad_launch_config(kernel, B, V, H, W, C, kDepth, dsrc,
+                                          kDepth ? 1 : (C + 7) / 8, &grid,
+                                          &smem, &slots);
   if (err != cudaSuccess) return err;
-  const int64_t tx = (W + kTileW - 1) / kTileW, ty = (H + kTileH - 1) / kTileH;
-  if (tx > INT32_MAX || ty > 65535 || B > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((unsigned)tx, (unsigned)ty, (unsigned)B);
-  warp_variance_grad_kernel<T, kVec, kDepth><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, mvs::kWinThreads, smem, stream>>>(
       static_cast<const T*>(ref), static_cast<const T*>(src),
       static_cast<const float*>(geom), static_cast<const float*>(hyp),
       static_cast<const T*>(grad), static_cast<T*>(dref),
-      static_cast<float*>(dsrc), static_cast<float*>(ddep), V, D, H, W, C);
+      static_cast<float*>(dsrc), static_cast<float*>(ddep), V, D, H, W, C,
+      slots);
   return (int)cudaGetLastError();
 }
 

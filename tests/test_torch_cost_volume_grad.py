@@ -16,7 +16,13 @@ Inputs, each from a numpy seed:
     right or lower corner off the image) and x = -1 (only the right corner
     in it). JAX differentiates x - floor(x) with slope 1 everywhere, so the
     gradient along x there is the right-hand difference v01 - v00 (-v00 at
-    x = W - 1).
+    x = W - 1);
+  * "sweep": the geometries of the CUDA backwards' window and spill
+    branches. Source 0 zooms 3x about the image centre and shifts by 15 /
+    depth along x, so that one sample moves 10 px over hypotheses 1..3 and
+    many leave the image; source 1 shifts by 0.5 / depth, so that
+    consecutive hypotheses keep most samples in one 2x2 cell, and in batch
+    0 has the nearer depths behind it.
 Bounds: f32 within 1e-5 of each gradient's largest magnitude (the same
 arithmetic; sums in another order); float64 (the port's .float() kept at
 float64, jax_enable_x64) within 1e-9.
@@ -53,6 +59,14 @@ def _inputs(kind, seed, b=2, v=2, d=4, h=7, w=9, c=8):
         rel[0, 1, 2, 3] = -2.0  # the nearer depths behind this camera
         hyp = (np.linspace(0.5, 4.0, d)[None, :, None, None]
                + rng.uniform(0, 0.3, (b, d, h, w)))
+    elif kind == "sweep":
+        cx, cy = (w - 1) / 2, (h - 1) / 2
+        rel[:, 0, :2, :3] = [[3.0, 0.0, -2.0 * cx], [0.0, 3.0, -2.0 * cy]]
+        rel[:, 0, :2, 3] = (15.0, 0.0)
+        rel[:, 1, :2, 3] = (0.5, 0.0)
+        rel[0, 1, 2, 3] = -1.5  # depths under 1.5 behind this camera
+        hyp = (np.linspace(1.0, 3.0, d)[None, :, None, None]
+               + rng.uniform(0, 0.02, (b, d, h, w)))
     else:
         rel[:, :, :2, 3] = rng.choice([-4.0, 0.0, 4.0], (b, v, 2))
         rel[0, 0, :2, 3] = (-4.0, 4.0)  # some samples at x = -1, y = H - 1
@@ -99,7 +113,7 @@ def _close(got, want, tol, what):
 
 
 @pytest.mark.parametrize("name", ["variance", "group_correlation"])
-@pytest.mark.parametrize("kind", ["random", "integer"])
+@pytest.mark.parametrize("kind", ["random", "integer", "sweep"])
 def test_gradients_match_jax(name, kind):
     ref, src, rel, hyp = _inputs(kind, 7)
     g = _cotangent(name, ref, hyp, 8)
