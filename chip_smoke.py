@@ -9,14 +9,17 @@ Phases, in order; any failure exits non-zero:
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes in bf16 and f32 (bf16 timed: kernel, plain, library
      call, bound) and at awkward shapes (batch 2, D = 1 and 2, sizes that
-     cross the conv kernel's tiles and z runs, Cin = 12, ragged C, off-image
-     and behind-camera samples), each on the kernel variant it should take;
+     cross the conv kernel's tiles and z runs, Cin = 12, AACVP's Cin = 4,
+     ragged C, off-image and behind-camera samples), each on the kernel
+     variant it should take (conv: bf16 tensor cores, f32 3xTF32 tensor
+     cores, or direct; conv_variant);
   3. one seeded CasMVSNet at 128x160, f32 and bf16, card (kernels) against
      CPU (plain): each stage's pre-softmax scores, depth and confidence;
   4. full width: 1152x864, 5 views, 48/32/8 hypotheses, bf16 and f32, through
      cli.infer.make_apply_fn, with the launch counts per kernel variant on
      that run (exact: 3 warp, all vector; 15 conv, all on the tensor-core
-     kernel in bf16), and the bf16 map's device time by layer and, from
+     kernel in bf16, 12 on the 3xTF32 one in f32), and the bf16 map's
+     device time by layer and, from
      torch.profiler, its top kernels and the device's idle share;
   5. run_batched_inference at batch 2 over 3 samples (a padded tail), PFM
      and cam files written and one read back;
@@ -61,17 +64,24 @@ Phases, in order; any failure exits non-zero:
      regularizer base 16, 5 views), images 1600x1184 (data.align=32):
      (a) the group-correlation kernel against its plain version at each
          AACVP level shape, f32 and bf16, timed (kernel, plain, bound), and
-         at batch 2, C = 12 (scalar variant), D = 1, off-image and
-         behind-camera samples; the warp-variance and conv3d kernels at
-         CVP's coarsest and finest levels (every regularizer conv, the
-         stride-1 transposed block's 64->32 among them);
+         at batch 2, C = 12 (scalar variant), D = 1, C = 24 in 2 groups,
+         C = 16 in 8, C = 160 and 264 in 4 (past the lane kernel's 32
+         chunks but bf16 160), off-image and behind-camera samples; AACVP's f32
+         convs, (4, 16) and (16, 16), at every level on the 3xTF32 kernel,
+         timed (kernel, plain, cuDNN f32 with TF32 off, the f32 operation,
+         byte and 3xTF32 bounds) and summed over a map's 10; the
+         warp-variance and conv3d kernels at CVP's coarsest and finest
+         levels (every regularizer conv, the stride-1 transposed block's
+         64->32 among them);
      (b) seeded CVP and AACVP at 128x160, 3 levels, f32 and bf16, card
          against CPU: each level's pre-softmax scores and depth, and the
          confidence;
      (c) full width through cli.infer.make_apply_fn, bf16 and f32, for both:
          ms per map, peak memory, launches per kernel variant (exact: CVP 5
-         warp / 45 conv3d / 0 group correlation, AACVP 0 / 45 / 5), bf16
-         device ms by layer kind and the profiler's idle share;
+         warp / 45 conv3d / 0 group correlation, AACVP 0 / 45 / 5; AACVP's
+         bf16 conv3d 35 bf16 tensor-core and 10 3xTF32, every f32 map 30
+         3xTF32 and 15 direct at Cin = 64), bf16 device ms by layer kind and
+         the profiler's idle share;
      (d) `infer --config configs/cvp_eval_dtu.yaml data.align=32` over a
          synthetic DTU scan of 6 views at 1600x1200 for both (seeded bf16
          weights saved as .pt): maps/s and launches; then `fuse` with the
@@ -128,7 +138,10 @@ Phases, in order; any failure exits non-zero:
          synthetic training layout (2 steps, a val split, a checkpoint),
          launches exact, then `infer --config configs/cvp_eval_dtu.yaml
          data.align=32 --step latest` from its checkpoint;
-then one JSON line listing the kernels (launches: per map, phase 4's run,
+then one JSON line listing the kernels (the 3xTF32 conv,
+conv3d_affine.tf32x3, as an entry of its own: times over 8a's 10 AACVP f32
+launches, launches per AACVP bf16 map, 8c; elsewhere launches: per map,
+phase 4's run,
 per train step for the backward kernel, phase 7c, per AACVP map for the
 group correlation, 8c; cli_launches: phase 6b's run, 7d's and 8d's;
 cvp_launches / cvp_cli_launches: CVP's per map, 8c, and through 8d;
@@ -191,13 +204,15 @@ from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask,
                                       PyramidTask, batch_to_device)
 from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.make_synthetic_dtu import generate
-from mvs_tpu_torch.utils.platform import resolve_device
+from mvs_tpu_torch.utils.platform import full_f32, resolve_device
 from mvs_tpu_torch.utils.synthetic import make_plane_scene
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
-# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores, TF32 tensor-core
+# FLOP/s (the f32 conv's 3xTF32 kernel does three TF32 products per f32 one).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12
 
 HEIGHT, WIDTH, VIEWS = 864, 1152, 5
 NDEPTHS = (48, 32, 8)
@@ -211,7 +226,9 @@ STAGES = ((1, 4, 4 * BASE), (2, 2, 2 * BASE), (3, 1, BASE))
 # roundings in the same order, so they sample the same corners with the same
 # weights; only the order of the blend and of the sums over 5 views differs,
 # a few f32 ulps.
-# f32 conv: 27*Cin products summed in another order.
+# f32 conv: 27*Cin products summed in another order; on the 3xTF32 kernel
+# each product is three TF32 products (within 2^-21 of it) summed by the
+# tensor cores in f32, 1e-6 to 6e-6 of the largest output on an H100.
 # bf16: both sum in f32 and round once to bf16; one rounding step near the
 # maximum is up to 2^-7 of it, allow two.
 # Warp backward (7a), f32: the recomputed samples and means round as the
@@ -222,8 +239,10 @@ STAGES = ((1, 4, 4 * BASE), (2, 2, 2 * BASE), (3, 1, BASE))
 # f32 and round once.
 # Group correlation (8a), f32: the same corners and weights as the plain
 # version; the kernel sums each channel over the views before the product
-# with ref, the plain version each view's group mean, a few f32 ulps of the
-# largest partial sums. bf16: both sum in f32 and round once.
+# with ref (and, where a group spans 16-byte chunks, adds the chunks' parts
+# in a tree across lanes), the plain version each view's group mean, a few
+# f32 ulps of the largest partial sums. bf16: both sum in f32 and round
+# once.
 TOL = {("warp", torch.float32): 1e-4, ("conv", torch.float32): 1e-4,
        ("warp_grad", torch.float32): 1e-4, ("group", torch.float32): 1e-4,
        ("warp", torch.bfloat16): 2.0 ** -6,
@@ -255,6 +274,7 @@ def reset_counts() -> None:
     fused_variance_volume_grad.depth_launches = 0
     conv3d_affine.launches = 0
     conv3d_affine.mma_launches = 0
+    conv3d_affine.tf32x3_launches = 0
     group_correlation_volume.launches = 0
     group_correlation_volume.vector_launches = 0
     group_correlation_volume_grad.launches = 0
@@ -269,6 +289,7 @@ def read_counts() -> dict:
                 fused_variance_volume_grad.depth_launches,
             "conv3d_affine": conv3d_affine.launches,
             "conv3d_affine.mma": conv3d_affine.mma_launches,
+            "conv3d_affine.tf32x3": conv3d_affine.tf32x3_launches,
             "group_correlation": group_correlation_volume.launches,
             "group_correlation.vector":
                 group_correlation_volume.vector_launches,
@@ -302,6 +323,17 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def map_ms(apply_fn, args, iters: int = 3) -> float:
+    """Host ms per call of a model's apply over `iters` synchronised calls
+    (after the caller's warm-up)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        apply_fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def compare(kind: str, got: torch.Tensor, want: torch.Tensor, what: str):
@@ -368,11 +400,21 @@ def warp_bound(b, v, d, h, w, c, itemsize):
 
 
 def conv_bound(b, d, h, w, cin, cout, dtype):
+    """(bytes, operations) least times of a conv: x read and y written once
+    in `dtype`, the f32 weights and affine read once; 2 * 27 * Cin * Cout
+    operations a voxel at `dtype`'s peak (f32: the CUDA cores')."""
     itemsize = torch.tensor([], dtype=dtype).element_size()
     vox = b * d * h * w
     nbytes = vox * (cin + cout) * itemsize + 27 * cin * cout * 4 + 8 * cout
     ops = 2 * 27 * cin * cout * vox
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
+
+
+def tf32x3_bound(b, d, h, w, cin, cout):
+    """Least time of an f32 conv's three TF32 products at the TF32
+    tensor-core rate: an f32 kernel on the tensor cores may run below the
+    f32 operation bound of conv_bound, not below this."""
+    return 3 * 2 * 27 * cin * cout * b * d * h * w / TF32_FLOPS * 1e3
 
 
 def ragged_volume_inputs(dtype, device, c=12):
@@ -448,37 +490,57 @@ def conv_shapes():
     return shapes
 
 
+def conv_variant(dtype, cin, cout):
+    """The kernel a conv should take: bf16 with Cin a multiple of 8 the
+    bf16 tensor-core kernel ("mma"), f32 with Cin in {4, 8, 16, 32} and
+    Cout a multiple of 8 or 1 the 3xTF32 one ("tf32x3"), the rest (f32 at
+    Cin = 64, Cin = 12) the direct one."""
+    if dtype is torch.bfloat16 and cin % 8 == 0:
+        return "mma"
+    if dtype is torch.float32 and cin in (4, 8, 16, 32) and (
+            cout % 8 == 0 or cout == 1):
+        return "tf32x3"
+    return "direct"
+
+
 def check_conv(g, device, b, d, h, w, cin, cout, relu, dtype, what=""):
     """conv3d_affine against its plain version on seeded inputs, on the
-    variant it should take: bf16 with Cin a multiple of 8 runs the
-    tensor-core kernel, f32 and other Cin the direct one. Returns (error,
-    inputs)."""
+    variant conv_variant names. Returns (error, inputs)."""
     x = torch.randn((b, d, h, w, cin), generator=g).to(device, dtype)
     wt = (torch.randn((cout, cin, 3, 3, 3), generator=g)
           / (27 * cin) ** 0.5).to(device)
     sc = (torch.rand(cout, generator=g) + 0.5).to(device)
     sh = (torch.randn(cout, generator=g) * 0.1).to(device)
-    mma = conv3d_affine.mma_launches
+    before = (conv3d_affine.launches, conv3d_affine.mma_launches,
+              conv3d_affine.tf32x3_launches)
     err = compare("conv", conv3d_affine(x, wt, sc, sh, relu),
                   conv3d_affine_plain(x, wt, sc, sh, relu),
                   f"{what}({cin},{cout}) B={b} {d}x{h}x{w} relu={relu} "
                   f"{str(dtype)[6:]}")
-    want = dtype is torch.bfloat16 and cin % 8 == 0
-    if conv3d_affine.mma_launches - mma != want:
-        fail(f"({cin},{cout}) {str(dtype)[6:]}: wrong kernel variant")
+    variant = conv_variant(dtype, cin, cout)
+    if (conv3d_affine.launches - before[0], conv3d_affine.mma_launches
+            - before[1], conv3d_affine.tf32x3_launches - before[2]) != (
+            1, variant == "mma", variant == "tf32x3"):
+        fail(f"({cin},{cout}) {str(dtype)[6:]}: not on the {variant} "
+             f"kernel")
     return err, (x, wt, sc, sh)
 
 
 def time_conv(err, x, wt, sc, sh, relu) -> dict:
-    """A bf16 conv's kernel, plain and library ms and its bounds. The
-    library yardstick: cuDNN's conv over the same channels-last view, the
-    affine folded into its weight and bias."""
-    wf = (wt * sc[:, None, None, None, None]).to(torch.bfloat16)
-    bias = sh.to(torch.bfloat16)
+    """A conv's kernel, plain and library ms and its bounds. The library
+    yardstick: cuDNN's conv over the same channels-last view, the affine
+    folded into its weight and bias, in x's dtype (f32: TF32 off, as the
+    plain version). A conv on the 3xTF32 kernel does its operations on
+    the TF32 tensor cores: its ops_ms is tf32x3_bound, and f32_ops_ms keeps
+    the f32 CUDA-core figure of conv_bound."""
+    dtype = x.dtype
+    wf = (wt * sc[:, None, None, None, None]).to(dtype)
+    bias = sh.to(dtype)
     xv = x.permute(0, 4, 1, 2, 3)
 
     def library():
-        y = F.conv3d(xv, wf, bias, padding=1)
+        with full_f32():
+            y = F.conv3d(xv, wf, bias, padding=1)
         return torch.relu_(y) if relu else y
 
     ms = cuda_ms(lambda: conv3d_affine(x, wt, sc, sh, relu))
@@ -486,22 +548,31 @@ def time_conv(err, x, wt, sc, sh, relu) -> dict:
                        iters=3, warmup=1)
     lib_ms = cuda_ms(library)
     _, d, h, w, cin = x.shape
-    by, ops = conv_bound(1, d, h, w, cin, wt.shape[0], torch.bfloat16)
+    by, ops = conv_bound(1, d, h, w, cin, wt.shape[0], dtype)
+    extra = ""
+    if conv_variant(dtype, cin, wt.shape[0]) == "tf32x3":
+        f32_ops, ops = ops, tf32x3_bound(1, d, h, w, cin, wt.shape[0])
+        extra = f" at the TF32 rate; f32 CUDA-core ops {f32_ops:.4f}"
+    row = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bytes_ms=by, ops_ms=ops)
+    if extra:
+        row["f32_ops_ms"] = f32_ops
     log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"{lib_ms:.4f} ms, bound {max(by, ops):.4f} ms (bytes {by:.4f}, "
-        f"ops {ops:.4f})")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bytes_ms=by, ops_ms=ops)
+        f"ops {ops:.4f}{extra})")
+    return row
 
 
 def phase_conv(device):
     log("phase 2b: conv3d_affine kernel vs plain")
     g = torch.Generator(device="cpu").manual_seed(3)
-    # Every (Cin, Cout) pair of the main path, and (12, 8) for the direct
-    # kernel in bf16, at sizes that are not multiples of the 8x16 (H x W)
-    # tile: batch 2, D = 1 and D = 2, and D = 11 over enough tiles that the
-    # z runs stay 8 planes long (8 + 3).
-    pairs = sorted({(ci, co) for ci, co, *_ in conv_shapes()} | {(12, 8)})
+    # Every (Cin, Cout) pair of the main path, (12, 8) for the direct
+    # kernel and AACVP's (4, 16) (f32: the 3xTF32 kernel, a k step across
+    # two taps; bf16: the direct kernel), at sizes that are not multiples
+    # of the 8x16 (H x W) tile: batch 2, D = 1 and D = 2, and D = 11 over
+    # enough tiles that the z runs stay 8 planes long (8 + 3).
+    pairs = sorted({(ci, co) for ci, co, *_ in conv_shapes()}
+                   | {(12, 8), (4, 16)})
     for i, (cin, cout) in enumerate(pairs):
         for dtype in (torch.float32, torch.bfloat16):
             for b, d, h, w in ((2, 5, 13, 37), (2, 1, 9, 17), (1, 2, 17, 33),
@@ -511,7 +582,7 @@ def phase_conv(device):
     rows = []
     for cin, cout, d, h, w, relu in conv_shapes():
         # f32 at the main path's sizes too: the direct kernel's grid-stride
-        # loop (over 4096 blocks) runs only at sizes this large.
+        # loop (over 4096 blocks, Cin = 64) runs only at sizes this large.
         check_conv(g, device, 1, d, h, w, cin, cout, relu, torch.float32)
         err, args = check_conv(g, device, 1, d, h, w, cin, cout, relu,
                                torch.bfloat16)
@@ -619,18 +690,15 @@ def phase_full_width(scene, device):
         torch.cuda.synchronize()
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        t0 = time.perf_counter()
-        iters = 3
-        for _ in range(iters):
-            apply_fn(*args)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / iters * 1e3
+        ms = map_ms(apply_fn, args)
         log(f"  {str(dtype)[6:]}: {ms:.2f} ms per depth map, peak "
             f"{peak:.3f} GiB allocated, launches {json.dumps(counts)}")
         want = {"warp_variance": 3, "warp_variance.vector": 3,
                 "warp_variance_grad": 0, "warp_variance_grad.depth": 0,
                 "conv3d_affine": 15,
                 "conv3d_affine.mma": 15 if dtype is torch.bfloat16 else 0,
+                # f32: all but the three Cin = 64 convs (direct kernel)
+                "conv3d_affine.tf32x3": 0 if dtype is torch.bfloat16 else 12,
                 **NO_GROUP}
         if counts != want:
             fail(f"main path launches {counts}, want {want}")
@@ -828,7 +896,7 @@ def phase_scan_from_disk(work: Path, device, apply_ms: float,
             "warp_variance.vector": 3 * batches, "warp_variance_grad": 0,
             "warp_variance_grad.depth": 0,
             "conv3d_affine": 15 * batches, "conv3d_affine.mma": 15 * batches,
-            **NO_GROUP}
+            "conv3d_affine.tf32x3": 0, **NO_GROUP}
     log(f"  launches {json.dumps(counts)} over {batches} batches")
     if counts != want:
         fail(f"cli infer launches {counts}, want {want}")
@@ -1050,8 +1118,8 @@ TRAIN_H, TRAIN_W, TRAIN_BATCH = 512, 640, 4
 TRAIN_STEPS, CURVE_STEPS = 8, 30
 TRAIN_LAUNCHES = {"warp_variance": 3, "warp_variance.vector": 3,
                   "warp_variance_grad": 3, "warp_variance_grad.depth": 0,
-                  "conv3d_affine": 0,
-                  "conv3d_affine.mma": 0, **NO_GROUP}
+                  "conv3d_affine": 0, "conv3d_affine.mma": 0,
+                  "conv3d_affine.tf32x3": 0, **NO_GROUP}
 # 7b, card against CPU, f32, TF32 off on both. The forward sums in another
 # order (cuDNN's convs, the kernels, the reductions of the batch moments):
 # loss to 1e-5 relative, the new statistics to 1e-4 of each vector's
@@ -1461,8 +1529,8 @@ def phase_cli_train(device):
         # batches of 3 warp and 15 conv launches (eval mode, bf16).
         want = {"warp_variance": 24, "warp_variance.vector": 24,
                 "warp_variance_grad": 12, "warp_variance_grad.depth": 0,
-                "conv3d_affine": 60,
-                "conv3d_affine.mma": 60, **NO_GROUP}
+                "conv3d_affine": 60, "conv3d_affine.mma": 60,
+                "conv3d_affine.tf32x3": 0, **NO_GROUP}
         log(f"  {result['step']} steps, losses "
             + " ".join(f"{x:.4f}" for x in result["losses"])
             + f", {result['step'] * 2 / result['seconds']:.3f} samples/s "
@@ -1513,27 +1581,32 @@ CVP_H, CVP_W, CVP_LEVELS, CVP_C, CVP_GROUPS = 1184, 1600, 5, 16, 4
 CVP_COARSE_D, CVP_FINE_D, CVP_BASE = 48, 8, 16
 CVP_RANGE = (8.0, 12.0)  # the depth range given to the plane scenes (z0 10)
 CVP_NAMES = ("cvp_mvsnet", "aacvp_mvsnet")
-# Launches per depth map, batch 1, by kernel variant. Every level runs one
+# Launches per depth map, batch 1, by kernel variant (warp, .vector,
+# conv3d, .mma, .tf32x3, group correlation, .vector). Every level runs one
 # cost volume and 9 stride-1 convs (7 blocks, the stride-1 transposed block,
 # the score conv). AACVP's attention adds f32 position embeddings to its
 # keys (as mvs_tpu does), so its features and cost volume are f32 in a bf16
-# model and its first two blocks run the direct conv kernel in f32; the
-# blocks after the stride-2 block (cast to bf16) take the tensor cores.
+# model and its first two blocks, (4, 16) and (16, 16), run the 3xTF32
+# conv kernel; the blocks after the stride-2 block (cast to bf16) take the
+# bf16 tensor cores. In f32 the 6 convs of a level with Cin in {16, 32}
+# (AACVP's first: 4) take the 3xTF32 kernel, the 3 with Cin = 64 the
+# direct one.
 CVP_LAUNCHES = {
-    ("cvp_mvsnet", torch.bfloat16): (5, 5, 45, 45, 0, 0),
-    ("cvp_mvsnet", torch.float32): (5, 5, 45, 0, 0, 0),
-    ("aacvp_mvsnet", torch.bfloat16): (0, 0, 45, 35, 5, 5),
-    ("aacvp_mvsnet", torch.float32): (0, 0, 45, 0, 5, 5),
+    ("cvp_mvsnet", torch.bfloat16): (5, 5, 45, 45, 0, 0, 0),
+    ("cvp_mvsnet", torch.float32): (5, 5, 45, 0, 30, 0, 0),
+    ("aacvp_mvsnet", torch.bfloat16): (0, 0, 45, 35, 10, 5, 5),
+    ("aacvp_mvsnet", torch.float32): (0, 0, 45, 0, 30, 5, 5),
 }
 CVP_SCAN_VIEWS = 6
 
 
 def cvp_want(name, dtype, maps=1) -> dict:
-    warp, vec, conv, mma, group, gvec = CVP_LAUNCHES[(name, dtype)]
+    warp, vec, conv, mma, tf32, group, gvec = CVP_LAUNCHES[(name, dtype)]
     return {"warp_variance": maps * warp, "warp_variance.vector": maps * vec,
             "warp_variance_grad": 0, "warp_variance_grad.depth": 0,
             "conv3d_affine": maps * conv,
             "conv3d_affine.mma": maps * mma,
+            "conv3d_affine.tf32x3": maps * tf32,
             "group_correlation": maps * group,
             "group_correlation.vector": maps * gvec,
             "group_correlation_grad": 0, "group_correlation_grad.depth": 0}
@@ -1632,6 +1705,23 @@ def phase_cvp_kernels(scene, device):
         one = (*args[:3], args[3][:, 3:4].contiguous())
         check_group(one, 3, False, f"group_correlation D=1 C=12 G=3 "
                     f"{str(dtype)[6:]}")
+        # The 16-byte variant's other group layouts: groups across chunks
+        # (C = 24, G = 2: Cg = 12) and several groups per chunk (C = 16,
+        # G = 8: Cg = 2).
+        for c, groups in ((24, 2), (16, 8)):
+            args = ragged_volume_inputs(dtype, device, c=c)
+            check_group(args, groups, True, f"group_correlation off-image/"
+                        f"behind-camera C={c} G={groups} {str(dtype)[6:]}")
+        # Wide features: the lane kernel takes at most 32 16-byte chunks
+        # (bf16 C = 160: 32 lanes a pixel, 12 of them idle); above that
+        # (f32 C = 160, C = 264) the scalar variant runs.
+        for c in (160, 264):
+            args = ragged_volume_inputs(dtype, device, c=c)
+            vector = c * args[0].element_size() <= 32 * 16
+            check_group(args, 4, vector, f"group_correlation off-image/"
+                        f"behind-camera C={c} G=4 {str(dtype)[6:]} "
+                        f"({'vector' if vector else 'scalar'})")
+    tf32_rows = aacvp_f32_convs(device)
 
     # The warp-variance and conv3d kernels at CVP's coarsest and finest
     # levels (bf16, the CVP main path's type, timed; f32 checked).
@@ -1661,7 +1751,31 @@ def phase_cvp_kernels(scene, device):
                      for ci, co in half]
                   + [(b, 1, d, h, w, False)])
         cvp_conv_checks(shapes, level, device)
-    return group_rows
+    return group_rows, tf32_rows
+
+
+def aacvp_f32_convs(device):
+    """AACVP's two f32 blocks, (4, 16) and (16, 16), at every level of a
+    bf16 map (its attention features are f32): each against its plain
+    version on the 3xTF32 kernel, timed (kernel, plain, cuDNN f32 with TF32
+    off, the bounds), and their sum over the map's 10 launches."""
+    g = torch.Generator(device="cpu").manual_seed(17)
+    rows = []
+    for level, d, h, w in cvp_levels():
+        for cin in (CVP_GROUPS, CVP_BASE):
+            err, args = check_conv(g, device, 1, d, h, w, cin, CVP_BASE,
+                                   True, torch.float32,
+                                   f"AACVP f32 conv3d level{level} ")
+            rows.append(time_conv(err, *args, True))
+    log(f"  AACVP's {len(rows)} f32 convs of a map: kernel "
+        f"{sum(r['ms'] for r in rows):.4f} ms, plain "
+        f"{sum(r['plain_ms'] for r in rows):.4f} ms, cuDNN f32 "
+        f"{sum(r['library_ms'] for r in rows):.4f} ms; bound "
+        f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in rows):.4f} ms "
+        f"(3xTF32 ops {sum(r['ops_ms'] for r in rows):.4f} ms, bytes "
+        f"{sum(r['bytes_ms'] for r in rows):.4f} ms; f32 CUDA-core ops "
+        f"{sum(r['f32_ops_ms'] for r in rows):.4f} ms)")
+    return rows
 
 
 def cvp_conv_checks(shapes, level, device):
@@ -1888,11 +2002,7 @@ def phase_cvp_full_width(scene, device):
             torch.cuda.synchronize()
             counts = read_counts()
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            t0 = time.perf_counter()
-            for _ in range(3):
-                apply_fn(*args)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) / 3 * 1e3
+            ms = map_ms(apply_fn, args)
             log(f"  {name} {str(dtype)[6:]}: {ms:.2f} ms per depth map, "
                 f"peak {peak:.3f} GiB allocated, launches "
                 f"{json.dumps(counts)}")
@@ -1984,11 +2094,11 @@ def phase_cvp_from_disk(device, work: Path):
 def phase_cvp(device, work: Path):
     scene = make_plane_scene(num_views=VIEWS, height=CVP_H, width=CVP_W,
                              z0=10.0)
-    group_rows = phase_cvp_kernels(scene, device)
+    group_rows, tf32_rows = phase_cvp_kernels(scene, device)
     phase_cvp_vs_cpu(device)
     full = phase_cvp_full_width(scene, device)
     cli, root = phase_cvp_from_disk(device, work)
-    return group_rows, full, cli, root
+    return group_rows, tf32_rows, full, cli, root
 
 
 # Phase 9. MVSNet at its own widths (32 feature channels, regularizer base
@@ -2002,22 +2112,25 @@ MVS_CONFIG = CVP_CONFIG.parent / "cas_eval_dtu.yaml"
 MVS_TRAIN_CONFIG = CVP_CONFIG.parent / "cas_train_dtu.yaml"
 MVS_H, MVS_W, MVS_C, MVS_TRAIN_VIEWS = 1184, 1600, 4 * BASE, 3
 MVS_SIZE = ["data.max_h=1200", "data.max_w=1600"]
-# Launches by kernel variant (warp, .vector, warp backward, conv3d, .mma)
-# per map: one cost volume and the U-Net's 5 stride-1 convs (4 blocks and
-# the score conv); per train step: the cost volume's forward and backward
+# Launches by kernel variant (warp, .vector, warp backward, conv3d, .mma,
+# .tf32x3) per map: one cost volume and the U-Net's 5 stride-1 convs (4
+# blocks and the score conv; in f32 all but the Cin = 64 block on the
+# 3xTF32 kernel); per train step: the cost volume's forward and backward
 # kernels, no conv3d (train-mode convs are cuDNN's).
-MVS_LAUNCHES = {torch.bfloat16: (1, 1, 0, 5, 5),
-                torch.float32: (1, 1, 0, 5, 0), "train": (1, 1, 1, 0, 0)}
+MVS_LAUNCHES = {torch.bfloat16: (1, 1, 0, 5, 5, 0),
+                torch.float32: (1, 1, 0, 5, 0, 4),
+                "train": (1, 1, 1, 0, 0, 0)}
 MVS_SCORE_BIAS = ("UNetCostRegNet_0.FoldedConv_0.bias",)
 
 
 def mvs_want(key, times=1) -> dict:
-    warp, vec, grad, conv, mma = MVS_LAUNCHES[key]
+    warp, vec, grad, conv, mma, tf32 = MVS_LAUNCHES[key]
     return {"warp_variance": times * warp,
             "warp_variance.vector": times * vec,
             "warp_variance_grad": times * grad, "warp_variance_grad.depth": 0,
             "conv3d_affine": times * conv,
-            "conv3d_affine.mma": times * mma, **NO_GROUP}
+            "conv3d_affine.mma": times * mma,
+            "conv3d_affine.tf32x3": times * tf32, **NO_GROUP}
 
 
 def mvs_config(dtype, *overrides, config=MVS_CONFIG):
@@ -2163,11 +2276,7 @@ def phase_mvsnet_full_width(device) -> dict:
         torch.cuda.synchronize()
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        t0 = time.perf_counter()
-        for _ in range(3):
-            apply_fn(*args)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / 3 * 1e3
+        ms = map_ms(apply_fn, args)
         log(f"  {str(dtype)[6:]}: {ms:.2f} ms per depth map, peak "
             f"{peak:.3f} GiB allocated, launches {json.dumps(counts)}")
         if counts != mvs_want(dtype):
@@ -2340,8 +2449,9 @@ CVP_TRAIN_CONFIG = CVP_CONFIG.parent / "cvp_train_dtu.yaml"
 CVP_TRAIN_VIEWS, CVP_TRAIN_LEVELS = 3, 2
 CVP_TRAIN_SCORE_BIAS = ("PyramidCostRegNet_0.FoldedConv_0.bias",)
 # The regularizer's stride-1 convs per level in eval mode (7 blocks, the
-# stride-1 transposed block, the score conv).
-CVP_CONVS_PER_LEVEL = 9
+# stride-1 transposed block, the score conv); in f32, those with Cin in
+# {4, 16, 32} on the 3xTF32 kernel.
+CVP_CONVS_PER_LEVEL, CVP_TF32_CONVS_PER_LEVEL = 9, 6
 
 
 def pyramid_want(name, steps=0, val_batches=0, levels=CVP_TRAIN_LEVELS):
@@ -2359,6 +2469,8 @@ def pyramid_want(name, steps=0, val_batches=0, levels=CVP_TRAIN_LEVELS):
     want[grad] = levels * steps
     want[grad + ".depth"] = (levels - 1) * steps
     want["conv3d_affine"] = CVP_CONVS_PER_LEVEL * levels * val_batches
+    want["conv3d_affine.tf32x3"] = (CVP_TF32_CONVS_PER_LEVEL * levels
+                                    * val_batches)
     return want
 
 
@@ -2752,11 +2864,81 @@ def phase_cvp_training(device, work: Path, warp_grad_rows) -> dict:
     return dict(rows=rows, train={k: v[0] for k, v in full.items()}, cli=cli)
 
 
+# ---- Measurements for chip_ab.py ----
+# Each takes the device and returns {label: ms}. chip_ab.py also runs them
+# on another checkout's mvs_tpu_torch (this file, that package), so they
+# call only entry points that package has, and no counters.
+
+
+def ab_group_levels(device) -> dict:
+    """The group-correlation forward at each AACVP level (8a's inputs), f32
+    and bf16: device ms per launch."""
+    scene = make_plane_scene(num_views=VIEWS, height=CVP_H, width=CVP_W,
+                             z0=10.0)
+    rows = {}
+    for level, d, h, w in cvp_levels():
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cvp_volume_inputs(scene, level, d, dtype, device,
+                                     seed=level)
+            rows[f"8a group correlation level {level} {str(dtype)[6:]}"] = \
+                cuda_ms(lambda: group_correlation_volume(*args, CVP_GROUPS))
+    return rows
+
+
+def ab_aacvp_f32_convs(device) -> dict:
+    """AACVP's 10 f32 convs of a map, (4, 16) and (16, 16) at every level:
+    device ms summed over the launches."""
+    g = torch.Generator().manual_seed(17)
+    total = 0.0
+    for level, d, h, w in cvp_levels():
+        for cin in (CVP_GROUPS, CVP_BASE):
+            x = torch.randn((1, d, h, w, cin), generator=g).to(device)
+            wt = (torch.randn((CVP_BASE, cin, 3, 3, 3), generator=g)
+                  / (27 * cin) ** 0.5).to(device)
+            sc = (torch.rand(CVP_BASE, generator=g) + 0.5).to(device)
+            sh = (torch.randn(CVP_BASE, generator=g) * 0.1).to(device)
+            total += cuda_ms(lambda: conv3d_affine(x, wt, sc, sh, True))
+    return {"8a AACVP's 10 f32 convs (kernel ms, summed)": total}
+
+
+def ab_pyramid_maps(device) -> dict:
+    """Host ms per depth map of CVP-MVSNet and AACVP-MVSNet in bf16 and f32
+    (8c's inputs: 1600x1184, 5 levels), after a warm-up."""
+    scene = make_plane_scene(num_views=VIEWS, height=CVP_H, width=CVP_W,
+                             z0=10.0)
+    args = stack_model_inputs([cvp_sample(scene)], device, "pyramid")
+    rows = {}
+    for name in CVP_NAMES:
+        for dtype in (torch.bfloat16, torch.float32):
+            model = build_model(cvp_config(name, dtype),
+                                torch.Generator().manual_seed(0))
+            apply_fn = make_apply_fn(model, device)
+            apply_fn(*args)
+            rows[f"8c {name} {str(dtype)[6:]} ms per map"] = map_ms(
+                apply_fn, args)
+            del model, apply_fn
+    return rows
+
+
+def ab_cas_f32_map(device) -> dict:
+    """Host ms per f32 CasMVSNet depth map (phase 4's inputs), after a
+    warm-up."""
+    scene = make_plane_scene(num_views=VIEWS, height=HEIGHT, width=WIDTH,
+                             z0=10.0)
+    model = CasMVSNet(BASE, NDEPTHS, compute_dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(0))
+    apply_fn = make_apply_fn(model, device)
+    args = model_inputs(scene, 1, device)
+    apply_fn(*args)
+    return {"4 cas_mvsnet float32 ms per map": map_ms(apply_fn, args)}
+
+
 def kernel_entry(name, source, replaces, rows, launches, cli_launches,
                  library, **extra):
     """Times and bounds are sums over one bf16 map's launches (phase 2; 7a
     for the backward: one train step's three; 8a for the group correlation:
-    an AACVP map's five, f32 as its bf16 model feeds them; 10a for its
+    an AACVP map's five, f32 as its bf16 model feeds them, and for the
+    3xTF32 conv: its ten f32 launches; 10a for the group correlation's
     backward: one AACVP train step's two, f32); launches are per map (phase
     4, 8c) or per train step (7c, 10c), cli_launches over phase 6b's 11
     maps, 7d's cli train run, 8d's 6 maps or 10d's AACVP cli train run."""
@@ -2813,7 +2995,7 @@ def main() -> int:
     del scene
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
-        group_rows, cvp_full, cvp_cli, scan_root = timed(
+        group_rows, tf32_rows, cvp_full, cvp_cli, scan_root = timed(
             8, phase_cvp(device, work))
         mvs = timed(9, phase_mvsnet(device, scan_root, work))
         pyr = timed(10, phase_cvp_training(device, work, grad_rows))
@@ -2865,6 +3047,26 @@ def main() -> int:
                      mvsnet_launches=mvs_map["conv3d_affine"],
                      mvsnet_cli_launches=mvs["cli"]["conv3d_affine"],
                      **pyramid_training("conv3d_affine")),
+        # The f32 variant of the same implicit GEMM (3xTF32): times over
+        # AACVP's 10 f32 launches of a bf16 map (8a), library cuDNN f32 with
+        # TF32 off; bound_ms is the larger of the bytes' time and the three
+        # TF32 products' at the tensor-core rate, launch by launch;
+        # f32_cuda_core_bound_ms the same with the f32 work at the CUDA
+        # cores' rate. launches: per AACVP bf16 map (8c); cli_launches: 8d's
+        # AACVP run.
+        kernel_entry("conv3d_affine.tf32x3",
+                     "mvs_tpu_torch/csrc/conv3d_affine.cu",
+                     "mvs_tpu/ops/conv3d_pallas.py:259", tf32_rows,
+                     aacvp["conv3d_affine.tf32x3"],
+                     cvp_cli["aacvp_mvsnet"]["conv3d_affine.tf32x3"],
+                     library=True,
+                     f32_cuda_core_bound_ms=sum(
+                         max(r["bytes_ms"], r["f32_ops_ms"])
+                         for r in tf32_rows),
+                     bytes_bound_ms=sum(r["bytes_ms"] for r in tf32_rows),
+                     mvsnet_f32_launches=mvs["full"][torch.float32][0][
+                         "conv3d_affine.tf32x3"],
+                     **pyramid_training("conv3d_affine.tf32x3")),
         # The backward has no Pallas counterpart (JAX trains through XLA's
         # gather path); it is the gradient of the kernel above. launches:
         # per train step (7c); cli_launches: 7d's cli train run.

@@ -12,51 +12,86 @@
 // w[tap*Cin + i, o] + shift[o]) with f32 sums, the affine and ReLU on the f32
 // sum, and one rounding to the output type.
 //
-// What bounds it on the card: bytes. At the cost-regularization widths the
-// GEMM view (M = voxels, N = Cout, K = 27*Cin) does 108-173 flop per byte of
-// input and output at (8,8)-(32,8), under the H100's bf16 ridge of ~295, and
-// the wider blocks run at 1/2-1/8 resolution, where the work is small. So the
-// aim is to read each input plane from device memory about once and keep the
-// tensor cores fed from shared memory.
+// What bounds it on the card: in bf16, bytes. At the cost-regularization
+// widths the GEMM view (M = voxels, N = Cout, K = 27*Cin) does 108-173 flop
+// per byte of input and output at (8,8)-(32,8), under the H100's bf16 ridge
+// of ~295, and the wider blocks run at 1/2-1/8 resolution, where the work is
+// small. So the aim is to read each input plane from device memory about
+// once and keep the tensor cores fed from shared memory. In f32 the same
+// convs are bound by operations on the CUDA cores (67 TFLOP/s: AACVP's (4,
+// 16) and (16, 16) blocks do 4.2x more work than their bytes take), which is
+// why the f32 path moves to the tensor cores too.
 //
-// conv3d_mma_kernel (bf16, Cin in {8, 16, 32, 64}, Cout a multiple of 8 or 1):
-// an implicit GEMM on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// sums). mma.sync rather than wgmma: the N of these layers is 8-32, far below
-// wgmma's 64-row M by a useful N, and the kernel is bound by memory, not by
-// the MMA rate. A CTA owns an 8x16 (H x W) output tile and a run of up to 8
-// z planes, and marches along z with a ring of four (8+2)x(16+2)xCin halo
-// planes in shared memory, filled by 16-byte cp.async with zero fill at the
-// volume's border (the SAME padding costs nothing). Plane z+2 is copied while
-// plane z's 27 taps run on the tensor cores, and each input plane is read once
-// per CTA instead of three times. Octets (8 channels, 16 bytes) of a halo
-// pixel are XOR-swizzled by the pixel index so that ldmatrix, which gathers
-// one 16-byte row per (output voxel, tap, octet) straight from the halo, is
-// free of bank conflicts at every Cin. K runs tap-major, channel-minor; at
-// Cin = 8 one k16 step spans two taps, and the 28th (padding) tap reads a
-// zero row. The weights are packed once, (Kpad, Npad) bf16 with zero padding
-// (pack_conv3d_taps in mvs_tpu_torch/ops/conv3d.py), and each CTA stages an
-// N slice of 8-32 columns, sized so that K x N stays within 56 KB (Cout is
-// split over blockIdx.z for the 64-channel blocks). Each of the 4 warps
-// computes 2 tile rows (two m16 tiles) by the CTA's N slice. The epilogue
-// applies the affine and ReLU in f32, rounds once to bf16, gathers a voxel's 8
-// channels in one lane by quad shuffles and stores them as one 16-byte store;
-// the 1-channel score conv (N padded to 8) stores channel 0 only.
+// conv3d_mma_kernel: an implicit GEMM on the tensor cores with mma.sync.
+// mma.sync rather than wgmma: the N of these layers is 8-32, far below
+// wgmma's 64-row M by a useful N. A CTA owns an 8x16 (H x W) output tile and
+// a run of up to 8 z planes, and marches along z with a ring of four
+// (8+2)x(16+2)xCin halo planes in shared memory, filled by 16-byte cp.async
+// with zero fill at the volume's border (the SAME padding costs nothing).
+// Plane z+2 is copied while plane z's 27 taps run on the tensor cores, and
+// each input plane is read once per CTA instead of three times. The 16-byte
+// chunks of a halo pixel are XOR-swizzled by the pixel index so that
+// ldmatrix, which gathers one 16-byte row per (output voxel, tap, chunk)
+// straight from the halo, is free of bank conflicts at every Cin. K runs
+// tap-major, channel-minor; a k step is two chunks, and where it spans two
+// taps (one chunk a pixel) the 28th (padding) tap reads a zero row. Each CTA
+// stages an N slice of 8-32 columns of the weights, packed once per weight
+// tensor (mvs_tpu_torch/ops/conv3d.py), sized so that K x N stays within 56
+// KB (Cout is split over blockIdx.z for the wide blocks). Each of the 4
+// warps computes 2 tile rows (two m16 tiles) by the CTA's N slice. The
+// epilogue applies the affine and ReLU in f32 and rounds once to the output
+// type; the 1-channel score conv (N padded to 8) stores channel 0 only. Two
+// element types:
+//   * bf16 (Cin in {8, 16, 32, 64}, Cout a multiple of 8 or 1): m16n8k16,
+//     bf16 in, f32 sums; a chunk is 8 channels, B is read by ldmatrix.trans
+//     from (Kpad, Npad) bf16 (pack_conv3d_taps); a voxel's 8 channels are
+//     gathered in one lane by quad shuffles and stored as one 16-byte store.
+//   * f32 (Cin in {4, 8, 16, 32}, Cout a multiple of 8 or 1), "3xTF32":
+//     m16n8k8 on TF32, a chunk is 4 channels. ldmatrix of an 8x8 b16 matrix
+//     gives 8 rows of four 32-bit values, which is the TF32 A fragment as it
+//     is. One TF32 product keeps 11 bits of each factor: on AACVP's shapes
+//     it misses the f32 result by 3e-4 of the largest output, over the 1e-4
+//     that the f32 path is held to. So each value is split, x = x_big +
+//     x_small and w = w_big + w_small, each part rounded to TF32 (ties away,
+//     as cvt.rna), and the sum takes x_small w_big + x_big w_small + x_big
+//     w_big on the tensor cores in f32; what is dropped (x_small w_small, the
+//     parts' roundings) is below 2^-21 of the product. The weights come split
+//     and in B-fragment order, (Npad / 8, Kpad / 8, 32 lanes, 4) f32
+//     (pack_conv3d_tf32x3): one 16-byte shared load gives a lane both parts
+//     of its fragment. x is split in registers after ldmatrix (a few integer
+//     and one float op per value, beside three MMAs per A fragment and n8
+//     tile): the halo ring then stays one f32 plane per z (11.5 KB at Cin =
+//     16), so two CTAs fit an SM. The epilogue stores a lane's two channels
+//     of a column as one 8-byte store; a quad's four fill one 32-byte sector.
+//     Cin = 64 does not fit: its f32 halo ring takes 4 x 46 KB and one n8
+//     tile of its split weights 110 KB, so those convs (only the f32 maps of
+//     CasMVSNet, MVSNet and CVP / AACVP run them) stay on the direct kernel.
+//     Measured on one H100 80GB HBM3 at 700 W (chip_smoke.py phase 8a),
+//     AACVP's 10 f32 launches of a bf16 map take 6.08 ms, against 45.8 ms
+//     on the direct kernel, 36.5 ms for cuDNN's f32 conv (TF32 off) and a
+//     bound of 2.21 ms (launch by launch the larger of the three TF32
+//     products at the tensor-core rate and the bytes; the same f32 work on
+//     the CUDA cores would need 5.28). Its largest launch, (16, 16) at
+//     8 x 1184 x 1600, takes 3.35 ms; without the split of x (wrong
+//     results, for timing) 2.76, as one TF32 product 2.05.
 //
-// conv3d_direct_kernel (f32, and bf16 with Cin not a multiple of 8): the direct
+// conv3d_direct_kernel (what the tensor-core kernels do not take: f32 with
+// Cin outside {4, 8, 16, 32}, bf16 with Cin not a multiple of 8): the direct
 // form on the CUDA cores. One thread computes one voxel for a block of kCob
 // output channels from a (27, Cin, kCob) f32 weight slice in shared memory.
-// TF32 would break the f32 tolerance, and f32 is not the serving type.
 //
 // C interface (loaded with ctypes, see mvs_tpu_torch/ops/conv3d.py); every
 // pointer is a device pointer to contiguous memory,
 //   x      (B, D, H, W, Cin)   T
 //   w      (Kpad, ldw)         T, rows tap*Cin + i with tap = (dz*3+dy)*3+dx,
-//                              zero past 27*Cin rows and Cout columns
+//                              zero past 27*Cin rows and Cout columns; for
+//                              the 3xTF32 entry the split fragments above
 //   scale  (Cout,)             f32
 //   shift  (Cout,)             f32
 //   y      (B, D, H, W, Cout)  T
-// with T = float (dtype 0) or __nv_bfloat16 (dtype 1; the only type of the
-// MMA entry). Each entry launches on `stream` and returns cudaGetLastError().
+// with T = float (dtype 0) or __nv_bfloat16 (dtype 1) for the direct entry,
+// bf16 for mvs_conv3d_mma and f32 for mvs_conv3d_tf32x3; ldw is the padded
+// Cout. Each entry launches on `stream` and returns cudaGetLastError().
 
 #include "mvs_common.cuh"
 
@@ -178,7 +213,7 @@ int launch_direct(const void* x, const void* w, const void* scale,
 }
 
 // --------------------------------------------------------------------------
-// Tensor-core implicit GEMM.
+// Tensor-core implicit GEMM: bf16 on m16n8k16, f32 as 3xTF32 on m16n8k8.
 
 constexpr int kTH = 8;                    // output tile rows (H)
 constexpr int kTW = 16;                   // output tile columns (W): one m16
@@ -189,66 +224,83 @@ constexpr int kRing = 4;                  // halo planes: 3 in use, 1 in flight
 constexpr int kMaxZRun = 8;               // z planes per CTA at most
 constexpr int kWeightBytes = 56 * 1024;   // K x N-slice budget in shared
 
-template <int kCin>
+// What the element type changes. A k step is two 16-byte chunks of a halo
+// pixel: 16 bf16 channels for m16n8k16, 8 f32 channels for m16n8k8 (TF32).
+// B takes, per (n8 tile, k step), 16 k rows of 8 bf16 (read by
+// ldmatrix.trans) or, for f32, 32 lanes' fragments (b0, b1) of the big and
+// the small weights (one 16-byte load per lane).
+template <typename T>
+struct Gemm {
+  static constexpr int kChunkCh = 16 / sizeof(T);  // channels per chunk
+  static constexpr int kStepBytes = sizeof(T) == 2 ? 256 : 512;
+};
+
+// A halo pixel of kChunks 16-byte chunks.
+template <int kChunks>
 struct Halo {
-  static constexpr int kOct = kCin / 8;  // 16-byte octets per pixel
-  static constexpr int kPixBytes = kCin * 2;
+  static constexpr int kPixBytes = kChunks * 16;
   static constexpr int kPlaneBytes =
       (kHaloPix * kPixBytes + 127) / 128 * 128;
-  // Octet o of pixel p sits at o ^ ((p >> kShift) & (kOct - 1)): 8
-  // consecutive pixels at one octet then fall in 8 distinct 16-byte bank
+  // Chunk o of pixel p sits at o ^ ((p >> kShift) & (kChunks - 1)): 8
+  // consecutive pixels at one chunk then fall in 8 distinct 16-byte bank
   // groups (the rows of one ldmatrix phase).
   static constexpr int kShift =
-      kOct == 1 ? 3 : kOct == 2 ? 2 : kOct == 4 ? 1 : 0;
+      kChunks == 1 ? 3 : kChunks == 2 ? 2 : kChunks == 4 ? 1 : 0;
   static __device__ __forceinline__ int offset(int p, int o) {
-    return p * kPixBytes + ((o ^ ((p >> kShift) & (kOct - 1))) << 4);
+    return p * kPixBytes + ((o ^ ((p >> kShift) & (kChunks - 1))) << 4);
   }
 };
 
-template <int kCin>
+template <typename T, int kCin>
 __host__ __device__ constexpr int k_steps() {
-  return (27 * (kCin / 8) + 1) / 2;
+  return (27 * (kCin / Gemm<T>::kChunkCh) + 1) / 2;
 }
 
-template <int kCin, int kNs>
+// B bytes of one n8 tile over every k step.
+template <typename T, int kCin>
+__host__ __device__ constexpr int tile_bytes() {
+  return k_steps<T, kCin>() * Gemm<T>::kStepBytes;
+}
+
+template <typename T, int kCin, int kNs>
 __host__ __device__ constexpr int mma_smem_bytes() {
-  return kRing * Halo<kCin>::kPlaneBytes + (kNs / 8) * k_steps<kCin>() * 256 +
-         16;
+  return kRing * Halo<kCin / Gemm<T>::kChunkCh>::kPlaneBytes +
+         (kNs / 8) * tile_bytes<T, kCin>() + 16;
 }
 
 // Shared-memory address of the 16-byte A row this lane hands to ldmatrix at
-// k-octet q (tap q / kOct, octet q % kOct), for output column `col` of tile
-// row r. q is a compile-time constant once the k loop is unrolled.
-template <int kCin>
+// k-chunk q (tap q / kChunks, chunk q % kChunks), for output column `col` of
+// tile row r. q is a compile-time constant once the k loop is unrolled.
+template <int kChunks>
 __device__ __forceinline__ uint32_t a_row(const uint32_t* plane,
                                           uint32_t zero, int q, int r,
                                           int col) {
-  constexpr int kOct = kCin / 8;
-  const int tap = q / kOct;
+  const int tap = q / kChunks;
   if (tap >= 27) return zero;
   const int dz = tap / 9, dy = (tap / 3) % 3, dx = tap % 3;
   const int p = (r + dy) * kHaloW + col + dx;
-  return plane[dz] + Halo<kCin>::offset(p, q % kOct);
+  return plane[dz] + Halo<kChunks>::offset(p, q % kChunks);
 }
 
-template <int kCin, int kNs>
+template <typename T, int kCin, int kNs>
 __global__ void __launch_bounds__(kMmaThreads)
-conv3d_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ w,
+conv3d_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const float* __restrict__ scale,
-                  const float* __restrict__ shift,
-                  __nv_bfloat16* __restrict__ y, int D, int H, int W,
-                  int Cout, int ldw, int relu, int zrun, int nzrun, int nns) {
-  using L = Halo<kCin>;
-  constexpr int kOct = L::kOct;
-  constexpr int kSteps = k_steps<kCin>();
-  constexpr int kKpad = kSteps * 16;
-  constexpr int kNt = kNs / 8;  // n8 tiles of this CTA's N slice
+                  const float* __restrict__ shift, T* __restrict__ y, int D,
+                  int H, int W, int Cout, int ldw, int relu, int zrun,
+                  int nzrun, int nns) {
+  constexpr bool kTf32 = std::is_same<T, float>::value;
+  constexpr int kChunks = kCin / Gemm<T>::kChunkCh;
+  using L = Halo<kChunks>;
+  constexpr int kSteps = k_steps<T, kCin>();
+  constexpr int kTile = tile_bytes<T, kCin>();
+  constexpr int kKpad = kSteps * 16;  // bf16 k rows
+  constexpr int kNt = kNs / 8;        // n8 tiles of this CTA's N slice
 
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
-  unsigned char* wsm = smem + kRing * L::kPlaneBytes;  // [kNt][kKpad][8] bf16
-  unsigned char* zero = wsm + kNt * kKpad * 16;        // one zero A row
+  unsigned char* wsm = smem + kRing * L::kPlaneBytes;  // [kNt][kTile]
+  unsigned char* zero = wsm + kNt * kTile;              // one zero A row
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int w0 = blockIdx.x * kTW, h0 = blockIdx.y * kTH;
@@ -259,12 +311,20 @@ conv3d_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int z0 = zi * zrun;
   const int nz = min(zrun, D - z0);
 
-  // The CTA's weight slice, n8 tile by n8 tile: 16-byte rows, so that
-  // ldmatrix.trans reads 8 consecutive k rows without bank conflicts.
-  for (int i = tid; i < kKpad * kNt; i += kMmaThreads) {
-    const int nt = i % kNt, k = i / kNt;
-    mvs::cp_async16(mvs::smem_u32(wsm + (nt * kKpad + k) * 16),
-                    w + (int64_t)k * ldw + co0 + nt * 8, 16);
+  if constexpr (kTf32) {
+    // Packed in fragment order (pack_conv3d_tf32x3): the slice is one run.
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(w) + (size_t)(co0 / 8) * kTile;
+    for (int i = tid; i < kNt * kTile / 16; i += kMmaThreads)
+      mvs::cp_async16(mvs::smem_u32(wsm + i * 16), src + i * 16, 16);
+  } else {
+    // n8 tile by n8 tile: 16-byte rows, so that ldmatrix.trans reads 8
+    // consecutive k rows without bank conflicts.
+    for (int i = tid; i < kKpad * kNt; i += kMmaThreads) {
+      const int nt = i % kNt, k = i / kNt;
+      mvs::cp_async16(mvs::smem_u32(wsm + (nt * kKpad + k) * 16),
+                      w + (int64_t)k * ldw + co0 + nt * 8, 16);
+    }
   }
   if (tid == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0, 0, 0, 0);
 
@@ -274,13 +334,13 @@ conv3d_mma_kernel(const __nv_bfloat16* __restrict__ x,
     const bool zok = z >= 0 && z < D;
     unsigned char* dst = ring + (iz % kRing) * L::kPlaneBytes;
     const int64_t zrow = ((int64_t)b * D + (zok ? z : 0)) * H;
-    for (int i = tid; i < kHaloPix * kOct; i += kMmaThreads) {
-      const int p = i / kOct, o = i % kOct;
+    for (int i = tid; i < kHaloPix * kChunks; i += kMmaThreads) {
+      const int p = i / kChunks, o = i % kChunks;
       const int hr = p / kHaloW, hc = p - hr * kHaloW;
       const int ih = h0 - 1 + hr, iw = w0 - 1 + hc;
       const bool ok = zok && ih >= 0 && ih < H && iw >= 0 && iw < W;
-      const __nv_bfloat16* src =
-          ok ? x + ((zrow + ih) * W + iw) * kCin + o * 8 : x;
+      const T* src =
+          ok ? x + ((zrow + ih) * W + iw) * kCin + o * Gemm<T>::kChunkCh : x;
       mvs::cp_async16(mvs::smem_u32(dst + L::offset(p, o)), src,
                       ok ? 16 : 0);
     }
@@ -293,10 +353,12 @@ conv3d_mma_kernel(const __nv_bfloat16* __restrict__ x,
   mvs::cp_async_commit();
 
   // ldmatrix.x4 of A: lanes 0-15 address rows (output columns) 0-15 at the
-  // step's first k-octet, lanes 16-31 the same rows at its second.
+  // step's first k-chunk, lanes 16-31 the same rows at its second. For f32
+  // each 8x8 b16 matrix is 8 rows of four 32-bit values: the m16n8k8 TF32
+  // A fragment (a0-a3) as it is.
   const int acol = lane & 15, ahalf = lane >> 4;
-  // ldmatrix.trans of B: lanes 0-15 address k rows 0-15 of n8 tile nt,
-  // lanes 16-31 those of tile nt + 1 (x4 only).
+  // ldmatrix.trans of bf16 B: lanes 0-15 address k rows 0-15 of n8 tile
+  // nt, lanes 16-31 those of tile nt + 1 (x4 only).
   const int brow = lane & 15, bnt = kNt > 1 ? lane >> 4 : 0;
   const int g = lane >> 2, t4 = lane & 3;  // accumulator row, column pair
 
@@ -339,26 +401,55 @@ conv3d_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         const int r = warp * 2 + mt;
-        const uint32_t lo = a_row<kCin>(plane, zaddr, 2 * s, r, acol);
-        const uint32_t hi = a_row<kCin>(plane, zaddr, 2 * s + 1, r, acol);
+        const uint32_t lo = a_row<kChunks>(plane, zaddr, 2 * s, r, acol);
+        const uint32_t hi = a_row<kChunks>(plane, zaddr, 2 * s + 1, r, acol);
         mvs::ldsm_x4(ahalf ? hi : lo, a[mt]);
       }
-      const uint32_t brow_addr = wbase + (bnt * kKpad + s * 16 + brow) * 16;
-      if constexpr (kNt == 1) {
-        uint32_t bf[2];
-        mvs::ldsm_x2_trans(brow_addr, bf);
+      if constexpr (kTf32) {
+        // x = big + small, both TF32 (the weights come split); the sum
+        // takes small*big, big*small, then big*big. small*small and the
+        // parts' own rounding are below 2^-21 of the product.
+        uint32_t as[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
-          mvs::mma_bf16_16816(acc[mt][0], a[mt], bf);
-      } else {
 #pragma unroll
-        for (int nt = 0; nt < kNt; nt += 2) {
-          uint32_t bf[4];
-          mvs::ldsm_x4_trans(brow_addr + nt * kKpad * 16, bf);
+          for (int i = 0; i < 4; ++i) {
+            const uint32_t big = mvs::tf32_rna(a[mt][i]);
+            as[mt][i] = mvs::tf32_rna(__float_as_uint(
+                __uint_as_float(a[mt][i]) - __uint_as_float(big)));
+            a[mt][i] = big;
+          }
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          const uint4 bw = *reinterpret_cast<const uint4*>(
+              wsm + nt * kTile + (s * 32 + lane) * 16);
+          const uint32_t wb[2] = {bw.x, bw.y}, ws[2] = {bw.z, bw.w};
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            mvs::mma_bf16_16816(acc[mt][nt], a[mt], bf);
-            mvs::mma_bf16_16816(acc[mt][nt + 1], a[mt], bf + 2);
+            mvs::mma_tf32_1688(acc[mt][nt], as[mt], wb);
+            mvs::mma_tf32_1688(acc[mt][nt], a[mt], ws);
+            mvs::mma_tf32_1688(acc[mt][nt], a[mt], wb);
+          }
+        }
+      } else {
+        const uint32_t brow_addr =
+            wbase + (bnt * kKpad + s * 16 + brow) * 16;
+        if constexpr (kNt == 1) {
+          uint32_t bf[2];
+          mvs::ldsm_x2_trans(brow_addr, bf);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mvs::mma_bf16_16816(acc[mt][0], a[mt], bf);
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < kNt; nt += 2) {
+            uint32_t bf[4];
+            mvs::ldsm_x4_trans(brow_addr + nt * kKpad * 16, bf);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mvs::mma_bf16_16816(acc[mt][nt], a[mt], bf);
+              mvs::mma_bf16_16816(acc[mt][nt + 1], a[mt], bf + 2);
+            }
           }
         }
       }
@@ -382,45 +473,56 @@ conv3d_mma_kernel(const __nv_bfloat16* __restrict__ x,
         }
         if (Cout == 1) {  // the score conv: channel 0 of columns g, g + 8
           if (t4 == 0 && oh < H) {
-            if (w0 + g < W) y[row * W + w0 + g] = __float2bfloat16(v[0]);
-            if (w0 + g + 8 < W)
-              y[row * W + w0 + g + 8] = __float2bfloat16(v[2]);
+            if (w0 + g < W) y[row * W + w0 + g] = from_f32<T>(v[0]);
+            if (w0 + g + 8 < W) y[row * W + w0 + g + 8] = from_f32<T>(v[2]);
           }
           continue;
         }
-        // Gather the quad's 8 channels of column g in lane t4 = 0 and of
-        // column g + 8 in lane t4 = 1, then one 16-byte store each.
-        const uint32_t lo = mvs::pack_bf16x2(v[0], v[1]);
-        const uint32_t hi = mvs::pack_bf16x2(v[2], v[3]);
-        const int quad = lane & ~3;
-        uint32_t q[4];
+        if constexpr (kTf32) {
+          // One 8-byte store per column: a quad's four fill one 32-byte
+          // sector.
+          float* yp = y + row * W * Cout + co0 + nt * 8 + 2 * t4;
+          if (oh < H && w0 + g < W)
+            *reinterpret_cast<float2*>(yp + (int64_t)(w0 + g) * Cout) =
+                make_float2(v[0], v[1]);
+          if (oh < H && w0 + g + 8 < W)
+            *reinterpret_cast<float2*>(yp + (int64_t)(w0 + g + 8) * Cout) =
+                make_float2(v[2], v[3]);
+        } else {
+          // Gather the quad's 8 channels of column g in lane t4 = 0 and of
+          // column g + 8 in lane t4 = 1, then one 16-byte store each.
+          const uint32_t lo = mvs::pack_bf16x2(v[0], v[1]);
+          const uint32_t hi = mvs::pack_bf16x2(v[2], v[3]);
+          const int quad = lane & ~3;
+          uint32_t q[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t l = __shfl_sync(0xffffffffu, lo, quad + i);
-          const uint32_t h = __shfl_sync(0xffffffffu, hi, quad + i);
-          q[i] = t4 == 0 ? l : h;
+          for (int i = 0; i < 4; ++i) {
+            const uint32_t l = __shfl_sync(0xffffffffu, lo, quad + i);
+            const uint32_t h = __shfl_sync(0xffffffffu, hi, quad + i);
+            q[i] = t4 == 0 ? l : h;
+          }
+          const int ow = w0 + g + (t4 == 1 ? 8 : 0);
+          if (t4 < 2 && oh < H && ow < W)
+            *reinterpret_cast<uint4*>(y + (row * W + ow) * Cout + co0 +
+                                      nt * 8) =
+                make_uint4(q[0], q[1], q[2], q[3]);
         }
-        const int ow = w0 + g + (t4 == 1 ? 8 : 0);
-        if (t4 < 2 && oh < H && ow < W)
-          *reinterpret_cast<uint4*>(y + (row * W + ow) * Cout + co0 +
-                                    nt * 8) =
-              make_uint4(q[0], q[1], q[2], q[3]);
       }
     }
     __syncthreads();  // slot j % kRing is refilled next iteration
   }
 }
 
-template <int kCin, int kNs>
+template <typename T, int kCin, int kNs>
 int launch_mma_ns(const void* x, const void* w, const void* scale,
                   const void* shift, void* y, int B, int D, int H, int W,
                   int Cout, int ldw, int relu, cudaStream_t stream) {
-  constexpr int smem = mma_smem_bytes<kCin, kNs>();
+  constexpr int smem = mma_smem_bytes<T, kCin, kNs>();
   static_assert(smem <= 227 * 1024, "shared memory");
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv3d_mma_kernel<kCin, kNs>,
+        conv3d_mma_kernel<T, kCin, kNs>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
@@ -443,33 +545,50 @@ int launch_mma_ns(const void* x, const void* w, const void* scale,
   if (gz > 65535 || (H + kTH - 1) / kTH > 65535)
     return (int)cudaErrorInvalidConfiguration;
   dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, (unsigned)gz);
-  conv3d_mma_kernel<kCin, kNs><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(y), D, H,
-      W, Cout, ldw, relu, zrun, nzrun, nns);
+  conv3d_mma_kernel<T, kCin, kNs><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(shift),
+      static_cast<T*>(y), D, H, W, Cout, ldw, relu, zrun, nzrun, nns);
   return (int)cudaGetLastError();
 }
 
 // The widest N slice (32, 16 or 8 columns) that divides the padded Cout and
 // keeps K x N within kWeightBytes.
-template <int kCin>
+template <typename T, int kCin>
 int launch_mma(const void* x, const void* w, const void* scale,
                const void* shift, void* y, int B, int D, int H, int W,
                int Cout, int ldw, int relu, cudaStream_t stream) {
-  constexpr int kRowBytes = k_steps<kCin>() * 16 * 2;
-  if constexpr (kRowBytes * 32 <= kWeightBytes) {
+  constexpr int kTile = tile_bytes<T, kCin>();
+  if constexpr (kTile * 4 <= kWeightBytes) {
     if (ldw % 32 == 0)
-      return launch_mma_ns<kCin, 32>(x, w, scale, shift, y, B, D, H, W, Cout,
-                                     ldw, relu, stream);
+      return launch_mma_ns<T, kCin, 32>(x, w, scale, shift, y, B, D, H, W,
+                                        Cout, ldw, relu, stream);
   }
-  if constexpr (kRowBytes * 16 <= kWeightBytes) {
+  if constexpr (kTile * 2 <= kWeightBytes) {
     if (ldw % 16 == 0)
-      return launch_mma_ns<kCin, 16>(x, w, scale, shift, y, B, D, H, W, Cout,
-                                     ldw, relu, stream);
+      return launch_mma_ns<T, kCin, 16>(x, w, scale, shift, y, B, D, H, W,
+                                        Cout, ldw, relu, stream);
   }
-  return launch_mma_ns<kCin, 8>(x, w, scale, shift, y, B, D, H, W, Cout, ldw,
-                                relu, stream);
+  return launch_mma_ns<T, kCin, 8>(x, w, scale, shift, y, B, D, H, W, Cout,
+                                   ldw, relu, stream);
+}
+
+// The tensor-core entries' shared checks and their switch over Cin.
+template <typename T, int... kCins>
+int dispatch_mma(const void* x, const void* w, const void* scale,
+                 const void* shift, void* y, int B, int D, int H, int W,
+                 int Cin, int Cout, int ldw, int relu, void* stream) {
+  if ((B * (int64_t)D * H * W) == 0) return cudaSuccess;
+  if (ldw % 8 != 0 || (Cout != 1 && Cout % 8 != 0) || Cout > ldw)
+    return (int)cudaErrorInvalidValue;
+  int status = (int)cudaErrorInvalidValue;  // a Cin it does not take
+  (void)((Cin == kCins &&
+          (status = launch_mma<T, kCins>(x, w, scale, shift, y, B, D, H, W,
+                                         Cout, ldw, relu,
+                                         static_cast<cudaStream_t>(stream)),
+           true)) ||
+         ...);
+  return status;
 }
 
 }  // namespace
@@ -493,23 +612,14 @@ extern "C" int mvs_conv3d_mma(const void* x, const void* w, const void* scale,
                               const void* shift, void* y, int B, int D, int H,
                               int W, int Cin, int Cout, int ldw, int relu,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((B * (int64_t)D * H * W) == 0) return cudaSuccess;
-  if (ldw % 8 != 0 || (Cout != 1 && Cout % 8 != 0) || Cout > ldw)
-    return (int)cudaErrorInvalidValue;
-  switch (Cin) {
-    case 8:
-      return launch_mma<8>(x, w, scale, shift, y, B, D, H, W, Cout, ldw, relu,
-                           s);
-    case 16:
-      return launch_mma<16>(x, w, scale, shift, y, B, D, H, W, Cout, ldw,
-                            relu, s);
-    case 32:
-      return launch_mma<32>(x, w, scale, shift, y, B, D, H, W, Cout, ldw,
-                            relu, s);
-    case 64:
-      return launch_mma<64>(x, w, scale, shift, y, B, D, H, W, Cout, ldw,
-                            relu, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch_mma<__nv_bfloat16, 8, 16, 32, 64>(
+      x, w, scale, shift, y, B, D, H, W, Cin, Cout, ldw, relu, stream);
+}
+
+extern "C" int mvs_conv3d_tf32x3(const void* x, const void* w,
+                                 const void* scale, const void* shift,
+                                 void* y, int B, int D, int H, int W, int Cin,
+                                 int Cout, int ldw, int relu, void* stream) {
+  return dispatch_mma<float, 4, 8, 16, 32>(x, w, scale, shift, y, B, D, H, W,
+                                           Cin, Cout, ldw, relu, stream);
 }

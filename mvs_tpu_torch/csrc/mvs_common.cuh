@@ -3,7 +3,8 @@
 // group-correlation kernels share (so that both round the projected
 // coordinates as plane_sweep_coords does and sample the same corners), and
 // the sm_80+ primitives the tensor-core conv is built from (16-byte cp.async
-// with zero fill, ldmatrix, bf16 mma.sync), the dsrc window that the two
+// with zero fill, ldmatrix, bf16 and TF32 mma.sync, the TF32 rounding of
+// its 3xTF32 split), the dsrc window that the two
 // backward kernels add their source gradients into, and the host-side
 // launch checks and variant dispatch that they share.
 
@@ -82,6 +83,20 @@ __device__ __forceinline__ float rotate_row(const float* g, int i, int px,
   return __fadd_rn(__fadd_rn(__fmul_rn(g[3 * i], (float)px),
                              __fmul_rn(g[3 * i + 1], (float)py)),
                    g[3 * i + 2]);
+}
+
+// Lane l of a warp rotates pixel (px, py), the l-th of the warp's 32, into
+// each view: rot[v * 96 + i * 32 + l] = row i of R_v @ [px, py, 1], kept in
+// shared memory across depths (sgeom: the views' (V, 12) geometry);
+// sample_record reads it back with a stride of 32.
+__device__ __forceinline__ void rotate_pixel(const float* sgeom, float* rot,
+                                             int V, int px, int py,
+                                             int lane) {
+  for (int v = 0; v < V; ++v) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      rot[v * 96 + i * 32 + lane] = rotate_row(sgeom + v * 12, i, px, py);
+  }
 }
 
 // The source coordinates (x, y) of a rotated pixel (rot: its 3 rotate_row
@@ -301,6 +316,24 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
                                                const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x (f32 bits) rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest,
+// ties away from zero), with the 13 low bits cleared so that the rest, x
+// minus this, is exact in f32: half a TF32 unit added to the magnitude's
+// bits, then truncated (finite x).
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t x) {
+  return (x + 0x1000u) & 0xffffe000u;
+}
+
+// c += a (16x8, row-major) * b (8x8, column-major), TF32 in, f32 sums.
+__device__ __forceinline__ void mma_tf32_1688(float* c, const uint32_t* a,
+                                              const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

@@ -147,21 +147,6 @@ __device__ __forceinline__ void store8(T* p, int nc, const float* v) {
   }
 }
 
-// Lane l rotates pixel l of its warp's 8 x 4 patch into each view: rot[v *
-// 96 + i * 32 + l] = row i of R_v @ [x, y, 1] (mvs::rotate_row), kept in
-// shared memory across depths; mvs::sample_record reads it back with a
-// stride of 32.
-__device__ __forceinline__ void rotate_pixel(const float* sgeom, float* rot,
-                                             int V, int px, int py,
-                                             int lane) {
-  for (int v = 0; v < V; ++v) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      rot[v * 96 + i * 32 + lane] =
-          mvs::rotate_row(sgeom + v * 12, i, px, py);
-  }
-}
-
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
@@ -197,7 +182,7 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   const int px = wx0 + (lane & 7), py = wy0 + (lane >> 3);
   const bool pix_ok = px < W && py < H;
   const int pix = py * W + px;
-  rotate_pixel(sgeom, rot, V, px, py, lane);
+  mvs::rotate_pixel(sgeom, rot, V, px, py, lane);
 
   // Pass k of the chunk walk gives lane l chunk (32k + l) % nch of pixel
   // (32k + l) / nch: consecutive lanes on consecutive 16-byte chunks.

@@ -6,9 +6,11 @@ mvs_tpu.ops.cost_volume.group_correlation_cost_volume).
 ``group_correlation_volume`` launches the kernel for CUDA tensors and runs
 the plain PyTorch version (``group_correlation_volume_plain``, the exact
 gather path of ops.cost_volume) only for CPU tensors; it never falls back
-from one to the other. The kernel reads 8 channels as one 16-byte access
-when C % 8 == 0 and every feature pointer is 16-byte aligned (the vector
-variant); otherwise it runs with masked scalar accesses.
+from one to the other. The forward runs its lane kernel, which reads 16-byte
+chunks of channels, when C % 8 == 0, C is at most 32 chunks (128 f32 or 256
+bf16 channels) and every feature pointer is 16-byte aligned (the vector
+variant); otherwise it runs with masked scalar accesses. The backward's
+vector variant needs only C % 8 == 0 and the alignment.
 
 When the features or the hypotheses require a gradient, the CUDA path is an
 autograd Function that saves only its inputs and whose backward is the
@@ -73,7 +75,8 @@ def _launch_forward(ref_feat, src_feats, rel_projs, depth_values, num_groups):
     geom = geometry(rel_projs)
     out = torch.empty((b, d, h, w, num_groups), dtype=ref_feat.dtype,
                       device=ref_feat.device)
-    vec = vector(c, ref_feat, src_feats)
+    vec = (vector(c, ref_feat, src_feats)
+           and c * ref_feat.element_size() <= 32 * 16)
     lib = _build.load("group_correlation", _SIGNATURES)
     with torch.cuda.device(ref_feat.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -10,6 +10,14 @@ Flax module through converted weights with non-trivial BatchNorm. The
 kernels' weight layout (pack_conv3d_taps) is held to the same bound as the
 GEMM the tensor-core kernel computes: an im2col of the input in its K order
 times the packed matrix, with the affine and ReLU.
+
+The f32 tensor-core kernel (3xTF32) is emulated here: split_tf32 splits
+both x and the weights into two TF32 parts, and the three products the
+kernel takes (small*big, big*small, big*big; exact in f64) are held against
+the Pallas kernel at AACVP's f32 shapes within the same 2e-4, while one
+TF32 product alone misses by more than 1e-4 of the largest output (the
+card's f32 limit), so dropping the split would show. _variant, the rule
+that picks a CUDA call's kernel, is pinned for every conv of the main paths.
 """
 
 import jax
@@ -23,7 +31,9 @@ from mvs_tpu.nn.blocks import FusedConvBlock3D as JaxFusedConvBlock3D
 from mvs_tpu.ops.conv3d_pallas import conv3d_folded
 from mvs_tpu_torch.convert import flax_to_state_dict
 from mvs_tpu_torch.nn.blocks import FusedConvBlock3D
-from mvs_tpu_torch.ops.conv3d import _packed, conv3d_affine, pack_conv3d_taps
+from mvs_tpu_torch.ops.conv3d import (_packed, _variant, conv3d_affine,
+                                      pack_conv3d_taps, pack_conv3d_tf32x3,
+                                      split_tf32)
 from test_torch_blocks import perturb_batch_norm
 
 
@@ -141,3 +151,99 @@ def test_packed_weights_follow_load_state_dict():
     assert torch.equal(_packed(block.kernel, torch.bfloat16),
                        pack_conv3d_taps(state["kernel"], torch.bfloat16))
     assert not torch.equal(_packed(block.kernel, torch.bfloat16), first)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(4, 16), (16, 16), (8, 1), (32, 8)])
+def test_tf32x3_packing_splits_the_weights(c_in, c_out):
+    """pack_conv3d_tf32x3: big + small gives the f32 weight back within
+    2^-21 relative, both parts are TF32 values (13 low mantissa bits zero),
+    and lane g * 4 + t4 of (n8 tile nt, k step s) holds the m16n8k8 B
+    fragment rows k = 8 s + t4 and k + 4 of column n = 8 nt + g."""
+    weight = torch.randn(c_out, c_in, 3, 3, 3,
+                         generator=torch.Generator().manual_seed(c_in))
+    taps = pack_conv3d_taps(weight, torch.float32)
+    packed = pack_conv3d_tf32x3(weight)
+    nt, steps = packed.shape[:2]
+    assert packed.shape == (-(-c_out // 8), -(-27 * c_in // 8), 32, 4)
+    assert steps * 8 >= 27 * c_in
+    frag = packed.reshape(nt, steps, 8, 4, 2, 2)  # (nt, s, g, t4, part, h)
+    big, small = (frag[..., i, :].permute(1, 4, 3, 0, 2).reshape(
+        steps * 8, nt * 8) for i in range(2))  # (s, h, t4) x (nt, g)
+    want = taps[:steps * 8]
+    for part in (big, small):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert torch.equal(torch.stack((big, small)),
+                       torch.stack(split_tf32(want)))
+    err = (big + small - want).abs()
+    assert (err <= want.abs() * 2.0 ** -21).all()
+    assert (big != want).any()  # the split is not empty
+
+
+@pytest.mark.parametrize("c_in,c_out,shape", [
+    (4, 16, (4, 8, 16)),
+    (16, 16, (3, 6, 16)),
+])
+def test_tf32x3_emulation_matches_pallas(c_in, c_out, shape):
+    """The 3xTF32 kernel's arithmetic against mvs_tpu's f32 conv: three
+    TF32 products (exact in f64) within 2e-4; one alone misses by more
+    than 1e-4 of the largest output."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((3, *shape, c_in)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, 3, c_in, c_out)) * 0.1).astype(np.float32)
+    scale = rng.uniform(0.5, 2.0, c_out).astype(np.float32)
+    shift = rng.standard_normal(c_out).astype(np.float32)
+    want = np.asarray(conv3d_folded(jnp.asarray(x), jnp.asarray(k),
+                                    jnp.asarray(scale), jnp.asarray(shift),
+                                    relu=True, interpret=True))
+    xb, xs = split_tf32(_t(x))
+    wb, ws = split_tf32(_t(k.transpose(4, 3, 0, 1, 2)))
+
+    def conv(a, w):
+        return F.conv3d(a.double().permute(0, 4, 1, 2, 3), w.double(),
+                        padding=1)
+
+    def epilogue(y):
+        y = torch.relu(y * _t(scale).double()[:, None, None, None]
+                       + _t(shift).double()[:, None, None, None])
+        return y.float().permute(0, 2, 3, 4, 1).numpy()
+
+    three = epilogue(conv(xs, wb) + conv(xb, ws) + conv(xb, wb))
+    one = epilogue(conv(xb, wb))
+    np.testing.assert_allclose(three, want, rtol=2e-4, atol=2e-4)
+    largest = np.abs(want).max()
+    assert np.abs(three - want).max() < 1e-6 * largest
+    assert np.abs(one - want).max() > 1e-4 * largest
+
+
+# (Cin, Cout) of every conv3d_affine call of the main paths, with the
+# variant it takes in bf16 and in f32: CasMVSNet and MVSNet (U-Net base 8;
+# stage features 32, 16, 8), CVP and AACVP (base 16; AACVP's first block
+# takes its 4 groups, and its f32 blocks run in its bf16 model too), and
+# (12, 8).
+_MAIN_CONVS = {
+    (4, 16): ("direct", "tf32x3"),
+    (8, 1): ("mma", "tf32x3"),
+    (8, 8): ("mma", "tf32x3"),
+    (12, 8): ("direct", "direct"),
+    (16, 1): ("mma", "tf32x3"),
+    (16, 8): ("mma", "tf32x3"),
+    (16, 16): ("mma", "tf32x3"),
+    (32, 8): ("mma", "tf32x3"),
+    (32, 32): ("mma", "tf32x3"),
+    (32, 64): ("mma", "tf32x3"),
+    (64, 32): ("mma", "direct"),
+    (64, 64): ("mma", "direct"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c_in,c_out", sorted(_MAIN_CONVS))
+def test_variant_of_every_main_path_conv(dtype, c_in, c_out):
+    bf16, f32 = _MAIN_CONVS[(c_in, c_out)]
+    assert _variant(dtype, c_in, c_out) == (
+        bf16 if dtype == torch.bfloat16 else f32)
+
+
+def test_variant_sends_other_f32_couts_to_the_direct_kernel():
+    assert _variant(torch.float32, 16, 12) == "direct"
+    assert _variant(torch.float32, 16, 24) == "tf32x3"

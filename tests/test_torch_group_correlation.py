@@ -6,7 +6,8 @@ The plain version of the group-correlation kernel
 (ops.cost_volume.group_correlation_cost_volume) is held against
 mvs_tpu.ops.cost_volume.group_correlation_cost_volume to 1e-5 of the largest
 magnitude: shared ladders and per-pixel hypotheses, batch 2, D = 1, C = 12
-in 3 groups, off-image and behind-camera samples. The wrapper runs the plain
+in 3 groups, C = 24 in 2 and C = 16 in 8 (the group layouts the kernel's
+16-byte variant branches on), off-image and behind-camera samples. The wrapper runs the plain
 version only for CPU tensors: on any other device it launches the kernel or
 raises. The kernel itself runs only on the card (chip_smoke.py phases 8a
 and 10a hold it and its backward against the plain versions there).
@@ -48,6 +49,12 @@ def _geometry(b, v, seed):
     (2, 3, 5, 9, 13, 16, 4, True),
     (2, 4, 6, 7, 10, 16, 4, False),
     (1, 2, 1, 6, 8, 12, 3, True),
+    # the kernel's 16-byte lane layout: groups across 16-byte chunks
+    # (Cg = 12), and two (bf16) or more (f32) groups in one chunk (Cg = 2)
+    (2, 3, 4, 7, 9, 24, 2, True),
+    (1, 3, 3, 6, 8, 16, 8, False),
+    # wide features: past the lane kernel's 32 chunks in f32
+    (1, 2, 2, 5, 6, 160, 4, True),
 ])
 def test_plain_matches_jax(b, v, d, h, w, c, g, per_pixel):
     rng = np.random.default_rng(b * 100 + d)

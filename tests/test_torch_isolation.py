@@ -1,6 +1,6 @@
-"""The port stands alone: mvs_tpu_torch and chip_smoke.py import neither JAX
-nor mvs_tpu, pick the card unless told otherwise, and build their kernels
-for sm_90a through the C interfaces the wrappers declare."""
+"""The port stands alone: mvs_tpu_torch, chip_smoke.py and chip_ab.py import
+neither JAX nor mvs_tpu, pick the card unless told otherwise, and build
+their kernels for sm_90a through the C interfaces the wrappers declare."""
 
 import ast
 import importlib
@@ -22,7 +22,8 @@ PORT = ROOT / "mvs_tpu_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_ab.py"]
 
 
 def test_import_pulls_in_no_jax_or_mvs_tpu():
