@@ -1,6 +1,6 @@
-"""Drive the PyTorch port (mvs_tpu_torch) of CasMVSNet, MVSNet, CVP-MVSNet
-and AACVP-MVSNet inference and training on one CUDA card, holding each
-hand-written kernel against its plain version.
+"""Drive the PyTorch port (mvs_tpu_torch) of CasMVSNet, MVSNet, CVP-MVSNet,
+AACVP-MVSNet and Point-MVSNet inference and training on one CUDA card,
+holding each hand-written kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -138,6 +138,42 @@ Phases, in order; any failure exits non-zero:
          synthetic training layout (2 steps, a val split, a checkpoint),
          launches exact, then `infer --config configs/cvp_eval_dtu.yaml
          data.align=32 --step latest` from its checkpoint;
+ 11. Point-MVSNet at its default widths (image and volume base 8, flow
+     channels 64/64/16/1, k = 16, flow scales 1/4 and 1/2), f32, over
+     configs/cas_eval_dtu.yaml with model.name=point_mvsnet at 1280x960
+     (96 coarse hypotheses over the DTU ladder, 5 views); training with
+     configs/cas_train_dtu.yaml at 640x512, 3 views, 48 hypotheses:
+     (a) the warp forward at a map's 7 shapes (the coarse volume, C = 64,
+         D = 96, 160x120; the flow's C = 16 / 32 / 64 with 5 per-pixel
+         hypotheses at 320x240 and 640x480) in f32 and bf16, f32 timed
+         (kernel, plain, bound); its backward at a train step's 7 shapes,
+         the flow's with and without the hypotheses' gradient, timed as
+         the path runs them; VolumeConv's two f32 convs at Cin = 64 on the
+         direct kernel (64->8 at 96x120x160, 64->64 at 12x15x20), timed
+         (kernel, plain, cuDNN f32 with TF32 off, bound);
+     (b) a seeded model at 128x160, 3 views, 16 hypotheses, card against
+         CPU, untiled and at flow_sub_stride=2, the card on the CPU's kNN
+         graphs (GraphTape: near ties on the regular lattice): the coarse
+         pre-softmax score, coarse depth and probability map, both flows
+         and their probabilities;
+     (c) full width through cli.infer.make_apply_fn at flow_sub_stride 4
+         and 1: ms per map, peak memory, launches (exact: 7 warp, all
+         vector; 5 conv3d, 3 on the 3xTF32 kernel and 2 direct), device ms
+         by layer (image towers, coarse volume, VolumeConv, flow features,
+         kNN, EdgeConvs, MLP / head, rest) and the profiler's top kernels
+         and idle share;
+     (d) `infer` over phase 8d's scan (fitted to 1280x960, stride 4, batch
+         1), launches exact, then `fuse` writes a valid PLY;
+     (e) one f32 train step card against CPU (phase 7b's limits, or the
+         card no farther from the CPU's float64 step than the CPU's f32
+         step; the card on the CPU's graphs; the ladder 2 below the GT
+         plane, away from the masked MAE's kink), then training at full width, batch 4:
+         launches per step (exact: 7 warp forward, 7 backward of which 6
+         with the hypotheses' gradient, 0 conv3d), ms per step,
+         samples/s, peak memory, 30 falling losses;
+     (f) `train model.name=point_mvsnet` on a synthetic training layout (2
+         steps, a val split, a checkpoint), launches exact, then `infer`
+         from its checkpoint;
 then one JSON line listing the kernels (the 3xTF32 conv,
 conv3d_affine.tf32x3, as an entry of its own: times over 8a's 10 AACVP f32
 launches, launches per AACVP bf16 map, 8c; elsewhere launches: per map,
@@ -155,13 +191,20 @@ _plain_ms / _bound_ms / _max_abs_err: the warp backward's two launches of
 one CVP train step, 10a; the group correlation's backward as a kernel of
 its own, timed over one AACVP train step, 10a; dtu_rig_ms /
 dtu_rig_max_abs_err on both backwards, and dtu_rig_mvsnet_* and
-dtu_rig_cvp_train_* on the warp's: the same launches on the DTU-like rig),
-and last
+dtu_rig_cvp_train_* on the warp's: the same launches on the DTU-like rig;
+on every kernel point_launches / point_train_launches /
+point_cli_launches / point_cli_train_launches: per Point-MVSNet map, 11c,
+per train step, 11e, and through 11d and 11f; point_ms / _plain_ms /
+_bound_ms / _max_abs_err on the warp: a Point-MVSNet map's 7 f32
+launches, 11a, and point_train_* on its backward: a train step's 7; the
+direct conv at f32, conv3d_affine.direct, as an entry of its own over
+Point-MVSNet's two Cin = 64 convs, 11a), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -185,10 +228,13 @@ from mvs_tpu_torch.geometry.homography import plane_sweep_coords
 from mvs_tpu_torch.io import png as png_codec
 from mvs_tpu_torch.io import read_pfm, read_ply, write_pfm, write_ply
 from mvs_tpu_torch.io.dtu import (DTUEvalDataset, collate_cascade,
-                                  collate_mvsnet, collate_pyramid)
+                                  collate_mvsnet, collate_point,
+                                  collate_pyramid)
 from mvs_tpu_torch.models import mvsnet as mvsnet_module
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
 from mvs_tpu_torch.models.mvsnet import MVSNet
+from mvs_tpu_torch.models import point_mvsnet as point_module
+from mvs_tpu_torch.models.point_mvsnet import PointMVSNet
 from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.ops import _build
 from mvs_tpu_torch.ops.conv3d import conv3d_affine, conv3d_affine_plain
@@ -200,7 +246,8 @@ from mvs_tpu_torch.ops.warp_variance import (
     fused_variance_volume_grad_plain, fused_variance_volume_plain)
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.train.state import make_train_step
-from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask,
+from mvs_tpu_torch.ops.point_ops import lattice_knn, point_sweep_projections
+from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask, PointTask,
                                       PyramidTask, batch_to_device)
 from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.make_synthetic_dtu import generate
@@ -1265,10 +1312,12 @@ def phase_warp_grad(device):
     return rows
 
 
-def train_samples(height, width, batch, views=VIEWS, seed=0):
+def train_samples(height, width, batch, views=VIEWS, seed=0, depths=LADDER,
+                  start=8.0):
     """`batch` plane scenes (tilted, seeds seed..) as the DTU training split
     gives them: intrinsics and GT depth at 1/4 of the images, every pixel
-    valid, the ladder's range 8..12."""
+    valid, a ladder of `depths` hypotheses over start..start + 4
+    (depth_interval its spacing; the plane lies near 10)."""
     samples = []
     for i in range(batch):
         scene = make_plane_scene(num_views=views, height=height, width=width,
@@ -1278,8 +1327,10 @@ def train_samples(height, width, batch, views=VIEWS, seed=0):
         gt = np.ascontiguousarray(scene.depths[0][::4, ::4], np.float32)
         samples.append(dict(
             imgs=scene.images, intrinsics=intr, extrinsics=scene.extrinsics,
-            depth_values=np.linspace(8.0, 12.0, LADDER, dtype=np.float32),
-            depth_min=np.float32(8.0), depth_max=np.float32(12.0),
+            depth_values=np.linspace(start, start + 4.0, LADDER,
+                                     dtype=np.float32),
+            depth_min=np.float32(start), depth_max=np.float32(start + 4.0),
+            depth_interval=np.float32(4.0 / (depths - 1)),
             depth_gt=gt, mask=np.ones_like(gt)))
     return samples
 
@@ -1322,27 +1373,40 @@ def phase_train_card_vs_cpu(device):
 
 
 def check_train_step(make_task, state, batch, device, metric_keys,
-                     score_biases, updates=1):
+                     score_biases, updates=1, runs=None, exact=None):
     """One f32 train step card against CPU (limits: STEP_LOSS_RTOL,
     GRAD_TOL and GRAD_NUDGE_FACTOR, GRAD_COSINE, STEP_STATS_RTOL, Adam's
     step). `score_biases`: the score convs' biases, whose exact gradient
     is 0 (see GRAD_TOL's note), left out of the gradient checks;
     `updates`: each BatchNorm's count after the step (a module shared by
-    the levels of a pyramid updates once per level)."""
-    cpu = train_once(make_task, state, batch, "cpu")
-    card = train_once(make_task, state, batch, device)
+    the levels of a pyramid updates once per level), or a tuple of the
+    counts there must be; `runs(label)`, when
+    given, a context each step runs in ("cpu", then "card" and "nudged":
+    Point-MVSNet's GraphTape); `exact()`, when given, the step's float64
+    gradients on the CPU (run in runs("exact")): a gradient also passes
+    when the card's lies no farther from it than twice the CPU's f32
+    gradient does, i.e. when the card is as accurate as the CPU."""
+    runs = runs or (lambda label: contextlib.nullcontext())
+    with runs("cpu"):
+        cpu = train_once(make_task, state, batch, "cpu")
+    with runs("card"):
+        card = train_once(make_task, state, batch, device)
     sign = np.random.default_rng(0).choice([-1.0, 1.0],
                                            size=batch["imgs"].shape)
     nudged_batch = dict(batch, imgs=(batch["imgs"] * (1 + sign * 2.0 ** -24)
                                      ).astype(np.float32))
-    nudged = train_once(make_task, state, nudged_batch, "cpu")
+    with runs("nudged"):
+        nudged = train_once(make_task, state, nudged_batch, "cpu")
+    if exact is not None:
+        with runs("exact"):
+            exact = exact()
     for k in metric_keys:
         rel = abs(card[0][k] - cpu[0][k]) / abs(cpu[0][k])
         log(f"  {k}: card {card[0][k]:.8f} CPU {cpu[0][k]:.8f} (rel "
             f"{rel:.2e}, tol {STEP_LOSS_RTOL})")
         if not rel <= STEP_LOSS_RTOL:
             fail(f"train step {k} differs card vs CPU")
-    worst, n_tol, n_nudge = [], 0, 0
+    worst, n_tol, n_nudge, n_exact = [], 0, 0, 0
     for k, g_cpu in cpu[1].items():
         if k in score_biases:
             continue
@@ -1354,16 +1418,22 @@ def check_train_step(make_task, state, batch, device, metric_keys,
             g_card.flatten().double(), g_cpu.flatten().double(), dim=0).item()
         ok_tol = err <= GRAD_TOL * scale
         ok_nudge = err <= GRAD_NUDGE_FACTOR * moved
+        ok_exact = exact is not None and (
+            (g_card.double() - exact[k]).abs().max()
+            <= 2 * (g_cpu.double() - exact[k]).abs().max()).item()
         n_tol += ok_tol
         n_nudge += ok_nudge and not ok_tol
+        n_exact += ok_exact and not (ok_tol or ok_nudge)
         worst.append((err / scale, k, moved / scale, cos))
-        if not (ok_tol or ok_nudge) or not cos > GRAD_COSINE:
+        if not (ok_tol or ok_nudge or ok_exact) or not cos > GRAD_COSINE:
             fail(f"gradient of {k}: card vs CPU {err:.3e} of {scale:.3e}, "
                  f"one rounding moved it {moved:.3e}, cosine {cos:.8f}")
     worst.sort(reverse=True)
     log(f"  gradients: {len(worst)} parameters, {n_tol} within "
         f"{GRAD_TOL} of their largest magnitude, {n_nudge} more within "
-        f"{GRAD_NUDGE_FACTOR}x what one rounding of the images moved them; "
+        f"{GRAD_NUDGE_FACTOR}x what one rounding of the images moved them"
+        + (f", {n_exact} more no farther from float64 than twice the CPU's"
+           if exact is not None else "") + "; "
         f"worst: " + "; ".join(f"{k} {e:.2e} (rounding {m:.2e}, cosine "
                                f"{c:.8f})" for e, k, m, c in worst[:3]))
     # Each statistic vector against its largest magnitude: a channel's batch
@@ -1376,7 +1446,8 @@ def check_train_step(make_task, state, batch, device, metric_keys,
     log(f"  {len(stats)} statistics: card vs CPU within {err:.2e} of each "
         f"vector's largest magnitude (tol {STEP_STATS_RTOL}); counts "
         f"{sorted(counts)}")
-    if not err <= STEP_STATS_RTOL or counts != {float(updates)}:
+    if not err <= STEP_STATS_RTOL or counts != set(
+            map(float, updates if isinstance(updates, tuple) else (updates,))):
         fail("BatchNorm statistics differ card vs CPU")
     # Adam's first step is lr * g / (|g| + eps), eps = 1e-8: equal to 1e-6
     # where the gradient's sign is certain (|g| over twice the tensor's
@@ -1922,37 +1993,47 @@ def check_confidence(what, c_cpu, c_card, moved=None):
         fail(f"{what} card confidence differs from CPU confidence")
 
 
-def module_spans(kinds: dict, owner, name: str, run) -> tuple[dict, float]:
+def module_spans(kinds: dict, owner, name, run) -> tuple[dict, float]:
     """({kind: device ms}, total device ms) of one run(), from CUDA events
-    around each forward of the modules in `kinds` and around every call of
-    owner.<name> (the cost volumes, as "cost volume")."""
+    around each forward of the modules in `kinds` (a module or a tuple of
+    them per kind) and around every call of owner.<name> (the cost
+    volumes, as "cost volume"); `name` may also be {attribute: kind of a
+    call, or a function of the call's arguments giving it}."""
     def event():
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         return ev
 
     spans, stack, hooks = [], [], []
-    for kind, module in kinds.items():
-        hooks.append(module.register_forward_pre_hook(
-            lambda m, a, kind=kind: stack.append((kind, event()))))
-        hooks.append(module.register_forward_hook(
-            lambda m, a, out: spans.append((*stack.pop(), event()))))
-    cost_volume = getattr(owner, name)
+    for kind, modules in kinds.items():
+        for module in modules if isinstance(modules, tuple) else (modules,):
+            hooks.append(module.register_forward_pre_hook(
+                lambda m, a, kind=kind: stack.append((kind, event()))))
+            hooks.append(module.register_forward_hook(
+                lambda m, a, out: spans.append((*stack.pop(), event()))))
+    names = name if isinstance(name, dict) else {name: "cost volume"}
+    saved = {attr: getattr(owner, attr) for attr in names}
 
-    def timed(*a):
-        start = event()
-        out = cost_volume(*a)
-        spans.append(("cost volume", start, event()))
-        return out
+    def timer(attr):
+        def timed(*a, **kw):
+            kind = names[attr]
+            kind = kind if isinstance(kind, str) else kind(*a, **kw)
+            start = event()
+            out = saved[attr](*a, **kw)
+            spans.append((kind, start, event()))
+            return out
+        return timed
 
-    setattr(owner, name, timed)
+    for attr in names:
+        setattr(owner, attr, timer(attr))
     try:
         start = event()
         run()
         end = event()
         torch.cuda.synchronize()
     finally:
-        setattr(owner, name, cost_volume)
+        for attr, fn in saved.items():
+            setattr(owner, attr, fn)
         for h in hooks:
             h.remove()
     ms = {}
@@ -2870,6 +2951,594 @@ def phase_cvp_training(device, work: Path, warp_grad_rows) -> dict:
 # call only entry points that package has, and no counters.
 
 
+# Phase 11. Point-MVSNet at its default widths (image base 8, volume base
+# 8, flow channels 64/64/16/1, k = 16, flow scales 1/4 and 1/2, interval
+# factors 0.75 and 0.375), f32 (mvs_tpu's Point-MVSNet has no other
+# dtype), driven as dtu_wde3.yaml evaluates it: configs/cas_eval_dtu.yaml
+# with model.name=point_mvsnet, 1280x960 images (data.max_h=960
+# data.max_w=1280, align 32), 96 coarse hypotheses over the DTU ladder
+# (data.num_depth=96 data.interval_scale=2.12), 5 views, batch 1, the flow
+# tiled at stride 4 (the reference's test-time sub-grids) and untiled.
+# Training: configs/cas_train_dtu.yaml with model.name=point_mvsnet, 640x512,
+# 3 views, 48 coarse hypotheses (the config default), f32, Adam.
+POINT_H, POINT_W, POINT_D, POINT_VIEWS = 960, 1280, 96, 5
+POINT_INTERVAL = 4.0 / (POINT_D - 1)  # the plane scenes' ladder, 8..12
+POINT_EVAL = ["model.name=point_mvsnet", "model.compute_dtype=float32",
+              f"model.num_depth_coarse={POINT_D}", f"data.num_depth={POINT_D}",
+              "data.interval_scale=2.12", "data.max_h=960", "data.max_w=1280"]
+POINT_TRAIN = ["model.name=point_mvsnet", "model.compute_dtype=float32",
+               "data.num_views=3"]
+POINT_TRAIN_D, POINT_TRAIN_VIEWS = 48, 3
+# The other families' training batch: a step at 640x512 takes 63.5 GiB of
+# the card's 80 GB (PERF.md; the EdgeConvs' (5 * 320 * 256 points, 16
+# neighbours, 32-64 features) differences at the 1/2-resolution flow, saved
+# twice each for the backward, most of it).
+POINT_TRAIN_BATCH = 4
+# The flow's levels (ImageConv's conv1-conv3 channels) and scales.
+POINT_FLOW = ((0.25, 0.75), (0.5, 0.375))
+POINT_LEVELS = (16, 32, 64)
+# Launches per map: 1 coarse volume and 3 per flow iteration (vector, C =
+# 16 / 32 / 64); VolumeConv's 5 stride-1 convs, f32: 3 on the 3xTF32
+# kernel (16->16, 32->32, 8->1), 2 direct (64->8, 64->64). Per train step:
+# the 7 volumes forward and backward, the 6 of the flow with the
+# hypotheses' gradient (the flow's depth keeps its gradient in train
+# mode), no conv3d (train-mode convs are cuDNN's).
+POINT_LAUNCHES = {"map": (7, 7, 0, 0, 5, 0, 3),
+                  "train": (7, 7, 7, 6, 0, 0, 0)}
+
+
+def point_want(key, times=1) -> dict:
+    warp, vec, grad, depth, conv, mma, tf32 = POINT_LAUNCHES[key]
+    return {"warp_variance": times * warp,
+            "warp_variance.vector": times * vec,
+            "warp_variance_grad": times * grad,
+            "warp_variance_grad.depth": times * depth,
+            "conv3d_affine": times * conv, "conv3d_affine.mma": times * mma,
+            "conv3d_affine.tf32x3": times * tf32, **NO_GROUP}
+
+
+def point_rigs() -> list:
+    """The plane scenes of phase 11 (make_plane_scene's arguments) and the
+    depths a flow iteration can reach on each: the ladder widened by 2.25
+    intervals (the flows' 2 x 0.75 + 2 x 0.375). tests/test_torch_point_ops.py
+    checks that all lie in front of every source camera, clear of the
+    kernel route's behind-camera delta."""
+    def widened(lo, hi, interval):
+        return (lo - 2.25 * interval, hi + 2.25 * interval)
+
+    scan_iv = 5.6 / (LADDER - 1) * 2.12  # generate's ladder, 11d's scale
+    train_iv = 5.6 / (LADDER - 1) * 4.24  # 11f: 48 hypotheses over it
+    return [
+        dict(scene=dict(num_views=POINT_VIEWS, height=POINT_H, width=POINT_W,
+                        z0=10.0), depths=widened(8.0, 12.0, POINT_INTERVAL)),
+        dict(scene=dict(num_views=3, height=128, width=160, z0=10.0,
+                        tilt=(0.05, 0.02)), depths=widened(8.0, 12.0, 4 / 15)),
+        dict(scene=dict(num_views=POINT_TRAIN_VIEWS, height=128, width=160,
+                        z0=10.0, seed=1, tilt=(0.05, 0.02)),
+             depths=widened(6.0, 10.0, 4 / 15)),
+        dict(scene=dict(num_views=CVP_SCAN_VIEWS, height=CVP_H + 16,
+                        width=CVP_W, z0=10.0, seed=0, tilt=SCAN_TILT),
+             depths=widened(7.2, 7.2 + (POINT_D - 1) * scan_iv, scan_iv))] + [
+        dict(scene=dict(num_views=POINT_TRAIN_VIEWS, height=TRAIN_H,
+                        width=TRAIN_W, z0=10.0, seed=i, tilt=(0.05, 0.02)),
+             depths=widened(8.0, 12.0, 4 / (POINT_TRAIN_D - 1)))
+        for i in range(POINT_TRAIN_BATCH)] + [
+        dict(scene=dict(num_views=4, height=TRAIN_H, width=TRAIN_W, z0=10.0,
+                        seed=i, tilt=SCAN_TILT),
+             depths=widened(7.2, 7.2 + (POINT_TRAIN_D - 1) * train_iv,
+                            train_iv))
+        for i in range(2)]
+
+
+def point_inputs(scene, device, batch=1, interval=POINT_INTERVAL):
+    sample = dict(imgs=scene.images, intrinsics=scene.intrinsics,
+                  extrinsics=scene.extrinsics, depth_min=np.float32(8.0),
+                  depth_interval=np.float32(interval))
+    return stack_model_inputs([sample] * batch, device, "point")
+
+
+def point_volume_inputs(scene, scale, c, dtype, device, batch=1, seed=0,
+                        depths=None, inter=None):
+    """The warp's inputs as Point-MVSNet gives them at `scale` of the
+    scene's images: C-channel features, the 0.5-centred projections, and
+    either the coarse ladder of `depths` hypotheses over 8..12 or (inter:
+    a flow iteration's interval factor) 5 per-pixel hypotheses at
+    {-2..2} x inter x the ladder's interval around the scene's depth with
+    noise."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    views, height, width = scene.images.shape[:3]
+    h, w = int(height * scale), int(width * scale)
+    feats = torch.randn((batch, views, h, w, c), generator=g).to(device, dtype)
+    intr = torch.tensor(scene.intrinsics)[None].repeat(batch, 1, 1, 1)
+    extr = torch.tensor(scene.extrinsics)[None].repeat(batch, 1, 1, 1)
+    rel = point_sweep_projections(intr, extr, scale).to(device)
+    if inter is None:
+        hyp = torch.linspace(8.0, 12.0, depths)[:, None, None].expand(
+            depths, h, w)
+    else:
+        step = round(1 / scale)
+        depth = torch.tensor(scene.depths[0][step // 2::step, step // 2::step])
+        noise = torch.randn((h, w), generator=g) * 0.05
+        hyp = depth + noise + torch.arange(-2.0, 3.0)[:, None, None] * (
+            inter * 4.0 / (depths - 1))
+    hyp = hyp[None].expand(batch, -1, h, w).contiguous().to(device)
+    return (feats[:, 0].contiguous(), feats[:, 1:].contiguous(), rel, hyp)
+
+
+def point_warp_rows(scene, device, depths, what):
+    """The 7 forward launches of one map (coarse, then the flow's 6) at
+    `scene`'s size against the plain version in f32 and bf16, each on the
+    16-byte variant, f32 timed (kernel, plain, bound)."""
+    shapes = [(1 / 8, 64, None)] + [(scale, c, inter)
+                                     for scale, inter in POINT_FLOW
+                                     for c in POINT_LEVELS]
+    rows = []
+    for scale, c, inter in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = point_volume_inputs(scene, scale, c, dtype, device,
+                                       depths=depths, inter=inter)
+            b, d, h, w = args[3].shape
+            vec = fused_variance_volume.vector_launches
+            err = compare("warp", fused_variance_volume(*args),
+                          fused_variance_volume_plain(*args),
+                          f"{what} warp_variance D={d} {w}x{h} C={c} "
+                          f"{str(dtype)[6:]}")
+            if fused_variance_volume.vector_launches != vec + 1:
+                fail(f"{what} warp not on the 16-byte vector variant")
+            if dtype is torch.float32:
+                ms = cuda_ms(lambda: fused_variance_volume(*args))
+                plain_ms = cuda_ms(
+                    lambda: fused_variance_volume_plain(*args), iters=3,
+                    warmup=1)
+                by, ops = warp_bound(b, args[1].shape[1], d, h, w, c, 4)
+                log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{max(by, ops):.4f} ms (bytes {by:.4f}, ops {ops:.4f})")
+                rows.append(dict(err=err, ms=ms, plain_ms=plain_ms,
+                                 bytes_ms=by, ops_ms=ops))
+            del args
+    return rows
+
+
+def phase_point_kernels(device):
+    """11a: the warp forward at a map's 7 shapes, its backward at a train
+    step's 7 (the flow's with and without the hypotheses' gradient), the
+    two direct f32 convs at Cin = 64; each against its plain version,
+    timed (the backward over the step's launches as the path makes them).
+    Returns {"warp", "warp_grad", "direct"} rows."""
+    log(f"phase 11a: Point-MVSNet's kernels: the warp forward at a "
+        f"{POINT_W}x{POINT_H} map's 7 volumes ({POINT_VIEWS} views, D = "
+        f"{POINT_D} coarse, 5 per pixel in the flow)")
+    scene = make_plane_scene(num_views=POINT_VIEWS, height=POINT_H,
+                             width=POINT_W, z0=10.0)
+    rows = {"warp": point_warp_rows(scene, device, POINT_D, "map")}
+    del scene
+    log(f"  the warp backward at a train step's 7 volumes, batch "
+        f"{POINT_TRAIN_BATCH}, {POINT_TRAIN_VIEWS - 1} sources, "
+        f"{TRAIN_W}x{TRAIN_H} images, D = {POINT_TRAIN_D} coarse")
+    scene = make_plane_scene(num_views=POINT_TRAIN_VIEWS, height=TRAIN_H,
+                             width=TRAIN_W, z0=10.0, tilt=(0.05, 0.02))
+    shapes = [(1 / 8, 64, None)] + [(scale, c, inter)
+                                     for scale, inter in POINT_FLOW
+                                     for c in POINT_LEVELS]
+    grad_rows = []
+    for i, (scale, c, inter) in enumerate(shapes):
+        args = point_volume_inputs(scene, scale, c, torch.float32, device,
+                                   batch=POINT_TRAIN_BATCH, seed=i,
+                                   depths=POINT_TRAIN_D, inter=inter)
+        b, d, h, w = args[3].shape
+        grad = torch.randn((b, d, h, w, c), generator=torch.Generator(
+            ).manual_seed(20 + i)).to(device)
+        path_depth = inter is not None  # the flow's hypotheses need one
+        for depth in (False, True) if path_depth else (False,):
+            err = check_grad_kernel(
+                fused_variance_volume_grad, fused_variance_volume_grad_plain,
+                grad, args, depth,
+                f"warp backward B={b} D={d} {w}x{h} C={c} ddepth={depth}")
+        ms = cuda_ms(lambda: fused_variance_volume_grad(
+            grad, *args, depth_grad=path_depth))
+        plain_ms = cuda_ms(lambda: fused_variance_volume_grad_plain(
+            grad, *args, depth_grad=path_depth), iters=3, warmup=1)
+        by, ops = warp_grad_bound(b, args[1].shape[1], d, h, w, c, 4,
+                                  depth=path_depth)
+        log(f"    as the path runs it (ddepth={path_depth}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(by, ops):.4f}"
+            f" ms (bytes {by:.4f}, ops {ops:.4f})")
+        grad_rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, bytes_ms=by,
+                              ops_ms=ops))
+        del args, grad
+    rows["warp_grad"] = grad_rows
+    log(f"  one train step's 7 backward launches: kernel "
+        f"{sum(r['ms'] for r in grad_rows):.4f} ms, plain "
+        f"{sum(r['plain_ms'] for r in grad_rows):.4f} ms, bound "
+        f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in grad_rows):.4f} ms")
+    log("  VolumeConv's two f32 convs at Cin = 64 (direct kernel) at the "
+        "map's shapes")
+    g = torch.Generator(device="cpu").manual_seed(11)
+    d, h, w = POINT_D, POINT_H // 8, POINT_W // 8
+    direct = []
+    for cout, f in ((8, 1), (64, 8)):
+        err, args = check_conv(g, device, 1, d // f, h // f, w // f, 64, cout,
+                               True, torch.float32, "Point-MVSNet ")
+        direct.append(time_conv(err, *args, True))
+        del args
+    rows["direct"] = direct
+    return rows
+
+
+class GraphTape:
+    """The kNN graphs of one Point-MVSNet run, replayed in another.
+
+    On the regular hypothesis lattice some points have neighbours at
+    nearly equal distances, so an f32 rounding of the lattice (the card's
+    sums against the CPU's) can swap the 16th and 17th nearest, and three
+    EdgeConvs carry such a swap three hops along the graph. A card run
+    therefore takes the CPU run's graphs, after checking that its own
+    lattice lies within 1e-4 of the CPU's and that the card's lattice_knn
+    gives on it exactly what the CPU's gives on the same values; the share
+    of points whose neighbour sets the two graphs agree on is logged."""
+
+    def __init__(self):
+        self.graphs, self.shares = [], []
+
+    @contextlib.contextmanager
+    def record(self):
+        def recording(xyz, kernel_size, k):
+            idx = lattice_knn(xyz, kernel_size=kernel_size, k=k)
+            self.graphs.append((xyz.detach().cpu(), idx.cpu()))
+            return idx
+
+        with self._patched(recording):
+            yield self
+
+    @contextlib.contextmanager
+    def replay(self):
+        calls = iter(self.graphs)
+
+        def replaying(xyz, kernel_size, k):
+            want_xyz, want = next(calls)
+            own = lattice_knn(xyz, kernel_size=kernel_size, k=k)
+            got_xyz = xyz.detach().cpu()
+            err = (got_xyz - want_xyz).abs().max().item()
+            if err > 1e-4:
+                fail(f"kNN lattice differs from the recorded one by {err}")
+            if not torch.equal(own.cpu(), lattice_knn(got_xyz, kernel_size,
+                                                      k)):
+                fail("lattice_knn differs on the card from the CPU's on the "
+                     "same lattice")
+            self.shares.append((own.cpu().sort(-1).values
+                                == want.sort(-1).values).all(-1)
+                               .float().mean().item())
+            return want.to(own.device)
+
+        self.shares = []
+        with self._patched(replaying):
+            yield self
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _patched(fn):
+        saved = point_module.lattice_knn
+        point_module.lattice_knn = fn
+        try:
+            yield
+        finally:
+            point_module.lattice_knn = saved
+
+
+def phase_point_vs_cpu(device):
+    """11b: a seeded Point-MVSNet at 128x160, 3 views, 16 coarse
+    hypotheses, f32, card (kernels) against CPU (plain versions), untiled
+    and at flow_sub_stride=2, the card on the CPU's kNN graphs
+    (GraphTape): the coarse pre-softmax score, coarse depth and
+    probability map, flow1, flow2 (= depth) and both flows'
+    probabilities."""
+    scene = make_plane_scene(num_views=3, height=128, width=160, z0=10.0,
+                             tilt=(0.05, 0.02))
+    unit = 4.0 / 15
+    model = PointMVSNet(num_depth=16,
+                        generator=torch.Generator().manual_seed(7))
+    scores = []
+    hook = model.coarse_vol_conv.register_forward_hook(
+        lambda m, a, out: scores.append(out.float().cpu()))
+    for stride in (1, 2):
+        log(f"phase 11b: Point-MVSNet 128x160, 3 views, D=16, f32, "
+            f"flow_sub_stride={stride}, card vs CPU")
+        model.flow_sub_stride = stride
+        tape = GraphTape()
+        with tape.record():
+            cpu = point_outputs(model, point_inputs(scene, "cpu",
+                                                    interval=unit), "cpu")
+        with tape.replay():
+            card = point_outputs(model, point_inputs(scene, device,
+                                                     interval=unit), device)
+        log(f"  kNN graphs: {len(tape.graphs)}; card's own graph agrees "
+            f"with the CPU's at " + ", ".join(f"{x:.4f}" for x in
+                                               tape.shares)
+            + " of the points (near ties; the card runs on the CPU's)")
+        check_scores("Point-MVSNet coarse", scores[-2], scores[-1],
+                     torch.float32)
+        check_depth("coarse depth", cpu["coarse_depth"], card["coarse_depth"],
+                    unit, torch.float32)
+        check_probs("coarse probability map", cpu["coarse_prob_map"],
+                    card["coarse_prob_map"])
+        for it, (_, inter) in enumerate(POINT_FLOW):
+            key = f"flow{it + 1}"
+            check_depth(key, cpu[key], card[key], inter * unit,
+                        torch.float32)
+            check_probs(f"{key} probabilities", cpu[f"{key}_prob"],
+                        card[f"{key}_prob"])
+        if not torch.equal(card["depth"], card["flow2"]):
+            fail("depth is not the last flow")
+    hook.remove()
+
+
+def point_outputs(model, inputs, device) -> dict:
+    apply_fn = make_apply_fn(model, device)
+    out = {}
+    hook = model.register_forward_hook(
+        lambda m, a, o: out.update({k: v.float().cpu() for k, v in o.items()
+                                    if k != "world_points"}))
+    apply_fn(*inputs)
+    hook.remove()
+    return out
+
+
+def check_probs(what, p_cpu, p_card, tol=1e-4):
+    err = (p_card - p_cpu).abs().max().item()
+    log(f"  {what} |card-cpu| max {err:.3e} (limit {tol})")
+    if not err <= tol:
+        fail(f"{what}: card differs from CPU")
+
+
+def point_breakdown(model, run) -> dict:
+    """Device ms of one run by layer: the image towers, the coarse volume,
+    VolumeConv, the flow's variance features, the kNN, the EdgeConvs, the
+    MLP and head; 'rest': the resizes, projections, xyz, softmaxes and
+    regressions (in a train step also the loss, backward and optimizer)."""
+    return with_rest(*module_spans(
+        {"image towers": (model.coarse_img_conv, model.flow_img_conv),
+         "VolumeConv": model.coarse_vol_conv,
+         "EdgeConvs": (model.edge_conv0, model.edge_conv1, model.edge_conv2),
+         "MLP / head": (model.flow_mlp, model.flow_head)},
+        point_module,
+        {"fused_variance_volume": lambda ref, src, rel, hyp: (
+            "flow features" if hyp.shape[1] == 5 else "coarse volume"),
+         "lattice_knn": "kNN"}, run))
+
+
+def phase_point_full_width(device) -> dict:
+    """11c: full width through cli.infer.make_apply_fn at flow_sub_stride
+    4 and 1: ms per map, peak memory, launches (exact), device ms by layer
+    and the profiler's top kernels and idle share. Returns {stride:
+    (launches, ms, peak GiB, layers)}."""
+    log(f"phase 11c: Point-MVSNet at full width {POINT_W}x{POINT_H}, "
+        f"{POINT_VIEWS} views, {POINT_D} hypotheses, f32, maps "
+        f"{POINT_W // 2}x{POINT_H // 2}, batch 1")
+    scene = make_plane_scene(num_views=POINT_VIEWS, height=POINT_H,
+                             width=POINT_W, z0=10.0)
+    args = point_inputs(scene, device)
+    lo, hi = 8.0 - 2.25 * POINT_INTERVAL, 12.0 + 2.25 * POINT_INTERVAL
+    result = {}
+    for stride in (4, 1):
+        cfg = load_config(str(MVS_CONFIG),
+                          [*POINT_EVAL, f"model.flow_sub_stride={stride}"])
+        model = build_model(cfg, torch.Generator().manual_seed(0))
+        apply_fn = make_apply_fn(model, device,
+                                 **cli_infer.model_static_kwargs(cfg))
+        apply_fn(*args)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        depth, conf = apply_fn(*args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = map_ms(apply_fn, args)
+        log(f"  flow_sub_stride={stride}: {ms:.2f} ms per depth map, peak "
+            f"{peak:.3f} GiB allocated, launches {json.dumps(counts)}")
+        if counts != point_want("map"):
+            fail(f"Point-MVSNet launches {counts}, want {point_want('map')}")
+        if depth.shape != (1, POINT_H // 2, POINT_W // 2) or \
+                conf.shape != (1, POINT_H // 8, POINT_W // 8):
+            fail(f"output shapes {tuple(depth.shape)} {tuple(conf.shape)}")
+        # The coarse soft-argmin lies in the ladder; each flow moves it by
+        # at most 2 of its intervals. The 2-tap map is at most 2.
+        if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()
+                and depth.min() >= lo - 1e-3 and depth.max() <= hi + 1e-3
+                and ((conf >= 0) & (conf <= 2 + 1e-5)).all()):
+            fail("Point-MVSNet full-width outputs not finite or out of range")
+        layers = point_breakdown(model, lambda: apply_fn(*args))
+        log("  device ms by layer, one map: " + json.dumps(layers))
+        profile_run(apply_fn, args)
+        result[stride] = (counts, ms, peak, layers)
+        del model, apply_fn, depth, conf
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_point_from_disk(device, root: Path, work: Path) -> dict:
+    """11d: cli infer --config configs/cas_eval_dtu.yaml
+    model.name=point_mvsnet over phase 8d's scan (1600x1200 cut to
+    1280x960), flow_sub_stride 4, batch 1, launches exact; then cli fuse
+    with the config's thresholds: a valid PLY. Returns the launches."""
+    log(f"phase 11d: cli infer model.name=point_mvsnet over phase 8d's scan "
+        f"({CVP_SCAN_VIEWS} views at 1600x1200, fitted to "
+        f"{POINT_W}x{POINT_H}), f32, flow_sub_stride 4, batch 1; then cli "
+        f"fuse")
+    overrides = [*POINT_EVAL, "model.flow_sub_stride=4", "data.batch_size=1"]
+    ckpt = work / "point_mvsnet.pt"
+    torch.save(build_model(load_config(str(MVS_CONFIG), overrides),
+                           torch.Generator().manual_seed(0)).state_dict(),
+               ckpt)
+    out = work / "out_point"
+    reset_counts()
+    result = cli_infer.main([
+        "--config", str(MVS_CONFIG), "--ckpt", str(ckpt), "--out", str(out),
+        "--device", str(device), *overrides, f"data.eval_root={root}",
+        f"data.eval_list={root / 'lists' / 'test.txt'}"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = point_want("map", CVP_SCAN_VIEWS)
+    log(f"  {result['maps']} maps in {result['seconds']:.4f} s through the "
+        f"CLI: {result['maps'] / result['seconds']:.4f} maps/s; launches "
+        f"{json.dumps(counts)}")
+    if counts != want or result["maps"] != CVP_SCAN_VIEWS:
+        fail(f"cli infer point_mvsnet launches {counts}, want {want}")
+    check_files(out / "scan1", CVP_SCAN_VIEWS, POINT_H // 2, POINT_W // 2)
+    ply = cli_fuse.main(["--config", str(MVS_CONFIG), "--out", str(out),
+                         "--device", str(device), f"data.eval_root={root}"])[0]
+    log(f"  cli fuse (the config's thresholds) over the Point-MVSNet maps: "
+        + check_cloud(ply))
+    return counts
+
+
+def float64_grads(make_task, state, batch) -> dict:
+    """One train-mode forward and backward of make_task() in float64 on the
+    CPU from `state`: {name: gradient}. The model casts its inputs with
+    .float(), which is kept float64 for the call."""
+    task = make_task()
+    model = task.model.double()
+    model.load_state_dict({k: v.double() for k, v in state.items()})
+    model.train()
+    tb = {k: v.double() for k, v in batch_to_device(batch, "cpu").items()}
+    to_float = torch.Tensor.float
+    torch.Tensor.float = lambda t: t if t.dtype == torch.float64 \
+        else to_float(t)
+    try:
+        loss, _ = task.loss_and_metrics(tb)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+    finally:
+        torch.Tensor.float = to_float
+    return dict(zip(names, grads))
+
+
+def point_train_samples(height, width, batch):
+    return train_samples(height, width, batch, views=POINT_TRAIN_VIEWS,
+                         depths=POINT_TRAIN_D)
+
+
+def phase_point_training(device):
+    """11e: one f32 train step card against CPU (128x160, 3 views, batch
+    2, 16 coarse hypotheses; phase 7b's limits, the card on the CPU's kNN
+    graphs; BatchNorm counts 1, and 2 in the flow's networks, which run
+    once per flow iteration), the ladder over 6..10: the masked MAE's
+    gradient is sign(est - gt), which flips between card and CPU at a pixel
+    whose depth sits within their rounding of its GT, and a seeded model
+    regresses the ladder's middle, so the plane (near 10) is kept 2 away
+    from it. The step's f32 gradients of the coarse stage are ill-posed in
+    f32: on the CPU they lie up to 2.2e-2 of their largest magnitude from
+    the float64 step's (one rounding of the images moves them 2e-5 to
+    1e-2), and the card's lie 1.1e-3 to 1.3e-3 from the CPU's (cosine >=
+    0.9999992, on an NVIDIA H100 80GB HBM3); so a gradient also passes
+    when the card's is no farther from the float64 step's than twice the
+    CPU's is (float64_grads). Then training at full width with the train
+    config's model and task (launches per step exact). Returns (launches,
+    ms, peak GiB)."""
+    log("phase 11e: one Point-MVSNet train step, card vs CPU, 128x160, 3 "
+        "views, batch 2, D=16, f32, Adam 1e-3")
+    state = PointMVSNet(num_depth=16, generator=torch.Generator().manual_seed(
+        7)).state_dict()
+    tape = GraphTape()
+
+    def runs(label):
+        return tape.record() if label == "cpu" else tape.replay()
+
+    def make_task():
+        return PointTask(PointMVSNet(num_depth=16), num_depth=16)
+
+    batch = collate_point(train_samples(128, 160, 2, views=POINT_TRAIN_VIEWS,
+                                        depths=16, start=6.0))
+    check_train_step(
+        make_task, state, batch, device,
+        ("loss", "coarse_loss", "flow1_loss", "flow2_loss",
+         "abs_depth_error"), (), updates=(1, 2), runs=runs,
+        exact=lambda: float64_grads(make_task, state, batch))
+    log(f"  kNN graphs {len(tape.graphs)}; the float64 run's own graph "
+        f"agrees with the CPU's at " + ", ".join(f"{x:.4f}" for x in
+                                                 tape.shares)
+        + " of the points")
+    log(f"phase 11e: Point-MVSNet training at full width, {TRAIN_W}x"
+        f"{TRAIN_H}, {POINT_TRAIN_VIEWS} views, {POINT_TRAIN_D} hypotheses, "
+        f"f32, batch {POINT_TRAIN_BATCH}, Adam 1e-3 "
+        f"(configs/cas_train_dtu.yaml's task)")
+    cfg = load_config(str(MVS_TRAIN_CONFIG), POINT_TRAIN)
+    model = build_model(cfg, torch.Generator().manual_seed(0),
+                        trained=False).to(device)
+    task, collate = cli_train.build_task(cfg, model)
+    batch = collate(point_train_samples(TRAIN_H, TRAIN_W, POINT_TRAIN_BATCH))
+    return train_full_width(task, batch, point_want("train"), device,
+                            lambda run: point_breakdown(model, run))
+
+
+def phase_point_cli_train(device, work: Path) -> dict:
+    """11f: cli train --config configs/cas_train_dtu.yaml
+    model.name=point_mvsnet, one epoch on a synthetic training layout
+    (images 640x512, 2 steps at batch 2, 48 hypotheses over the
+    generator's range: data.interval_scale=4.24) with a val split and a
+    checkpoint, launches exact; then cli infer from it."""
+    log(f"phase 11f: cli train model.name=point_mvsnet on a synthetic DTU "
+        f"training layout ({TRAIN_W}x{TRAIN_H}), then cli infer from its "
+        f"checkpoint")
+    root = generate(work / "dtu_point_train", num_scans=2, num_views=4,
+                    height=TRAIN_H, width=TRAIN_W, num_depth=LADDER,
+                    num_lights=1, tilt=SCAN_TILT)
+    overrides = [*POINT_TRAIN, "data.batch_size=2",
+                 "data.interval_scale=4.24"]
+    reset_counts()
+    result = cli_train.main([
+        "--config", str(MVS_TRAIN_CONFIG), "--device", str(device),
+        *overrides, f"data.root={root}",
+        f"data.train_list={root}/lists/train.txt",
+        f"data.val_list={root}/lists/val.txt", "train.epochs=1",
+        "train.summary_every_steps=1", f"train.log_dir={work / 'run_point'}"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # 2 train steps, then 2 val batches in eval mode.
+    train, val = point_want("train", 2), point_want("map", 2)
+    want = {k: train[k] + val[k] for k in train}
+    log(f"  {result['step']} steps, losses "
+        + " ".join(f"{x:.4f}" for x in result["losses"])
+        + f", {result['step'] * 2 / result['seconds']:.3f} samples/s "
+        f"through the CLI's steps; val {json.dumps(result['val'])}; "
+        f"launches {json.dumps(counts)}")
+    if counts != want:
+        fail(f"cli train point_mvsnet launches {counts}, want {want}")
+    if result["step"] != 2 or not np.isfinite(result["losses"]).all():
+        fail("cli train point_mvsnet did not take 2 finite steps")
+    (work / "val_point.txt").write_text("scan2\n")
+    out = work / "out_point_train"
+    res = cli_infer.main([
+        "--ckpt", result["ckpt_dir"], "--out", str(out), "--device",
+        str(device), *overrides, f"data.eval_root={root}",
+        f"data.eval_list={work / 'val_point.txt'}", f"data.max_h={TRAIN_H}",
+        f"data.max_w={TRAIN_W}"])
+    check_files(out / "scan2", 4, TRAIN_H // 2, TRAIN_W // 2)
+    log(f"  cli infer loaded step {res['step']}; {res['maps']} maps written")
+    if res["step"] != 2:
+        fail(f"cli infer loaded step {res['step']}")
+    return counts
+
+
+def phase_point(device, root: Path, work: Path) -> dict:
+    rows = phase_point_kernels(device)
+    phase_point_vs_cpu(device)
+    full = phase_point_full_width(device)
+    cli = phase_point_from_disk(device, root, work)
+    train_counts, train_ms, train_peak = phase_point_training(device)
+    cli_train_counts = phase_point_cli_train(device, work)
+    (_, ms4, peak4, _), (_, ms1, peak1, _) = full[4], full[1]
+    log(f"  Point-MVSNet at {POINT_W}x{POINT_H}, D={POINT_D}, {POINT_VIEWS} "
+        f"views, f32: {ms4:.2f} ms per map at flow_sub_stride 4 (peak "
+        f"{peak4:.3f} GiB), {ms1:.2f} ms untiled (peak {peak1:.3f} GiB); "
+        f"training at {TRAIN_W}x{TRAIN_H}, {POINT_TRAIN_VIEWS} views, batch "
+        f"{POINT_TRAIN_BATCH}: {train_ms:.2f} ms per step (peak "
+        f"{train_peak:.3f} GiB)")
+    return dict(rows=rows, full=full, cli=cli, train=train_counts,
+                cli_train=cli_train_counts)
+
+
 def ab_group_levels(device) -> dict:
     """The group-correlation forward at each AACVP level (8a's inputs), f32
     and bf16: device ms per launch."""
@@ -2999,6 +3668,7 @@ def main() -> int:
             8, phase_cvp(device, work))
         mvs = timed(9, phase_mvsnet(device, scan_root, work))
         pyr = timed(10, phase_cvp_training(device, work, grad_rows))
+        point = timed(11, phase_point(device, scan_root, work))
 
     cvp, aacvp = cvp_full["cvp_mvsnet"][0], cvp_full["aacvp_mvsnet"][0]
     mvs_map = mvs["full"][torch.bfloat16][0]
@@ -3025,6 +3695,26 @@ def main() -> int:
 
     step_rows = pyr["rows"]["warp"]
 
+    def at_point(key):
+        """The kernel's launches per Point-MVSNet map (11c, flow stride 4),
+        per train step (11e) and through 11d's and 11f's CLI runs."""
+        return dict(point_launches=point["full"][4][0][key],
+                    point_train_launches=point["train"][key],
+                    point_cli_launches=point["cli"][key],
+                    point_cli_train_launches=point["cli_train"][key])
+
+    def point_times(rows, prefix):
+        """Sums over Point-MVSNet's launches (11a)."""
+        return {f"{prefix}_ms": sum(r["ms"] for r in rows),
+                f"{prefix}_plain_ms": sum(r["plain_ms"] for r in rows),
+                f"{prefix}_bound_ms": sum(max(r["bytes_ms"], r["ops_ms"])
+                                          for r in rows),
+                f"{prefix}_max_abs_err": max(r["err"] for r in rows)}
+
+    def direct_launches(counts):
+        return (counts["conv3d_affine"] - counts["conv3d_affine.mma"]
+                - counts["conv3d_affine.tf32x3"])
+
     kernels = [
         kernel_entry("warp_variance", "mvs_tpu_torch/csrc/warp_variance.cu",
                      "mvs_tpu/ops/warp_pallas.py:288", warp_rows,
@@ -3036,7 +3726,10 @@ def main() -> int:
                      mvsnet_train_launches=mvs["train"]["warp_variance"],
                      mvsnet_cli_launches=mvs["cli"]["warp_variance"],
                      **at_mvsnet(mvs["rows"]["warp"]),
-                     **pyramid_training("warp_variance")),
+                     **pyramid_training("warp_variance"),
+                     **at_point("warp_variance"),
+                     # One f32 Point-MVSNet map's 7 launches (11a).
+                     **point_times(point["rows"]["warp"], "point")),
         kernel_entry("conv3d_affine", "mvs_tpu_torch/csrc/conv3d_affine.cu",
                      "mvs_tpu/ops/conv3d_pallas.py:259", conv_rows,
                      launches["conv3d_affine"],
@@ -3046,7 +3739,8 @@ def main() -> int:
                      aacvp_launches=aacvp["conv3d_affine"],
                      mvsnet_launches=mvs_map["conv3d_affine"],
                      mvsnet_cli_launches=mvs["cli"]["conv3d_affine"],
-                     **pyramid_training("conv3d_affine")),
+                     **pyramid_training("conv3d_affine"),
+                     **at_point("conv3d_affine")),
         # The f32 variant of the same implicit GEMM (3xTF32): times over
         # AACVP's 10 f32 launches of a bf16 map (8a), library cuDNN f32 with
         # TF32 off; bound_ms is the larger of the bytes' time and the three
@@ -3066,7 +3760,23 @@ def main() -> int:
                      bytes_bound_ms=sum(r["bytes_ms"] for r in tf32_rows),
                      mvsnet_f32_launches=mvs["full"][torch.float32][0][
                          "conv3d_affine.tf32x3"],
-                     **pyramid_training("conv3d_affine.tf32x3")),
+                     **pyramid_training("conv3d_affine.tf32x3"),
+                     **at_point("conv3d_affine.tf32x3")),
+        # The direct variant at f32 with Cin = 64: Point-MVSNet's two
+        # VolumeConv convs (64->8 at 96x120x160, 64->64 at 12x15x20; 11a),
+        # library cuDNN f32 with TF32 off. launches: per Point-MVSNet map
+        # (11c); cli_launches: 11d's run.
+        kernel_entry("conv3d_affine.direct",
+                     "mvs_tpu_torch/csrc/conv3d_affine.cu",
+                     "mvs_tpu/ops/conv3d_pallas.py:259",
+                     point["rows"]["direct"],
+                     direct_launches(point["full"][4][0]),
+                     direct_launches(point["cli"]), library=True,
+                     point_launches=direct_launches(point["full"][4][0]),
+                     point_train_launches=direct_launches(point["train"]),
+                     point_cli_launches=direct_launches(point["cli"]),
+                     point_cli_train_launches=direct_launches(
+                         point["cli_train"])),
         # The backward has no Pallas counterpart (JAX trains through XLA's
         # gather path); it is the gradient of the kernel above. launches:
         # per train step (7c); cli_launches: 7d's cli train run.
@@ -3091,7 +3801,14 @@ def main() -> int:
                      cvp_train_plain_ms=sum(r["plain_ms"] for r in step_rows),
                      cvp_train_bound_ms=sum(max(r["bytes_ms"], r["ops_ms"])
                                             for r in step_rows),
-                     cvp_train_max_abs_err=max(r["err"] for r in step_rows)),
+                     cvp_train_max_abs_err=max(r["err"] for r in step_rows),
+                     **at_point("warp_variance_grad"),
+                     point_train_depth_launches=point["train"][
+                         "warp_variance_grad.depth"],
+                     # One f32 Point-MVSNet train step's 7 launches, the
+                     # flow's 6 with the hypotheses' gradient (11a).
+                     **point_times(point["rows"]["warp_grad"],
+                                   "point_train")),
         # No pallas_call of its own: the counterpart of the fused
         # group-correlation mode of the banded warp (hat_warp.py:413-417,
         # 477). launches: per AACVP map (8c); cli_launches: 8d's AACVP run.
@@ -3100,7 +3817,8 @@ def main() -> int:
                      "mvs_tpu/ops/hat_warp.py:413", group_rows,
                      aacvp["group_correlation"],
                      cvp_cli["aacvp_mvsnet"]["group_correlation"],
-                     library=False, **pyramid_training("group_correlation")),
+                     library=False, **pyramid_training("group_correlation"),
+                     **at_point("group_correlation")),
         # The group correlation's backward (none in JAX, which autodiffs
         # the gather path): times over one AACVP train step's two f32
         # launches (10a), the finer level's with the hypotheses' gradient;
@@ -3113,7 +3831,8 @@ def main() -> int:
                      library=False, **on_dtu_rig(pyr["rows"]["group"]),
                      **pyramid_training("group_correlation_grad"),
                      aacvp_train_depth_launches=pyr["train"]["aacvp_mvsnet"][
-                         "group_correlation_grad.depth"]),
+                         "group_correlation_grad.depth"],
+                     **at_point("group_correlation_grad")),
     ]
     log(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))

@@ -22,8 +22,11 @@ reads: ``<scan>/depth_est/<ref>.pfm``, ``<scan>/confidence/<ref>.pfm`` and
 A sample is a dict as the JAX eval dataset yields it: imgs (V, H, W, 3),
 intrinsics (V, 3, 3), extrinsics (V, 4, 4), depth_values (D,), depth_min,
 depth_max (CVP-MVSNet's range), and scan, ref_view, depth_interval for the
-writer. The model (`model.name`: mvsnet, cas_mvsnet, cvp_mvsnet or
-aacvp_mvsnet) picks which of them it takes.
+writer. The model (`model.name`: mvsnet, cas_mvsnet, cvp_mvsnet,
+aacvp_mvsnet or point_mvsnet) picks which of them it takes. Point-MVSNet
+also takes ``model.num_depth_coarse`` (model_static_kwargs), writes its
+depth at half the images' resolution and, as its confidence, the coarse
+2-tap probability map at 1/8 (`fuse` resizes it to the depth map).
 """
 
 from __future__ import annotations
@@ -47,8 +50,9 @@ from mvs_tpu_torch.train.checkpoint import CheckpointManager
 from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.platform import full_f32, resolve_device
 
-__all__ = ["main", "make_apply_fn", "stack_model_inputs",
-           "run_batched_inference", "write_depth_outputs"]
+__all__ = ["main", "make_apply_fn", "model_static_kwargs",
+           "stack_model_inputs", "run_batched_inference",
+           "write_depth_outputs"]
 
 
 def stack_model_inputs(samples, device, family: str = "cascade") -> tuple:
@@ -56,7 +60,8 @@ def stack_model_inputs(samples, device, family: str = "cascade") -> tuple:
     ``family``): MVSNet's (imgs, proj at 1/4 resolution, depth_values) for
     "single", CasMVSNet's (imgs, {stageK: proj}, depth_values) for
     "cascade", CVP-MVSNet's (imgs, intrinsics, extrinsics, depth_min,
-    depth_max) for "pyramid"."""
+    depth_max) for "pyramid", Point-MVSNet's (imgs, intrinsics,
+    extrinsics, depth_min, depth_interval) for "point"."""
     def stack(key):
         return torch.from_numpy(
             np.stack([np.asarray(s[key], np.float32) for s in samples])
@@ -66,6 +71,9 @@ def stack_model_inputs(samples, device, family: str = "cascade") -> tuple:
     if family == "pyramid":
         return (stack("imgs"), intr, extr, stack("depth_min"),
                 stack("depth_max"))
+    if family == "point":
+        return (stack("imgs"), intr, extr, stack("depth_min"),
+                stack("depth_interval"))
     if family == "single":
         return (stack("imgs"),
                 compose_projection(scale_intrinsics(intr, 0.25), extr),
@@ -77,9 +85,19 @@ def stack_model_inputs(samples, device, family: str = "cascade") -> tuple:
     return stack("imgs"), proj, stack("depth_values")
 
 
-def make_apply_fn(model, device=None):
+def model_static_kwargs(cfg) -> dict:
+    """The keyword arguments of a model's forward beyond the inputs
+    stack_model_inputs builds: Point-MVSNet's coarse ladder length."""
+    if cfg.model.name == "point_mvsnet":
+        return {"num_depth": cfg.model.num_depth_coarse}
+    return {}
+
+
+def make_apply_fn(model, device=None, **static_kwargs):
     """The inference program: the model's inputs (stack_model_inputs) ->
-    (depth, conf).
+    (depth, conf), conf the model's photometric_confidence or else its
+    coarse_prob_map (Point-MVSNet's). `static_kwargs` go to every forward
+    (model_static_kwargs).
 
     Moves `model` to `device` (the CUDA card unless the caller passes
     device='cpu') and runs it in eval mode without autograd. Its float32
@@ -96,16 +114,19 @@ def make_apply_fn(model, device=None):
     @torch.inference_mode()
     def apply(*inputs):
         with full_f32():
-            out = model(*map(to_device, inputs))
-        return out["depth"], out["photometric_confidence"]
+            out = model(*map(to_device, inputs), **static_kwargs)
+        return out["depth"], out.get("photometric_confidence",
+                                     out.get("coarse_prob_map"))
 
     return apply
 
 
-def run_batched_inference(model, samples_iter, batch_size: int, device=None):
-    """Yield (sample, depth (H, W), conf (H, W)) numpy maps per sample."""
+def run_batched_inference(model, samples_iter, batch_size: int, device=None,
+                          **static_kwargs):
+    """Yield (sample, depth (H, W), conf) numpy maps per sample (conf at
+    the depth's resolution, Point-MVSNet's at 1/8 of the images)."""
     device = resolve_device(device)
-    apply_fn = make_apply_fn(model, device)
+    apply_fn = make_apply_fn(model, device, **static_kwargs)
     pending: dict[tuple, list] = {}
 
     def flush(bucket):
@@ -206,7 +227,8 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     done = 0
     for sample, depth, conf in run_batched_inference(
-            model, (ds[i] for i in range(total)), batch_size, device):
+            model, (ds[i] for i in range(total)), batch_size, device,
+            **model_static_kwargs(cfg)):
         write_depth_outputs(out_root, sample, depth, conf, cfg.data.num_depth)
         img8 = (np.clip(sample["imgs"][0], 0, 1) * 255).astype(np.uint8)
         ref = sample["ref_view"]

@@ -1,5 +1,5 @@
-"""Training of MVSNet, CasMVSNet, CVP-MVSNet and AACVP-MVSNet
-(counterpart of mvs_tpu.cli.train, one card).
+"""Training of MVSNet, CasMVSNet, CVP-MVSNet, AACVP-MVSNet and
+Point-MVSNet (counterpart of mvs_tpu.cli.train, one card).
 
     python -m mvs_tpu_torch.cli train --config configs/cas_train_dtu.yaml \
         [--resume] [--device cpu] [section.key=value ...]
@@ -11,7 +11,9 @@ build_model_and_task does: mvsnet trains MVSNetTask (``train.loss``
 smooth_l1 or ohem) on collate_mvsnet's batches, cas_mvsnet CascadeTask on
 collate_cascade's, cvp_mvsnet and aacvp_mvsnet PyramidTask on
 collate_pyramid's (with its default 2 levels, as mvs_tpu takes it by name:
-a model with more levels is supervised on its two finest). One loop: the
+a model with more levels is supervised on its two finest), point_mvsnet
+PointTask (``model.num_depth_coarse`` hypotheses) on collate_point's. One
+loop: the
 preprocessed-DTU training split
 (io.dtu.DTUTrainDataset through the threaded io.pipeline.DataLoader), the
 train step (forward in train mode, the task's loss, backward, the
@@ -24,8 +26,8 @@ over ``data.val_list`` (lights (3,), as the JAX CLI), and every
 validation abs_depth_error (train.checkpoint). ``--resume`` restores the
 latest checkpoint. The run is on the card unless --device names another;
 the model starts from the Flax modules' initial state drawn from
-``train.seed``. Point-MVSNet waits for ROADMAP.md queue 1, item 12, and
-mesh fields above 1 for data-parallel training (item 9).
+``train.seed``. Mesh fields above 1 wait for data-parallel training
+(ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import time
 import torch
 
 from mvs_tpu_torch.io.dtu import (DTUTrainDataset, collate_cascade,
-                                  collate_mvsnet, collate_pyramid)
+                                  collate_mvsnet, collate_point,
+                                  collate_pyramid)
 from mvs_tpu_torch.io.pipeline import DataLoader
 from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.nn.blocks import BatchStats
@@ -44,7 +47,7 @@ from mvs_tpu_torch.train.checkpoint import CheckpointManager
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.train.schedule import build_schedule
 from mvs_tpu_torch.train.state import make_eval_step, make_train_step
-from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask,
+from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask, PointTask,
                                       PyramidTask, batch_to_device)
 from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.meters import DictAverageMeter, ScalarLogger
@@ -102,16 +105,14 @@ def build_task(cfg, model):
                            ohem_topk=cfg.train.ohem_topk), collate_mvsnet)
     if cfg.model.name in ("cvp_mvsnet", "aacvp_mvsnet"):
         return PyramidTask(model), collate_pyramid
+    if cfg.model.name == "point_mvsnet":
+        return (PointTask(model, num_depth=cfg.model.num_depth_coarse),
+                collate_point)
     return CascadeTask(model), collate_cascade
 
 
 def _check_supported(cfg) -> None:
-    """Raise on what the port cannot train yet: Point-MVSNet, and more than
-    one card."""
-    if cfg.model.name == "point_mvsnet":
-        raise NotImplementedError(
-            "training 'point_mvsnet' is not ported yet (ROADMAP.md queue 1, "
-            "item 12)")
+    """Raise on what the port cannot train yet: more than one card."""
     t = cfg.train
     if max(t.mesh_data, t.mesh_view, t.mesh_depth, t.mesh_space) > 1:
         raise NotImplementedError(

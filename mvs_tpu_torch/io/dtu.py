@@ -1,6 +1,6 @@
 """DTU readers (counterpart of mvs_tpu.io.dtu's read_image, _scale_to_fit,
-DTUTrainDataset, DTUEvalDataset, collate_mvsnet, collate_cascade and
-collate_pyramid).
+DTUTrainDataset, DTUEvalDataset, collate_mvsnet, collate_cascade,
+collate_pyramid and collate_point).
 
 Training layout (preprocessed DTU): Rectified/{scan}_train/
 rect_{v+1:03d}_{light}_r5000.png, Depths/{scan}_train/depth_map_{v:04d}.pfm
@@ -32,7 +32,7 @@ from mvs_tpu_torch.io.png import PNG_SIGNATURE, read_png
 
 __all__ = ["read_image", "resize_bilinear", "image_path", "DTUTrainDataset",
            "DTUEvalDataset", "collate_mvsnet", "collate_cascade",
-           "collate_pyramid"]
+           "collate_pyramid", "collate_point"]
 
 
 def _decode_jpeg(path) -> np.ndarray:
@@ -298,3 +298,18 @@ def collate_pyramid(samples: list[dict], num_levels: int = 2) -> dict:
             "depth_gt_levels": levels,
             "mask_levels": [(g > dmin[:, None, None]).astype(np.float32)
                             for g in levels]}
+
+
+def collate_point(samples: list[dict]) -> dict:
+    """Train batch of the point task (Point-MVSNet): the intrinsics at the
+    images' resolution (the stored 1/4-resolution ones x4), the GT
+    upsampled x4 to the images (np.repeat, as collate_cascade; 0 =
+    invalid), depth_start the samples' depth_min."""
+    intr = _stack(samples, "intrinsics").copy()
+    intr[..., :2, :] *= 4.0
+    gt = _stack(samples, "depth_gt")
+    return {"imgs": _stack(samples, "imgs"), "intrinsics": intr,
+            "extrinsics": _stack(samples, "extrinsics"),
+            "depth_start": _stack(samples, "depth_min"),
+            "depth_interval": _stack(samples, "depth_interval"),
+            "depth_gt": gt.repeat(4, axis=1).repeat(4, axis=2)}

@@ -1,9 +1,12 @@
 """Model factory from config (counterpart of mvs_tpu.models.registry).
 
 The port has MVSNet, CasMVSNet (FPN features, one cost regularizer per
-stage), CVP-MVSNet and AACVP-MVSNet, all with batch norm, for inference
-and training. Point-MVSNet raises NotImplementedError naming the
-ROADMAP.md item (queue 1) that ports it.
+stage), CVP-MVSNet, AACVP-MVSNet and Point-MVSNet, all with batch norm,
+for inference and training. Point-MVSNet is built as mvs_tpu builds it
+(image base channels from model.base_channels, its flow scales, interval
+factors and test-time sub-flow stride) with model.num_depth_coarse as its
+coarse ladder; mvs_tpu's Point-MVSNet has no compute dtype and runs in
+f32, so the port refuses another model.compute_dtype for it.
 """
 
 from __future__ import annotations
@@ -14,12 +17,12 @@ from torch import nn
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
 from mvs_tpu_torch.models.cvp_mvsnet import CVPMVSNet
 from mvs_tpu_torch.models.mvsnet import MVSNet
+from mvs_tpu_torch.models.point_mvsnet import PointMVSNet
 
 __all__ = ["build_model", "MODEL_NAMES"]
 
 MODEL_NAMES = ("mvsnet", "cas_mvsnet", "cvp_mvsnet", "aacvp_mvsnet",
                "point_mvsnet")
-_ROADMAP_ITEM = {"point_mvsnet": 12}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -29,10 +32,6 @@ def build_model(cfg, generator: torch.Generator | None = None,
     (seed 0 when None; trained=False: the initial state to train from);
     load weights to replace them."""
     m = cfg.model
-    if m.name in _ROADMAP_ITEM:
-        raise NotImplementedError(
-            f"model {m.name!r} is not ported yet (ROADMAP.md queue 1, item "
-            f"{_ROADMAP_ITEM[m.name]})")
     if m.name not in MODEL_NAMES:
         raise ValueError(f"unknown model {m.name!r}; options: {MODEL_NAMES}")
     if m.normalization != "batch":
@@ -43,6 +42,18 @@ def build_model(cfg, generator: torch.Generator | None = None,
         raise ValueError(f"compute_dtype {m.compute_dtype!r}; options: "
                          f"{tuple(_DTYPES)}")
     dtype = _DTYPES[m.compute_dtype]
+    if m.name == "point_mvsnet":
+        if dtype != torch.float32:
+            raise ValueError(
+                f"point_mvsnet runs in float32 only (mvs_tpu's Point-MVSNet "
+                f"has no compute dtype); got compute_dtype="
+                f"{m.compute_dtype!r}")
+        return PointMVSNet(img_base_channels=m.base_channels,
+                           flow_scales=tuple(m.flow_scales),
+                           inter_scales=tuple(m.inter_scales),
+                           flow_sub_stride=m.flow_sub_stride,
+                           num_depth=m.num_depth_coarse, generator=generator,
+                           trained=trained)
     if m.name == "mvsnet":
         return MVSNet(base_channels=m.base_channels, refine=m.refine,
                       compute_dtype=dtype, generator=generator,

@@ -34,7 +34,7 @@ from torch import nn
 from mvs_tpu_torch.ops.conv3d import conv3d_affine
 
 __all__ = ["BatchStats", "Norm", "Conv", "ConvTranspose", "ConvBlock",
-           "ConvTransposeBlock", "FusedConvBlock3D", "init_random_"]
+           "ConvTransposeBlock", "FusedConvBlock3D", "Dense", "init_random_"]
 
 _EPS = 1e-5
 _MOMENTUM = 0.9
@@ -91,27 +91,40 @@ class BatchStats(nn.Module):
         self.register_buffer("var", torch.ones(channels))
         self.register_buffer("count", torch.zeros(()))
 
-    def affine(self):
-        """(scale, shift) with x*scale + shift == BN(x) in eval mode."""
-        return _bn_affine(self.scale, self.bias, self.mean, self.var)
+    def affine(self, mean=None, var=None):
+        """(scale, shift) with x*scale + shift == BN(x) in eval mode, or
+        under a batch's moments (mean, var) when given."""
+        if mean is None:
+            mean, var = self.mean, self.var
+        return _bn_affine(self.scale, self.bias, mean, var)
 
-    def normalize_batch(self, y: torch.Tensor) -> torch.Tensor:
-        """Train-mode BN of channels-last `y` in f32 with the batch's biased
-        moments (var = max(E[y^2] - E[y]^2, 0)); updates the statistics.
-        Returns f32."""
+    @staticmethod
+    def batch_moments(y: torch.Tensor):
+        """(mean, var) of channels-last `y` over every axis but the last, in
+        f32: the biased var = max(E[y^2] - E[y]^2, 0)."""
         yf = y.float()
         dims = tuple(range(yf.ndim - 1))
         mean = yf.mean(dims)
-        var = torch.clamp((yf * yf).mean(dims) - mean * mean, min=0.0)
-        with torch.no_grad():
-            keep = _MOMENTUM ** (self.count + 1.0)
-            denom = 1.0 - keep
-            self.mean.mul_((_MOMENTUM - keep) / denom).add_(
-                mean * ((1.0 - _MOMENTUM) / denom))
-            self.var.mul_((_MOMENTUM - keep) / denom).add_(
-                var * ((1.0 - _MOMENTUM) / denom))
-            self.count.add_(1.0)
-        return (yf - mean) * self.scale * torch.rsqrt(var + _EPS) + self.bias
+        return mean, torch.clamp((yf * yf).mean(dims) - mean * mean, min=0.0)
+
+    @torch.no_grad()
+    def record(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """One train-mode update of the statistics by a batch's moments."""
+        keep = _MOMENTUM ** (self.count + 1.0)
+        denom = 1.0 - keep
+        self.mean.mul_((_MOMENTUM - keep) / denom).add_(
+            mean * ((1.0 - _MOMENTUM) / denom))
+        self.var.mul_((_MOMENTUM - keep) / denom).add_(
+            var * ((1.0 - _MOMENTUM) / denom))
+        self.count.add_(1.0)
+
+    def normalize_batch(self, y: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN of channels-last `y` in f32 with the batch's
+        moments (batch_moments); updates the statistics. Returns f32."""
+        mean, var = self.batch_moments(y)
+        self.record(mean, var)
+        return (y.float() - mean) * self.scale * torch.rsqrt(var + _EPS) \
+            + self.bias
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         key = prefix + "count"
@@ -303,6 +316,19 @@ class FusedConvBlock3D(BatchStats):
         return y.to(x.dtype)
 
 
+class Dense(nn.Module):
+    """Bias-free linear map of the last axis (flax.linen.Dense with
+    use_bias=False); ``kernel`` is (out, in), the converter's layout for a
+    Flax (in, out) Dense kernel."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(out_features, in_features))
+
+    def forward(self, x):
+        return x @ self.kernel.to(x.dtype).t()
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator,
                  trained: bool = True) -> nn.Module:
@@ -323,7 +349,7 @@ def init_random_(module: nn.Module, generator: torch.Generator,
         t.copy_(torch.rand(t.shape, generator=generator) * (hi - lo) + lo)
 
     for m in module.modules():
-        if isinstance(m, (Conv, FusedConvBlock3D)):
+        if isinstance(m, (Conv, FusedConvBlock3D, Dense)):
             fan_in = m.kernel[0].numel()
             normal(m.kernel, fan_in ** -0.5)
         elif isinstance(m, ConvTranspose):

@@ -1,18 +1,20 @@
-"""Depth losses of MVSNet, CasMVSNet and CVP / AACVP-MVSNet (counterpart
-of mvs_tpu.train.losses: smooth_l1, masked_smooth_l1, ohem_smooth_l1,
-cascade_loss, pyramid_loss).
+"""Depth losses of MVSNet, CasMVSNet, CVP / AACVP-MVSNet and Point-MVSNet
+(counterpart of mvs_tpu.train.losses: smooth_l1, masked_smooth_l1,
+ohem_smooth_l1, cascade_loss, pyramid_loss, masked_mae,
+point_mvsnet_loss).
 
 Pure functions of tensors with a {0, 1} float mask, safe under an
-all-masked batch (0 / 0 guarded). The point loss waits for its model
-family (ROADMAP.md queue 1, item 12).
+all-masked batch (0 / 0 guarded).
 """
 
 from __future__ import annotations
 
 import torch
 
+from mvs_tpu_torch.geometry.resize import resize_nearest
+
 __all__ = ["smooth_l1", "masked_smooth_l1", "ohem_smooth_l1",
-           "cascade_loss", "pyramid_loss"]
+           "cascade_loss", "pyramid_loss", "masked_mae", "point_mvsnet_loss"]
 
 
 def smooth_l1(err: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -74,3 +76,30 @@ def pyramid_loss(depth_est_levels, depth_gt_levels, mask_levels):
     for est, gt, mask in zip(depth_est_levels, depth_gt_levels, mask_levels):
         total = total + masked_smooth_l1(est, gt, mask)
     return total
+
+
+def masked_mae(est, gt, mask, scale=1.0):
+    """Mean |est - gt| / scale over the mask (PointFlow's interval-normalised
+    MAE)."""
+    return masked_mean((est - gt).abs() / scale, mask > 0.5)
+
+
+def point_mvsnet_loss(preds: dict, gt_depth, depth_interval,
+                      inter_scales=(0.75, 0.375)):
+    """The mean over its terms of the coarse and each flow's
+    interval-normalised MAE. gt_depth (B, H, W) at the images' resolution,
+    0 = invalid, is picked (jax.image.resize "nearest": source pixel
+    floor((i + 0.5) * in / out)) at each prediction's resolution; a term's
+    interval is depth_interval (B,) x its stage's factor (1 for the coarse
+    depth). Returns (total, {"coarse_loss", "flow<i>_loss"})."""
+    def term(est, scale):
+        gt = resize_nearest(gt_depth, *est.shape[1:])
+        return masked_mae(est, gt, (gt > 0).to(est.dtype),
+                          depth_interval[:, None, None] * scale)
+
+    losses = {"coarse_loss": term(preds["coarse_depth"], 1.0)}
+    for i, s in enumerate(inter_scales):
+        key = f"flow{i + 1}"
+        if key in preds:
+            losses[f"{key}_loss"] = term(preds[key], s)
+    return sum(losses.values()) / len(losses), losses

@@ -1,6 +1,7 @@
 """Depth-map quality metrics (counterpart of mvs_tpu.train.metrics): the
-masked absolute depth error and the outlier rates at 2 / 4 / 8 mm. Point-MVSNet's interval metrics wait for that model
-(ROADMAP.md queue 1, item 12). Metrics take no gradient.
+masked absolute depth error, the outlier rates at 2 / 4 / 8 mm, and
+Point-MVSNet's shares of pixels within 1x / 3x the hypothesis interval.
+Metrics take no gradient.
 """
 
 from __future__ import annotations
@@ -9,7 +10,8 @@ import torch
 
 from mvs_tpu_torch.train.losses import masked_mean
 
-__all__ = ["abs_depth_error", "threshold_error_rate", "standard_metrics"]
+__all__ = ["abs_depth_error", "threshold_error_rate", "interval_metrics",
+           "standard_metrics"]
 
 
 @torch.no_grad()
@@ -23,6 +25,19 @@ def threshold_error_rate(depth_est, depth_gt, mask, thresh):
     """Share of valid pixels with |est - gt| > thresh (mm)."""
     err = (depth_est - depth_gt).abs()
     return masked_mean((err > thresh).float(), mask > 0.5)
+
+
+@torch.no_grad()
+def interval_metrics(depth_est, depth_gt, mask, depth_interval,
+                     prefix: str = "") -> dict:
+    """Shares of valid pixels with |est - gt| under 1x and 3x the
+    per-sample hypothesis interval depth_interval (B,)."""
+    err = (depth_est - depth_gt).abs()
+    iv = depth_interval.reshape((-1,) + (1,) * (err.ndim - 1))
+    valid = mask > 0.5
+    return {f"{prefix}lt1_interval": masked_mean((err < iv).float(), valid),
+            f"{prefix}lt3_interval": masked_mean((err < 3 * iv).float(),
+                                                 valid)}
 
 
 def standard_metrics(depth_est, depth_gt, mask, prefix: str = "") -> dict:

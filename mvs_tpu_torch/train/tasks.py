@@ -1,8 +1,8 @@
-"""The MVSNet, cascade and pyramid tasks (counterparts of
-mvs_tpu.train.tasks' MVSNetTask, CascadeTask and PyramidTask): the batch
-layout each model trains on, its loss and its metrics. A collated batch
-(io.dtu.collate_mvsnet, collate_cascade or collate_pyramid) goes to the
-device through batch_to_device.
+"""The MVSNet, cascade, pyramid and point tasks (counterparts of
+mvs_tpu.train.tasks' MVSNetTask, CascadeTask, PyramidTask and PointTask):
+the batch layout each model trains on, its loss and its metrics. A
+collated batch (io.dtu.collate_mvsnet, collate_cascade, collate_pyramid or
+collate_point) goes to the device through batch_to_device.
 """
 
 from __future__ import annotations
@@ -14,15 +14,19 @@ import numpy as np
 import torch
 from torch import nn
 
+from mvs_tpu_torch.geometry.resize import resize_nearest
 from mvs_tpu_torch.train.losses import (cascade_loss, masked_smooth_l1,
-                                        ohem_smooth_l1, pyramid_loss)
-from mvs_tpu_torch.train.metrics import standard_metrics
+                                        ohem_smooth_l1, point_mvsnet_loss,
+                                        pyramid_loss)
+from mvs_tpu_torch.train.metrics import interval_metrics, standard_metrics
 
-__all__ = ["MVSNetTask", "CascadeTask", "PyramidTask", "batch_to_device"]
+__all__ = ["MVSNetTask", "CascadeTask", "PyramidTask", "PointTask",
+           "batch_to_device"]
 
 _BATCH_KEYS = ("imgs", "proj_matrices", "depth_values", "depth_gt", "mask",
                "intrinsics", "extrinsics", "depth_min", "depth_max",
-               "depth_gt_levels", "mask_levels")
+               "depth_gt_levels", "mask_levels", "depth_start",
+               "depth_interval", "xyz_mean", "xyz_std")
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -127,3 +131,47 @@ class PyramidTask:
         return loss, standard_metrics(out["depth"],
                                       batch["depth_gt_levels"][0],
                                       batch["mask_levels"][0])
+
+
+@dataclasses.dataclass
+class PointTask:
+    """Point-MVSNet. batch: imgs (B, V, H, W, 3), intrinsics (B, V, 3, 3)
+    at the images' resolution, extrinsics (B, V, 4, 4), depth_start and
+    depth_interval (B,), depth_gt (B, H, W) at the images' resolution (0 =
+    invalid), optionally xyz_mean / xyz_std (B, 3).
+
+    num_depth: the coarse ladder's length; use_flow=False trains the coarse
+    stage alone (the reference's first epochs)."""
+
+    model: nn.Module
+    num_depth: int = 48
+    use_flow: bool = True
+
+    def forward(self, batch: dict) -> dict:
+        """Model outputs for the batch, in the model's current mode."""
+        return self.model(batch["imgs"], batch["intrinsics"],
+                          batch["extrinsics"], batch["depth_start"],
+                          batch["depth_interval"], num_depth=self.num_depth,
+                          xyz_mean=batch.get("xyz_mean"),
+                          xyz_std=batch.get("xyz_std"),
+                          use_flow=self.use_flow)
+
+    def loss_and_metrics(self, batch: dict):
+        """(loss, metrics): point_mvsnet_loss; the standard and interval
+        metrics of the depth, and the coarse depth's interval metrics
+        (prefix coarse_), each against the GT picked at its resolution
+        (nearest, as the loss), mask gt > 0; and the loss's terms."""
+        out = self.forward(batch)
+        loss, parts = point_mvsnet_loss(out, batch["depth_gt"],
+                                        batch["depth_interval"])
+        iv = batch["depth_interval"]
+        gt = resize_nearest(batch["depth_gt"], *out["depth"].shape[1:])
+        mask = (gt > 0).float()
+        metrics = standard_metrics(out["depth"], gt, mask)
+        metrics.update(interval_metrics(out["depth"], gt, mask, iv))
+        cgt = resize_nearest(batch["depth_gt"], *out["coarse_depth"].shape[1:])
+        metrics.update(interval_metrics(out["coarse_depth"], cgt,
+                                        (cgt > 0).float(), iv,
+                                        prefix="coarse_"))
+        metrics.update({k: v.detach() for k, v in parts.items()})
+        return loss, metrics

@@ -44,6 +44,7 @@ from mvs_tpu_torch.io import read_cam_file, read_pfm, read_ply, read_png
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
 from mvs_tpu_torch.models.cvp_mvsnet import CVPMVSNet
 from mvs_tpu_torch.models.mvsnet import MVSNet
+from mvs_tpu_torch.models.point_mvsnet import PointMVSNet
 from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.utils.config import load_config
 from test_torch_blocks import perturb_batch_norm
@@ -230,8 +231,12 @@ def test_registry_builds_cas_mvsnet_and_names_what_is_not_ported():
     model = build_model(load_config(None, ["model.name=mvsnet",
                                            "model.refine=true"]))
     assert isinstance(model, MVSNet) and model.RefineNet_0 is not None
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_model(load_config(None, ["model.name=point_mvsnet"]))
+    # Point-MVSNet builds, in float32 only (mvs_tpu's has no other dtype).
+    model = build_model(load_config(None, ["model.name=point_mvsnet"]))
+    assert isinstance(model, PointMVSNet) and model.family == "point"
+    with pytest.raises(ValueError, match="float32 only"):
+        build_model(load_config(None, ["model.name=point_mvsnet",
+                                       "model.compute_dtype=bfloat16"]))
     with pytest.raises(NotImplementedError, match="share_cr"):
         build_model(load_config(None, ["model.share_cr=true"]))
     with pytest.raises(ValueError, match="unknown model"):

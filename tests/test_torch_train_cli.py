@@ -124,8 +124,26 @@ def test_infer_reads_a_state_dict_without_counts(root, tmp_path):
 def test_train_refuses_what_is_not_ported(root, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 9"):
         train.main(_train_args(root, tmp_path, "train.mesh_data=2"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train.main(_train_args(root, tmp_path, "model.name=point_mvsnet"))
+    # Point-MVSNet trains (2 steps, a val pass, a checkpoint that `infer`
+    # loads, maps at half the images' resolution), in float32 only.
+    point = ["model.name=point_mvsnet", "model.num_depth_coarse=16"]
+    result = train.main(_train_args(root, tmp_path / "point", *point,
+                                    "train.epochs=1"))
+    assert result["step"] == 2 and np.isfinite(result["losses"]).all()
+    assert {"coarse_loss", "flow2_loss", "lt1_interval"} <= set(
+        result["val"])
+    maps = infer.main([
+        "--ckpt", result["ckpt_dir"], "--out", str(tmp_path / "out"),
+        "--device", "cpu", *MODEL, *point, f"data.eval_root={root}",
+        f"data.eval_list={root / 'lists' / 'val.txt'}", "data.max_h=32",
+        "data.max_w=64"])
+    assert maps["step"] == 2 and maps["maps"] == 3
+    depth, _ = read_pfm(tmp_path / "out" / "scan2" / "depth_est" /
+                        "00000001.pfm")
+    assert depth.shape == (16, 32) and np.isfinite(depth).all()
+    with pytest.raises(ValueError, match="float32 only"):
+        train.main(_train_args(root, tmp_path, *point,
+                               "model.compute_dtype=bfloat16"))
     with pytest.raises(NotImplementedError, match="lookahead"):
         train.main(_train_args(root, tmp_path, "train.optimizer=ranger"))
     # No silent fallback to the CPU: without --device the run is on the card.
