@@ -12,13 +12,18 @@ Phases, in order; any failure exits non-zero:
      cross the conv kernel's tiles and z runs, Cin = 12, AACVP's Cin = 4,
      ragged C, off-image and behind-camera samples), each on the kernel
      variant it should take (conv: bf16 tensor cores, f32 3xTF32 tensor
-     cores, or direct; conv_variant);
+     cores, its Cin = 64 kernel, or direct; conv_variant); the f32 convs at
+     Cin = 64 at those shapes (64->8, 64->32, 64->64) and at CasMVSNet's
+     three, timed (kernel, plain, cuDNN f32 with TF32 off, the 3xTF32 and
+     f32 CUDA-core bounds); an unaligned x raises on each tensor-core
+     variant and launches nothing;
   3. one seeded CasMVSNet at 128x160, f32 and bf16, card (kernels) against
      CPU (plain): each stage's pre-softmax scores, depth and confidence;
   4. full width: 1152x864, 5 views, 48/32/8 hypotheses, bf16 and f32, through
      cli.infer.make_apply_fn, with the launch counts per kernel variant on
      that run (exact: 3 warp, all vector; 15 conv, all on the tensor-core
-     kernel in bf16, 12 on the 3xTF32 one in f32), and the bf16 map's
+     kernel in bf16, in f32 12 on the 3xTF32 one and 3 on its Cin = 64
+     kernel, none direct), and the bf16 map's
      device time by layer and, from
      torch.profiler, its top kernels and the device's idle share;
   5. run_batched_inference at batch 2 over 3 samples (a padded tail), PFM
@@ -69,7 +74,11 @@ Phases, in order; any failure exits non-zero:
          chunks but bf16 160), off-image and behind-camera samples; AACVP's f32
          convs, (4, 16) and (16, 16), at every level on the 3xTF32 kernel,
          timed (kernel, plain, cuDNN f32 with TF32 off, the f32 operation,
-         byte and 3xTF32 bounds) and summed over a map's 10; the
+         byte and 3xTF32 bounds) and summed over a map's 10; the 15 f32
+         convs at Cin = 64 of an f32 CVP / AACVP map (the two (64, 64)
+         blocks and the stride-1 transposed 64->32 at every level) on the
+         3xTF32 Cin = 64
+         kernel, timed and summed alike; the
          warp-variance and conv3d kernels at CVP's coarsest and finest
          levels (every regularizer conv, the stride-1 transposed block's
          64->32 among them);
@@ -80,8 +89,8 @@ Phases, in order; any failure exits non-zero:
          ms per map, peak memory, launches per kernel variant (exact: CVP 5
          warp / 45 conv3d / 0 group correlation, AACVP 0 / 45 / 5; AACVP's
          bf16 conv3d 35 bf16 tensor-core and 10 3xTF32, every f32 map 30
-         3xTF32 and 15 direct at Cin = 64), bf16 device ms by layer kind and
-         the profiler's idle share;
+         3xTF32 and 15 on the 3xTF32 Cin = 64 kernel, 0 direct), bf16
+         device ms by layer kind and the profiler's idle share;
      (d) `infer --config configs/cvp_eval_dtu.yaml data.align=32` over a
          synthetic DTU scan of 6 views at 1600x1200 for both (seeded bf16
          weights saved as .pt): maps/s and launches; then `fuse` with the
@@ -95,13 +104,16 @@ Phases, in order; any failure exits non-zero:
      (a) the warp forward at that sweep (a 1.455 GB bf16 volume), bf16 and
          f32, and its backward at the training shape (batch 4, 2 sources,
          160x128, D = 192) on both rigs of 7a, against their plain
-         versions, bf16 timed (kernel, plain, bound);
+         versions, bf16 timed (kernel, plain, bound); the U-Net's f32
+         (64, 64) conv at 24x37x50 on the 3xTF32 Cin = 64 kernel against
+         its plain version, timed as 2b's;
      (b) a seeded MVSNet with RefineNet at 128x160, f32 and bf16, card
          against CPU: the pre-softmax scores, depth, refined depth and
          confidence;
      (c) full width through cli.infer.make_apply_fn, bf16 and f32: ms per
          map, peak memory, launches (exact: 1 warp, vector; 5 conv3d, all
-         tensor-core in bf16), bf16 device ms by layer kind and the
+         tensor-core in bf16, in f32 4 3xTF32 and 1 on its Cin = 64
+         kernel), bf16 device ms by layer kind and the
          profiler's idle share;
      (d) one f32 train step card against CPU (RefineNet, smooth-L1), then
          training at 640x512, 3 views, bf16, batch 4 with
@@ -149,8 +161,8 @@ Phases, in order; any failure exits non-zero:
          (kernel, plain, bound); its backward at a train step's 7 shapes,
          the flow's with and without the hypotheses' gradient, timed as
          the path runs them; VolumeConv's two f32 convs at Cin = 64 on the
-         direct kernel (64->8 at 96x120x160, 64->64 at 12x15x20), timed
-         (kernel, plain, cuDNN f32 with TF32 off, bound);
+         3xTF32 Cin = 64 kernel (64->8 at 96x120x160, 64->64 at 12x15x20),
+         timed (kernel, plain, cuDNN f32 with TF32 off, bounds);
      (b) a seeded model at 128x160, 3 views, 16 hypotheses, card against
          CPU, untiled and at flow_sub_stride=2, the card on the CPU's kNN
          graphs (GraphTape: near ties on the regular lattice): the coarse
@@ -158,7 +170,8 @@ Phases, in order; any failure exits non-zero:
          and their probabilities;
      (c) full width through cli.infer.make_apply_fn at flow_sub_stride 4
          and 1: ms per map, peak memory, launches (exact: 7 warp, all
-         vector; 5 conv3d, 3 on the 3xTF32 kernel and 2 direct), device ms
+         vector; 5 conv3d, 3 on the 3xTF32 kernel and 2 on its Cin = 64
+         kernel, none direct), device ms
          by layer (image towers, coarse volume, VolumeConv, flow features,
          kNN, EdgeConvs, MLP / head, rest) and the profiler's top kernels
          and idle share;
@@ -197,8 +210,11 @@ point_cli_launches / point_cli_train_launches: per Point-MVSNet map, 11c,
 per train step, 11e, and through 11d and 11f; point_ms / _plain_ms /
 _bound_ms / _max_abs_err on the warp: a Point-MVSNet map's 7 f32
 launches, 11a, and point_train_* on its backward: a train step's 7; the
-direct conv at f32, conv3d_affine.direct, as an entry of its own over
-Point-MVSNet's two Cin = 64 convs, 11a), and last
+3xTF32 conv at Cin = 64, conv3d_affine.tf32x3_cin64, as an entry of its
+own: times over Point-MVSNet's two Cin = 64 convs, 11a, launches per
+Point-MVSNet map, 11c, cvp_* times over an f32 CVP / AACVP map's 15, 8a,
+cas_* over an f32 CasMVSNet map's 3, 2b, mvsnet_* over an f32 MVSNet
+map's 1, 9a, and launches per f32 map of each family), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -322,6 +338,7 @@ def reset_counts() -> None:
     conv3d_affine.launches = 0
     conv3d_affine.mma_launches = 0
     conv3d_affine.tf32x3_launches = 0
+    conv3d_affine.tf32x3_cin64_launches = 0
     group_correlation_volume.launches = 0
     group_correlation_volume.vector_launches = 0
     group_correlation_volume_grad.launches = 0
@@ -337,6 +354,8 @@ def read_counts() -> dict:
             "conv3d_affine": conv3d_affine.launches,
             "conv3d_affine.mma": conv3d_affine.mma_launches,
             "conv3d_affine.tf32x3": conv3d_affine.tf32x3_launches,
+            "conv3d_affine.tf32x3_cin64":
+                conv3d_affine.tf32x3_cin64_launches,
             "group_correlation": group_correlation_volume.launches,
             "group_correlation.vector":
                 group_correlation_volume.vector_launches,
@@ -537,67 +556,86 @@ def conv_shapes():
     return shapes
 
 
+# The counts of conv3d_affine's variants, by conv_variant's names ("direct"
+# is what the others leave of conv3d_affine.launches).
+CONV_COUNTS = ("mma_launches", "tf32x3_launches", "tf32x3_cin64_launches")
+
+
 def conv_variant(dtype, cin, cout):
     """The kernel a conv should take: bf16 with Cin a multiple of 8 the
     bf16 tensor-core kernel ("mma"), f32 with Cin in {4, 8, 16, 32} and
-    Cout a multiple of 8 or 1 the 3xTF32 one ("tf32x3"), the rest (f32 at
-    Cin = 64, Cin = 12) the direct one."""
+    Cout a multiple of 8 or 1 the 3xTF32 one ("tf32x3"), f32 with Cin = 64
+    and Cout a multiple of 8 its Cin = 64 kernel ("tf32x3_cin64"), the rest
+    (Cin = 12; bf16 at Cin = 4) the direct one."""
     if dtype is torch.bfloat16 and cin % 8 == 0:
         return "mma"
     if dtype is torch.float32 and cin in (4, 8, 16, 32) and (
             cout % 8 == 0 or cout == 1):
         return "tf32x3"
+    if dtype is torch.float32 and cin == 64 and cout % 8 == 0:
+        return "tf32x3_cin64"
     return "direct"
 
 
-def check_conv(g, device, b, d, h, w, cin, cout, relu, dtype, what=""):
-    """conv3d_affine against its plain version on seeded inputs, on the
-    variant conv_variant names. Returns (error, inputs)."""
+def conv_inputs(g, device, b, d, h, w, cin, cout, dtype):
+    """Seeded x, weight, scale and shift of a conv."""
     x = torch.randn((b, d, h, w, cin), generator=g).to(device, dtype)
     wt = (torch.randn((cout, cin, 3, 3, 3), generator=g)
           / (27 * cin) ** 0.5).to(device)
     sc = (torch.rand(cout, generator=g) + 0.5).to(device)
     sh = (torch.randn(cout, generator=g) * 0.1).to(device)
-    before = (conv3d_affine.launches, conv3d_affine.mma_launches,
-              conv3d_affine.tf32x3_launches)
+    return x, wt, sc, sh
+
+
+def check_conv(g, device, b, d, h, w, cin, cout, relu, dtype, what=""):
+    """conv3d_affine against its plain version on seeded inputs, on the
+    variant conv_variant names. Returns (error, inputs)."""
+    x, wt, sc, sh = conv_inputs(g, device, b, d, h, w, cin, cout, dtype)
+    before = [conv3d_affine.launches] + [getattr(conv3d_affine, c)
+                                         for c in CONV_COUNTS]
     err = compare("conv", conv3d_affine(x, wt, sc, sh, relu),
                   conv3d_affine_plain(x, wt, sc, sh, relu),
                   f"{what}({cin},{cout}) B={b} {d}x{h}x{w} relu={relu} "
                   f"{str(dtype)[6:]}")
     variant = conv_variant(dtype, cin, cout)
-    if (conv3d_affine.launches - before[0], conv3d_affine.mma_launches
-            - before[1], conv3d_affine.tf32x3_launches - before[2]) != (
-            1, variant == "mma", variant == "tf32x3"):
+    after = [conv3d_affine.launches] + [getattr(conv3d_affine, c)
+                                        for c in CONV_COUNTS]
+    if [n1 - n0 for n0, n1 in zip(before, after)] != [1] + [
+            int(c == f"{variant}_launches") for c in CONV_COUNTS]:
         fail(f"({cin},{cout}) {str(dtype)[6:]}: not on the {variant} "
              f"kernel")
     return err, (x, wt, sc, sh)
 
 
-def time_conv(err, x, wt, sc, sh, relu) -> dict:
-    """A conv's kernel, plain and library ms and its bounds. The library
-    yardstick: cuDNN's conv over the same channels-last view, the affine
-    folded into its weight and bias, in x's dtype (f32: TF32 off, as the
-    plain version). A conv on the 3xTF32 kernel does its operations on
-    the TF32 tensor cores: its ops_ms is tf32x3_bound, and f32_ops_ms keeps
-    the f32 CUDA-core figure of conv_bound."""
-    dtype = x.dtype
-    wf = (wt * sc[:, None, None, None, None]).to(dtype)
-    bias = sh.to(dtype)
+def cudnn_conv(x, wt, sc, sh, relu):
+    """The library yardstick of conv3d_affine: cuDNN's conv over the same
+    channels-last view, the affine folded into its weight and bias, in x's
+    dtype (f32: TF32 off, as the plain version). Returns the call."""
+    wf = (wt * sc[:, None, None, None, None]).to(x.dtype)
+    bias = sh.to(x.dtype)
     xv = x.permute(0, 4, 1, 2, 3)
 
     def library():
         with full_f32():
             y = F.conv3d(xv, wf, bias, padding=1)
         return torch.relu_(y) if relu else y
+    return library
 
+
+def time_conv(err, x, wt, sc, sh, relu) -> dict:
+    """A conv's kernel, plain and library (cudnn_conv) ms and its bounds.
+    A conv on a 3xTF32 kernel does its operations on the TF32 tensor
+    cores: its ops_ms is tf32x3_bound, and f32_ops_ms keeps the f32
+    CUDA-core figure of conv_bound."""
+    dtype = x.dtype
     ms = cuda_ms(lambda: conv3d_affine(x, wt, sc, sh, relu))
     plain_ms = cuda_ms(lambda: conv3d_affine_plain(x, wt, sc, sh, relu),
                        iters=3, warmup=1)
-    lib_ms = cuda_ms(library)
+    lib_ms = cuda_ms(cudnn_conv(x, wt, sc, sh, relu))
     _, d, h, w, cin = x.shape
     by, ops = conv_bound(1, d, h, w, cin, wt.shape[0], dtype)
     extra = ""
-    if conv_variant(dtype, cin, wt.shape[0]) == "tf32x3":
+    if conv_variant(dtype, cin, wt.shape[0]).startswith("tf32x3"):
         f32_ops, ops = ops, tf32x3_bound(1, d, h, w, cin, wt.shape[0])
         extra = f" at the TF32 rate; f32 CUDA-core ops {f32_ops:.4f}"
     row = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -611,30 +649,69 @@ def time_conv(err, x, wt, sc, sh, relu) -> dict:
 
 
 def phase_conv(device):
+    """2b: every conv variant against the plain version at awkward shapes
+    and at the main path's; bf16 timed (the CasMVSNet map's 15 convs), and
+    the f32 convs at Cin = 64 (its three (64, 64)). Returns (bf16 rows,
+    f32 Cin = 64 rows)."""
     log("phase 2b: conv3d_affine kernel vs plain")
     g = torch.Generator(device="cpu").manual_seed(3)
     # Every (Cin, Cout) pair of the main path, (12, 8) for the direct
-    # kernel and AACVP's (4, 16) (f32: the 3xTF32 kernel, a k step across
-    # two taps; bf16: the direct kernel), at sizes that are not multiples
-    # of the 8x16 (H x W) tile: batch 2, D = 1 and D = 2, and D = 11 over
-    # enough tiles that the z runs stay 8 planes long (8 + 3).
+    # kernel, AACVP's (4, 16) (f32: the 3xTF32 kernel, a k step across two
+    # taps; bf16: the direct kernel) and the other Couts of the f32 Cin =
+    # 64 kernel's main paths (Point-MVSNet's 64->8, CVP's transposed
+    # 64->32), at sizes that are not multiples of the 8x16 (H x W) tile:
+    # batch 2, D = 1 and D = 2, and D = 11 over enough tiles that the z
+    # runs stay 8 planes long (8 + 3).
     pairs = sorted({(ci, co) for ci, co, *_ in conv_shapes()}
-                   | {(12, 8), (4, 16)})
+                   | {(12, 8), (4, 16), (64, 8), (64, 32)})
     for i, (cin, cout) in enumerate(pairs):
         for dtype in (torch.float32, torch.bfloat16):
             for b, d, h, w in ((2, 5, 13, 37), (2, 1, 9, 17), (1, 2, 17, 33),
                                (1, 11, 90, 190)):
                 check_conv(g, device, b, d, h, w, cin, cout, bool(i % 2),
                            dtype)
-    rows = []
+    # A tensor-core variant raises on an x it cannot take (not 16-byte
+    # aligned) and launches nothing: no fallback to the direct kernel.
+    for cin, dtype in ((64, torch.float32), (32, torch.float32),
+                       (64, torch.bfloat16)):
+        x, wt, sc, sh = conv_inputs(g, device, 1, 2, 8, 16, cin, 8, dtype)
+        x = torch.empty(x.numel() + 1, dtype=dtype,
+                        device=device)[1:].view(x.shape)
+        n = conv3d_affine.launches
+        try:
+            conv3d_affine(x, wt, sc, sh, True)
+            fail(f"{conv_variant(dtype, cin, 8)}: unaligned x did not raise")
+        except ValueError as e:
+            log(f"  {conv_variant(dtype, cin, 8)}: unaligned x raised "
+                f"ValueError ({e}), launches {conv3d_affine.launches - n}")
+        if conv3d_affine.launches != n:
+            fail("an unaligned x launched a kernel")
+    rows, cin64 = [], []
     for cin, cout, d, h, w, relu in conv_shapes():
-        # f32 at the main path's sizes too: the direct kernel's grid-stride
-        # loop (over 4096 blocks, Cin = 64) runs only at sizes this large.
-        check_conv(g, device, 1, d, h, w, cin, cout, relu, torch.float32)
+        # f32 at the main path's sizes too; the Cin = 64 ones timed.
+        err, args = check_conv(g, device, 1, d, h, w, cin, cout, relu,
+                               torch.float32)
+        if cin == 64:
+            cin64.append(time_conv(err, *args, relu))
         err, args = check_conv(g, device, 1, d, h, w, cin, cout, relu,
                                torch.bfloat16)
         rows.append(time_conv(err, *args, relu))
-    return rows
+    log_sum(f"CasMVSNet's {len(cin64)} f32 convs at Cin = 64", cin64)
+    return rows, cin64
+
+
+def log_sum(what, rows) -> None:
+    """One line: the rows' kernel, plain and cuDNN ms and bounds, summed
+    (f32 rows of a 3xTF32 kernel: with the f32 CUDA-core bound)."""
+    f32 = ("; f32 CUDA-core ops "
+           f"{sum(r['f32_ops_ms'] for r in rows):.4f} ms"
+           if all("f32_ops_ms" in r for r in rows) else "")
+    log(f"  {what}: kernel {sum(r['ms'] for r in rows):.4f} ms, plain "
+        f"{sum(r['plain_ms'] for r in rows):.4f} ms, cuDNN "
+        f"{sum(r['library_ms'] for r in rows):.4f} ms; bound "
+        f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in rows):.4f} ms (ops "
+        f"{sum(r['ops_ms'] for r in rows):.4f} ms, bytes "
+        f"{sum(r['bytes_ms'] for r in rows):.4f} ms{f32})")
 
 
 def model_inputs(scene, batch, device, family="cascade"):
@@ -723,7 +800,8 @@ def model_vs_cpu(scene, dtype, device):
 def phase_full_width(scene, device):
     log(f"phase 4: full width {WIDTH}x{HEIGHT}, {VIEWS} views, "
         f"{'/'.join(map(str, NDEPTHS))} hypotheses, batch 1")
-    launches = bf16_ms = None
+    launches = {}
+    bf16_ms = None
     for dtype in (torch.bfloat16, torch.float32):
         model = CasMVSNet(BASE, NDEPTHS, compute_dtype=dtype,
                           generator=torch.Generator().manual_seed(0))
@@ -744,8 +822,11 @@ def phase_full_width(scene, device):
                 "warp_variance_grad": 0, "warp_variance_grad.depth": 0,
                 "conv3d_affine": 15,
                 "conv3d_affine.mma": 15 if dtype is torch.bfloat16 else 0,
-                # f32: all but the three Cin = 64 convs (direct kernel)
+                # f32: all on the tensor cores, the three at Cin = 64 on
+                # their own kernel
                 "conv3d_affine.tf32x3": 0 if dtype is torch.bfloat16 else 12,
+                "conv3d_affine.tf32x3_cin64":
+                    0 if dtype is torch.bfloat16 else 3,
                 **NO_GROUP}
         if counts != want:
             fail(f"main path launches {counts}, want {want}")
@@ -760,8 +841,9 @@ def phase_full_width(scene, device):
             fail("full-width outputs not finite")
         if depth.min() < 8.0 - margin or depth.max() > 12.0 + margin:
             fail(f"depth outside [{8.0 - margin}, {12.0 + margin}]")
+        launches[dtype] = counts
         if dtype is torch.bfloat16:
-            launches, bf16_ms = counts, ms
+            bf16_ms = ms
             log("  bf16 device ms by layer, one run: "
                 + json.dumps(layer_breakdown(model, apply_fn, args)))
             profile_run(apply_fn, args)
@@ -943,7 +1025,8 @@ def phase_scan_from_disk(work: Path, device, apply_ms: float,
             "warp_variance.vector": 3 * batches, "warp_variance_grad": 0,
             "warp_variance_grad.depth": 0,
             "conv3d_affine": 15 * batches, "conv3d_affine.mma": 15 * batches,
-            "conv3d_affine.tf32x3": 0, **NO_GROUP}
+            "conv3d_affine.tf32x3": 0, "conv3d_affine.tf32x3_cin64": 0,
+            **NO_GROUP}
     log(f"  launches {json.dumps(counts)} over {batches} batches")
     if counts != want:
         fail(f"cli infer launches {counts}, want {want}")
@@ -1166,7 +1249,8 @@ TRAIN_STEPS, CURVE_STEPS = 8, 30
 TRAIN_LAUNCHES = {"warp_variance": 3, "warp_variance.vector": 3,
                   "warp_variance_grad": 3, "warp_variance_grad.depth": 0,
                   "conv3d_affine": 0, "conv3d_affine.mma": 0,
-                  "conv3d_affine.tf32x3": 0, **NO_GROUP}
+                  "conv3d_affine.tf32x3": 0, "conv3d_affine.tf32x3_cin64": 0,
+                  **NO_GROUP}
 # 7b, card against CPU, f32, TF32 off on both. The forward sums in another
 # order (cuDNN's convs, the kernels, the reductions of the batch moments):
 # loss to 1e-5 relative, the new statistics to 1e-4 of each vector's
@@ -1601,7 +1685,8 @@ def phase_cli_train(device):
         want = {"warp_variance": 24, "warp_variance.vector": 24,
                 "warp_variance_grad": 12, "warp_variance_grad.depth": 0,
                 "conv3d_affine": 60, "conv3d_affine.mma": 60,
-                "conv3d_affine.tf32x3": 0, **NO_GROUP}
+                "conv3d_affine.tf32x3": 0, "conv3d_affine.tf32x3_cin64": 0,
+                **NO_GROUP}
         log(f"  {result['step']} steps, losses "
             + " ".join(f"{x:.4f}" for x in result["losses"])
             + f", {result['step'] * 2 / result['seconds']:.3f} samples/s "
@@ -1653,31 +1738,34 @@ CVP_COARSE_D, CVP_FINE_D, CVP_BASE = 48, 8, 16
 CVP_RANGE = (8.0, 12.0)  # the depth range given to the plane scenes (z0 10)
 CVP_NAMES = ("cvp_mvsnet", "aacvp_mvsnet")
 # Launches per depth map, batch 1, by kernel variant (warp, .vector,
-# conv3d, .mma, .tf32x3, group correlation, .vector). Every level runs one
-# cost volume and 9 stride-1 convs (7 blocks, the stride-1 transposed block,
-# the score conv). AACVP's attention adds f32 position embeddings to its
-# keys (as mvs_tpu does), so its features and cost volume are f32 in a bf16
-# model and its first two blocks, (4, 16) and (16, 16), run the 3xTF32
-# conv kernel; the blocks after the stride-2 block (cast to bf16) take the
-# bf16 tensor cores. In f32 the 6 convs of a level with Cin in {16, 32}
-# (AACVP's first: 4) take the 3xTF32 kernel, the 3 with Cin = 64 the
-# direct one.
+# conv3d, .mma, .tf32x3, .tf32x3_cin64, group correlation, .vector). Every
+# level runs one cost volume and 9 stride-1 convs (7 blocks, the stride-1
+# transposed block, the score conv). AACVP's attention adds f32 position
+# embeddings to its keys (as mvs_tpu does), so its features and cost volume
+# are f32 in a bf16 model and its first two blocks, (4, 16) and (16, 16),
+# run the 3xTF32 conv kernel; the blocks after the stride-2 block (cast to
+# bf16) take the bf16 tensor cores. In f32 the 6 convs of a level with Cin
+# in {16, 32} (AACVP's first: 4) take the 3xTF32 kernel, the 3 with Cin =
+# 64 (the two (64, 64) blocks and the transposed 64->32) its Cin = 64
+# kernel: none is direct.
 CVP_LAUNCHES = {
-    ("cvp_mvsnet", torch.bfloat16): (5, 5, 45, 45, 0, 0, 0),
-    ("cvp_mvsnet", torch.float32): (5, 5, 45, 0, 30, 0, 0),
-    ("aacvp_mvsnet", torch.bfloat16): (0, 0, 45, 35, 10, 5, 5),
-    ("aacvp_mvsnet", torch.float32): (0, 0, 45, 0, 30, 5, 5),
+    ("cvp_mvsnet", torch.bfloat16): (5, 5, 45, 45, 0, 0, 0, 0),
+    ("cvp_mvsnet", torch.float32): (5, 5, 45, 0, 30, 15, 0, 0),
+    ("aacvp_mvsnet", torch.bfloat16): (0, 0, 45, 35, 10, 0, 5, 5),
+    ("aacvp_mvsnet", torch.float32): (0, 0, 45, 0, 30, 15, 5, 5),
 }
 CVP_SCAN_VIEWS = 6
 
 
 def cvp_want(name, dtype, maps=1) -> dict:
-    warp, vec, conv, mma, tf32, group, gvec = CVP_LAUNCHES[(name, dtype)]
+    warp, vec, conv, mma, tf32, cin64, group, gvec = CVP_LAUNCHES[
+        (name, dtype)]
     return {"warp_variance": maps * warp, "warp_variance.vector": maps * vec,
             "warp_variance_grad": 0, "warp_variance_grad.depth": 0,
             "conv3d_affine": maps * conv,
             "conv3d_affine.mma": maps * mma,
             "conv3d_affine.tf32x3": maps * tf32,
+            "conv3d_affine.tf32x3_cin64": maps * cin64,
             "group_correlation": maps * group,
             "group_correlation.vector": maps * gvec,
             "group_correlation_grad": 0, "group_correlation_grad.depth": 0}
@@ -1793,6 +1881,7 @@ def phase_cvp_kernels(scene, device):
                         f"behind-camera C={c} G=4 {str(dtype)[6:]} "
                         f"({'vector' if vector else 'scalar'})")
     tf32_rows = aacvp_f32_convs(device)
+    cin64_rows = cvp_cin64_f32_convs(device)
 
     # The warp-variance and conv3d kernels at CVP's coarsest and finest
     # levels (bf16, the CVP main path's type, timed; f32 checked).
@@ -1813,16 +1902,50 @@ def phase_cvp_kernels(scene, device):
                 by, ops = warp_bound(1, VIEWS - 1, d, h, w, CVP_C, 2)
                 log(f"    kernel {ms:.4f} ms, bound {max(by, ops):.4f} ms "
                     f"(bytes {by:.4f}, ops {ops:.4f})")
-        b = CVP_BASE
-        full = [(CVP_GROUPS, b), (CVP_C, b), (b, b)]  # (4, b): AACVP's first
-        half = [(2 * b, 2 * b), (2 * b, 2 * b), (2 * b, 4 * b),
-                (4 * b, 4 * b), (4 * b, 4 * b), (4 * b, 2 * b)]
-        shapes = ([(ci, co, d, h, w, True) for ci, co in full]
-                  + [(ci, co, d // 2, h // 2, w // 2, True)
-                     for ci, co in half]
-                  + [(b, 1, d, h, w, False)])
-        cvp_conv_checks(shapes, level, device)
-    return group_rows, tf32_rows
+        cvp_conv_checks(cvp_level_convs(d, h, w), level, device)
+    return group_rows, tf32_rows, cin64_rows
+
+
+def cvp_level_convs(d, h, w):
+    """(Cin, Cout, D, H, W, relu) of every stride-1 conv of one level of
+    PyramidCostRegNet over a D x H x W volume: the first block (AACVP's
+    (4, 16), CVP's (16, 16)), the second, five blocks at half the volume
+    (the last two (64, 64)), the stride-1 transposed block's 64->32 there,
+    and the score conv."""
+    b = CVP_BASE
+    full = [(CVP_GROUPS, b), (CVP_C, b), (b, b)]  # (4, b): AACVP's first
+    half = [(2 * b, 2 * b), (2 * b, 2 * b), (2 * b, 4 * b),
+            (4 * b, 4 * b), (4 * b, 4 * b), (4 * b, 2 * b)]
+    return ([(ci, co, d, h, w, True) for ci, co in full]
+            + [(ci, co, d // 2, h // 2, w // 2, True) for ci, co in half]
+            + [(b, 1, d, h, w, False)])
+
+
+def cvp_cin64_shapes():
+    """(level, Cout, D, H, W) of the f32 convs at Cin = 64 of one CVP /
+    AACVP map, coarsest level first: per level the two (64, 64) blocks and
+    the stride-1 transposed block's 64->32, at half the level's volume."""
+    return [(level, co, dd, hh, ww)
+            for level, d, h, w in cvp_levels()
+            for ci, co, dd, hh, ww, _ in cvp_level_convs(d, h, w)
+            if ci == 64]
+
+
+def cvp_cin64_f32_convs(device):
+    """The 15 f32 convs at Cin = 64 of an f32 CVP or AACVP map, each
+    against its plain version on the 3xTF32 Cin = 64 kernel, timed (kernel,
+    plain, cuDNN f32 with TF32 off, the bounds), and their sum."""
+    g = torch.Generator(device="cpu").manual_seed(23)
+    rows = []
+    for level, cout, d, h, w in cvp_cin64_shapes():
+        err, args = check_conv(g, device, 1, d, h, w, 4 * CVP_BASE, cout,
+                               True, torch.float32,
+                               f"CVP f32 conv3d level{level} ")
+        rows.append(time_conv(err, *args, True))
+        del args
+    log_sum(f"CVP / AACVP's {len(rows)} f32 convs at Cin = 64 of a map",
+            rows)
+    return rows
 
 
 def aacvp_f32_convs(device):
@@ -1838,14 +1961,7 @@ def aacvp_f32_convs(device):
                                    True, torch.float32,
                                    f"AACVP f32 conv3d level{level} ")
             rows.append(time_conv(err, *args, True))
-    log(f"  AACVP's {len(rows)} f32 convs of a map: kernel "
-        f"{sum(r['ms'] for r in rows):.4f} ms, plain "
-        f"{sum(r['plain_ms'] for r in rows):.4f} ms, cuDNN f32 "
-        f"{sum(r['library_ms'] for r in rows):.4f} ms; bound "
-        f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in rows):.4f} ms "
-        f"(3xTF32 ops {sum(r['ops_ms'] for r in rows):.4f} ms, bytes "
-        f"{sum(r['bytes_ms'] for r in rows):.4f} ms; f32 CUDA-core ops "
-        f"{sum(r['f32_ops_ms'] for r in rows):.4f} ms)")
+    log_sum(f"AACVP's {len(rows)} f32 convs of a map", rows)
     return rows
 
 
@@ -2097,6 +2213,7 @@ def phase_cvp_full_width(scene, device):
                     and ((conf >= 0) & (conf <= 1 + 1e-5)).all()):
                 fail(f"{name} full-width outputs not finite or confidence "
                      f"outside [0, 1]")
+            result[(name, dtype)] = counts
             if dtype is torch.bfloat16:
                 result[name] = (counts, ms, peak)
                 log("  bf16 device ms by layer kind, one run: "
@@ -2175,11 +2292,11 @@ def phase_cvp_from_disk(device, work: Path):
 def phase_cvp(device, work: Path):
     scene = make_plane_scene(num_views=VIEWS, height=CVP_H, width=CVP_W,
                              z0=10.0)
-    group_rows, tf32_rows = phase_cvp_kernels(scene, device)
+    group_rows, tf32_rows, cin64_rows = phase_cvp_kernels(scene, device)
     phase_cvp_vs_cpu(device)
     full = phase_cvp_full_width(scene, device)
     cli, root = phase_cvp_from_disk(device, work)
-    return group_rows, tf32_rows, full, cli, root
+    return group_rows, tf32_rows, cin64_rows, full, cli, root
 
 
 # Phase 9. MVSNet at its own widths (32 feature channels, regularizer base
@@ -2193,25 +2310,30 @@ MVS_CONFIG = CVP_CONFIG.parent / "cas_eval_dtu.yaml"
 MVS_TRAIN_CONFIG = CVP_CONFIG.parent / "cas_train_dtu.yaml"
 MVS_H, MVS_W, MVS_C, MVS_TRAIN_VIEWS = 1184, 1600, 4 * BASE, 3
 MVS_SIZE = ["data.max_h=1200", "data.max_w=1600"]
+# (Cout, D, H, W) of MVSNet's one conv at Cin = 64: the U-Net's deepest
+# block, at 1/8 of the D x H/4 x W/4 volume.
+MVS_CIN64 = (64, LADDER // 8, MVS_H // 32, MVS_W // 32)
 # Launches by kernel variant (warp, .vector, warp backward, conv3d, .mma,
-# .tf32x3) per map: one cost volume and the U-Net's 5 stride-1 convs (4
-# blocks and the score conv; in f32 all but the Cin = 64 block on the
-# 3xTF32 kernel); per train step: the cost volume's forward and backward
-# kernels, no conv3d (train-mode convs are cuDNN's).
-MVS_LAUNCHES = {torch.bfloat16: (1, 1, 0, 5, 5, 0),
-                torch.float32: (1, 1, 0, 5, 0, 4),
-                "train": (1, 1, 1, 0, 0, 0)}
+# .tf32x3, .tf32x3_cin64) per map: one cost volume and the U-Net's 5
+# stride-1 convs (4 blocks and the score conv; in f32 the Cin = 64 block on
+# the 3xTF32 Cin = 64 kernel, the rest on the 3xTF32 one); per train step:
+# the cost volume's forward and backward kernels, no conv3d (train-mode
+# convs are cuDNN's).
+MVS_LAUNCHES = {torch.bfloat16: (1, 1, 0, 5, 5, 0, 0),
+                torch.float32: (1, 1, 0, 5, 0, 4, 1),
+                "train": (1, 1, 1, 0, 0, 0, 0)}
 MVS_SCORE_BIAS = ("UNetCostRegNet_0.FoldedConv_0.bias",)
 
 
 def mvs_want(key, times=1) -> dict:
-    warp, vec, grad, conv, mma, tf32 = MVS_LAUNCHES[key]
+    warp, vec, grad, conv, mma, tf32, cin64 = MVS_LAUNCHES[key]
     return {"warp_variance": times * warp,
             "warp_variance.vector": times * vec,
             "warp_variance_grad": times * grad, "warp_variance_grad.depth": 0,
             "conv3d_affine": times * conv,
             "conv3d_affine.mma": times * mma,
-            "conv3d_affine.tf32x3": times * tf32, **NO_GROUP}
+            "conv3d_affine.tf32x3": times * tf32,
+            "conv3d_affine.tf32x3_cin64": times * cin64, **NO_GROUP}
 
 
 def mvs_config(dtype, *overrides, config=MVS_CONFIG):
@@ -2223,7 +2345,8 @@ def mvs_config(dtype, *overrides, config=MVS_CONFIG):
 def phase_mvsnet_kernels(device):
     """9a: the warp forward at MVSNet's sweep and its backward at MVSNet's
     training shape (the latter on the default and DTU-like rigs), against
-    their plain versions; bf16 timed."""
+    their plain versions, bf16 timed; the U-Net's f32 conv at Cin = 64
+    against its plain version on the 3xTF32 Cin = 64 kernel, timed."""
     h, w = MVS_H // 4, MVS_W // 4
     log(f"phase 9a: warp_variance at MVSNet's sweep (D={LADDER}, {w}x{h}, "
         f"C={MVS_C}, {VIEWS} views) and its backward at the training shape "
@@ -2283,6 +2406,11 @@ def phase_mvsnet_kernels(device):
                            ops_ms=ops)
             del args, grad
     rows["warp_grad"] = row
+    cout, d, h, w = MVS_CIN64
+    err, args = check_conv(torch.Generator().manual_seed(31), device, 1, d, h,
+                           w, 64, cout, True, torch.float32,
+                           "MVSNet f32 conv3d ")
+    rows["cin64"] = [time_conv(err, *args, True)]
     return rows
 
 
@@ -2531,8 +2659,10 @@ CVP_TRAIN_VIEWS, CVP_TRAIN_LEVELS = 3, 2
 CVP_TRAIN_SCORE_BIAS = ("PyramidCostRegNet_0.FoldedConv_0.bias",)
 # The regularizer's stride-1 convs per level in eval mode (7 blocks, the
 # stride-1 transposed block, the score conv); in f32, those with Cin in
-# {4, 16, 32} on the 3xTF32 kernel.
+# {4, 16, 32} on the 3xTF32 kernel, the 3 with Cin = 64 on its Cin = 64
+# kernel.
 CVP_CONVS_PER_LEVEL, CVP_TF32_CONVS_PER_LEVEL = 9, 6
+CVP_CIN64_CONVS_PER_LEVEL = 3
 
 
 def pyramid_want(name, steps=0, val_batches=0, levels=CVP_TRAIN_LEVELS):
@@ -2552,6 +2682,8 @@ def pyramid_want(name, steps=0, val_batches=0, levels=CVP_TRAIN_LEVELS):
     want["conv3d_affine"] = CVP_CONVS_PER_LEVEL * levels * val_batches
     want["conv3d_affine.tf32x3"] = (CVP_TF32_CONVS_PER_LEVEL * levels
                                     * val_batches)
+    want["conv3d_affine.tf32x3_cin64"] = (CVP_CIN64_CONVS_PER_LEVEL * levels
+                                          * val_batches)
     return want
 
 
@@ -2962,6 +3094,10 @@ def phase_cvp_training(device, work: Path, warp_grad_rows) -> dict:
 # Training: configs/cas_train_dtu.yaml with model.name=point_mvsnet, 640x512,
 # 3 views, 48 coarse hypotheses (the config default), f32, Adam.
 POINT_H, POINT_W, POINT_D, POINT_VIEWS = 960, 1280, 96, 5
+# (Cout, D, H, W) of VolumeConv's two convs at Cin = 64 (64->8 at 1/8 of
+# the coarse volume's H and W, 64->64 at 1/8 of that).
+POINT_CIN64 = ((8, POINT_D, POINT_H // 8, POINT_W // 8),
+               (64, POINT_D // 8, POINT_H // 64, POINT_W // 64))
 POINT_INTERVAL = 4.0 / (POINT_D - 1)  # the plane scenes' ladder, 8..12
 POINT_EVAL = ["model.name=point_mvsnet", "model.compute_dtype=float32",
               f"model.num_depth_coarse={POINT_D}", f"data.num_depth={POINT_D}",
@@ -2979,22 +3115,23 @@ POINT_FLOW = ((0.25, 0.75), (0.5, 0.375))
 POINT_LEVELS = (16, 32, 64)
 # Launches per map: 1 coarse volume and 3 per flow iteration (vector, C =
 # 16 / 32 / 64); VolumeConv's 5 stride-1 convs, f32: 3 on the 3xTF32
-# kernel (16->16, 32->32, 8->1), 2 direct (64->8, 64->64). Per train step:
-# the 7 volumes forward and backward, the 6 of the flow with the
-# hypotheses' gradient (the flow's depth keeps its gradient in train
-# mode), no conv3d (train-mode convs are cuDNN's).
-POINT_LAUNCHES = {"map": (7, 7, 0, 0, 5, 0, 3),
-                  "train": (7, 7, 7, 6, 0, 0, 0)}
+# kernel (16->16, 32->32, 8->1), 2 on its Cin = 64 kernel (64->8, 64->64),
+# none direct. Per train step: the 7 volumes forward and backward, the 6 of
+# the flow with the hypotheses' gradient (the flow's depth keeps its
+# gradient in train mode), no conv3d (train-mode convs are cuDNN's).
+POINT_LAUNCHES = {"map": (7, 7, 0, 0, 5, 0, 3, 2),
+                  "train": (7, 7, 7, 6, 0, 0, 0, 0)}
 
 
 def point_want(key, times=1) -> dict:
-    warp, vec, grad, depth, conv, mma, tf32 = POINT_LAUNCHES[key]
+    warp, vec, grad, depth, conv, mma, tf32, cin64 = POINT_LAUNCHES[key]
     return {"warp_variance": times * warp,
             "warp_variance.vector": times * vec,
             "warp_variance_grad": times * grad,
             "warp_variance_grad.depth": times * depth,
             "conv3d_affine": times * conv, "conv3d_affine.mma": times * mma,
-            "conv3d_affine.tf32x3": times * tf32, **NO_GROUP}
+            "conv3d_affine.tf32x3": times * tf32,
+            "conv3d_affine.tf32x3_cin64": times * cin64, **NO_GROUP}
 
 
 def point_rigs() -> list:
@@ -3102,9 +3239,9 @@ def point_warp_rows(scene, device, depths, what):
 def phase_point_kernels(device):
     """11a: the warp forward at a map's 7 shapes, its backward at a train
     step's 7 (the flow's with and without the hypotheses' gradient), the
-    two direct f32 convs at Cin = 64; each against its plain version,
-    timed (the backward over the step's launches as the path makes them).
-    Returns {"warp", "warp_grad", "direct"} rows."""
+    two f32 convs at Cin = 64; each against its plain version, timed (the
+    backward over the step's launches as the path makes them). Returns
+    {"warp", "warp_grad", "cin64"} rows."""
     log(f"phase 11a: Point-MVSNet's kernels: the warp forward at a "
         f"{POINT_W}x{POINT_H} map's 7 volumes ({POINT_VIEWS} views, D = "
         f"{POINT_D} coarse, 5 per pixel in the flow)")
@@ -3151,17 +3288,17 @@ def phase_point_kernels(device):
         f"{sum(r['ms'] for r in grad_rows):.4f} ms, plain "
         f"{sum(r['plain_ms'] for r in grad_rows):.4f} ms, bound "
         f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in grad_rows):.4f} ms")
-    log("  VolumeConv's two f32 convs at Cin = 64 (direct kernel) at the "
-        "map's shapes")
+    log("  VolumeConv's two f32 convs at Cin = 64 (3xTF32 Cin = 64 kernel) "
+        "at the map's shapes")
     g = torch.Generator(device="cpu").manual_seed(11)
-    d, h, w = POINT_D, POINT_H // 8, POINT_W // 8
-    direct = []
-    for cout, f in ((8, 1), (64, 8)):
-        err, args = check_conv(g, device, 1, d // f, h // f, w // f, 64, cout,
-                               True, torch.float32, "Point-MVSNet ")
-        direct.append(time_conv(err, *args, True))
+    cin64 = []
+    for cout, d, h, w in POINT_CIN64:
+        err, args = check_conv(g, device, 1, d, h, w, 64, cout, True,
+                               torch.float32, "Point-MVSNet ")
+        cin64.append(time_conv(err, *args, True))
         del args
-    rows["direct"] = direct
+    log_sum("VolumeConv's two f32 convs at Cin = 64", cin64)
+    rows["cin64"] = cin64
     return rows
 
 
@@ -3561,11 +3698,8 @@ def ab_aacvp_f32_convs(device) -> dict:
     total = 0.0
     for level, d, h, w in cvp_levels():
         for cin in (CVP_GROUPS, CVP_BASE):
-            x = torch.randn((1, d, h, w, cin), generator=g).to(device)
-            wt = (torch.randn((CVP_BASE, cin, 3, 3, 3), generator=g)
-                  / (27 * cin) ** 0.5).to(device)
-            sc = (torch.rand(CVP_BASE, generator=g) + 0.5).to(device)
-            sh = (torch.randn(CVP_BASE, generator=g) * 0.1).to(device)
+            x, wt, sc, sh = conv_inputs(g, device, 1, d, h, w, cin, CVP_BASE,
+                                        torch.float32)
             total += cuda_ms(lambda: conv3d_affine(x, wt, sc, sh, True))
     return {"8a AACVP's 10 f32 convs (kernel ms, summed)": total}
 
@@ -3600,6 +3734,77 @@ def ab_cas_f32_map(device) -> dict:
     args = model_inputs(scene, 1, device)
     apply_fn(*args)
     return {"4 cas_mvsnet float32 ms per map": map_ms(apply_fn, args)}
+
+
+def cin64_f32_maps():
+    """{map: [(Cout, D, H, W), ...]}: every f32 conv at Cin = 64 of one f32
+    depth map of each family, in launch order (11a, 8a, 2b, 9a)."""
+    return {"11a Point-MVSNet": list(POINT_CIN64),
+            "8a CVP / AACVP": [s[1:] for s in cvp_cin64_shapes()],
+            "2b CasMVSNet": [(co, d, h, w) for ci, co, d, h, w, _
+                             in conv_shapes() if ci == 64],
+            "9a MVSNet": [MVS_CIN64]}
+
+
+def ab_cin64_f32_convs(device) -> dict:
+    """Every f32 conv at Cin = 64 of an f32 map of each family
+    (cin64_f32_maps): device ms per launch of each shape, on the checkout's
+    kernel and on cuDNN's f32 conv (TF32 off) over the same inputs, and
+    their sums over the map's launches."""
+    g = torch.Generator().manual_seed(19)
+    rows = {}
+    for label, shapes in cin64_f32_maps().items():
+        kernel = library = 0.0
+        for shape in dict.fromkeys(shapes):  # each shape once, in order
+            cout, d, h, w = shape
+            x, wt, sc, sh = conv_inputs(g, device, 1, d, h, w, 64, cout,
+                                        torch.float32)
+            ms = cuda_ms(lambda: conv3d_affine(x, wt, sc, sh, True))
+            lib = cuda_ms(cudnn_conv(x, wt, sc, sh, True))
+            del x, wt, sc, sh
+            rows[f"{label} 64->{cout} {d}x{h}x{w} kernel"] = ms
+            rows[f"{label} 64->{cout} {d}x{h}x{w} cuDNN f32"] = lib
+            kernel += shapes.count(shape) * ms
+            library += shapes.count(shape) * lib
+        rows[f"{label}'s {len(shapes)} summed, kernel"] = kernel
+        rows[f"{label}'s {len(shapes)} summed, cuDNN f32"] = library
+    return rows
+
+
+def ab_bf16_convs(device) -> dict:
+    """The bf16 convs timed in 2b (a CasMVSNet map's 15) and in 8a (CVP
+    level 0's 9, AACVP's f32 (4, 16) aside): device ms summed per set."""
+    g = torch.Generator().manual_seed(29)
+    sets = {"2b CasMVSNet's 15 bf16 convs": conv_shapes(),
+            "8a CVP level 0's 9 bf16 convs": [
+                s for s in cvp_level_convs(CVP_FINE_D, CVP_H, CVP_W)
+                if s[0] != CVP_GROUPS]}
+    rows = {}
+    for label, shapes in sets.items():
+        total = 0.0
+        for cin, cout, d, h, w, relu in shapes:
+            x, wt, sc, sh = conv_inputs(g, device, 1, d, h, w, cin, cout,
+                                        torch.bfloat16)
+            total += cuda_ms(lambda: conv3d_affine(x, wt, sc, sh, relu))
+            del x, wt, sc, sh
+        rows[f"{label} (kernel ms, summed)"] = total
+    return rows
+
+
+def ab_point_f32_map(device) -> dict:
+    """Host ms per untiled f32 Point-MVSNet depth map (11c's inputs),
+    after a warm-up."""
+    scene = make_plane_scene(num_views=POINT_VIEWS, height=POINT_H,
+                             width=POINT_W, z0=10.0)
+    args = point_inputs(scene, device)
+    cfg = load_config(str(MVS_CONFIG),
+                      [*POINT_EVAL, "model.flow_sub_stride=1"])
+    model = build_model(cfg, torch.Generator().manual_seed(0))
+    apply_fn = make_apply_fn(model, device,
+                             **cli_infer.model_static_kwargs(cfg))
+    apply_fn(*args)
+    return {"11c point_mvsnet float32 untiled ms per map": map_ms(apply_fn,
+                                                                  args)}
 
 
 def kernel_entry(name, source, replaces, rows, launches, cli_launches,
@@ -3654,9 +3859,10 @@ def main() -> int:
     scene = make_plane_scene(num_views=VIEWS, height=HEIGHT, width=WIDTH,
                              z0=10.0)
     warp_rows = phase_warp(scene, device)
-    conv_rows = timed(2, phase_conv(device))
+    conv_rows, cas_cin64_rows = timed(2, phase_conv(device))
     timed(3, phase_model_vs_cpu(device))
-    launches, apply_ms = timed(4, phase_full_width(scene, device))
+    cas_counts, apply_ms = timed(4, phase_full_width(scene, device))
+    launches = cas_counts[torch.bfloat16]
     timed(5, phase_batched(scene, device))
     cli_launches = timed(6, phase_user_path(device, apply_ms))
     grad_rows, train_counts, cli_train_counts = timed(
@@ -3664,8 +3870,8 @@ def main() -> int:
     del scene
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
-        group_rows, tf32_rows, cvp_full, cvp_cli, scan_root = timed(
-            8, phase_cvp(device, work))
+        group_rows, tf32_rows, cvp_cin64_rows, cvp_full, cvp_cli, \
+            scan_root = timed(8, phase_cvp(device, work))
         mvs = timed(9, phase_mvsnet(device, scan_root, work))
         pyr = timed(10, phase_cvp_training(device, work, grad_rows))
         point = timed(11, phase_point(device, scan_root, work))
@@ -3703,17 +3909,24 @@ def main() -> int:
                     point_cli_launches=point["cli"][key],
                     point_cli_train_launches=point["cli_train"][key])
 
-    def point_times(rows, prefix):
-        """Sums over Point-MVSNet's launches (11a)."""
-        return {f"{prefix}_ms": sum(r["ms"] for r in rows),
+    def row_sums(rows, prefix):
+        """Sums over the rows' launches (11a: Point-MVSNet's; 2b, 8a, 9a:
+        an f32 map's convs at Cin = 64), with the library's time and the f32
+        CUDA-core bound where the rows have them."""
+        sums = {f"{prefix}_ms": sum(r["ms"] for r in rows),
                 f"{prefix}_plain_ms": sum(r["plain_ms"] for r in rows),
                 f"{prefix}_bound_ms": sum(max(r["bytes_ms"], r["ops_ms"])
                                           for r in rows),
                 f"{prefix}_max_abs_err": max(r["err"] for r in rows)}
+        if all("library_ms" in r for r in rows):
+            sums[f"{prefix}_library_ms"] = sum(r["library_ms"] for r in rows)
+        if all("f32_ops_ms" in r for r in rows):
+            sums[f"{prefix}_f32_cuda_core_bound_ms"] = sum(
+                max(r["bytes_ms"], r["f32_ops_ms"]) for r in rows)
+        return sums
 
-    def direct_launches(counts):
-        return (counts["conv3d_affine"] - counts["conv3d_affine.mma"]
-                - counts["conv3d_affine.tf32x3"])
+    cin64 = "conv3d_affine.tf32x3_cin64"
+    cin64_rows = point["rows"]["cin64"]
 
     kernels = [
         kernel_entry("warp_variance", "mvs_tpu_torch/csrc/warp_variance.cu",
@@ -3729,7 +3942,7 @@ def main() -> int:
                      **pyramid_training("warp_variance"),
                      **at_point("warp_variance"),
                      # One f32 Point-MVSNet map's 7 launches (11a).
-                     **point_times(point["rows"]["warp"], "point")),
+                     **row_sums(point["rows"]["warp"], "point")),
         kernel_entry("conv3d_affine", "mvs_tpu_torch/csrc/conv3d_affine.cu",
                      "mvs_tpu/ops/conv3d_pallas.py:259", conv_rows,
                      launches["conv3d_affine"],
@@ -3762,21 +3975,32 @@ def main() -> int:
                          "conv3d_affine.tf32x3"],
                      **pyramid_training("conv3d_affine.tf32x3"),
                      **at_point("conv3d_affine.tf32x3")),
-        # The direct variant at f32 with Cin = 64: Point-MVSNet's two
+        # The 3xTF32 kernel at Cin = 64: times over Point-MVSNet's two
         # VolumeConv convs (64->8 at 96x120x160, 64->64 at 12x15x20; 11a),
-        # library cuDNN f32 with TF32 off. launches: per Point-MVSNet map
-        # (11c); cli_launches: 11d's run.
-        kernel_entry("conv3d_affine.direct",
-                     "mvs_tpu_torch/csrc/conv3d_affine.cu",
-                     "mvs_tpu/ops/conv3d_pallas.py:259",
-                     point["rows"]["direct"],
-                     direct_launches(point["full"][4][0]),
-                     direct_launches(point["cli"]), library=True,
-                     point_launches=direct_launches(point["full"][4][0]),
-                     point_train_launches=direct_launches(point["train"]),
-                     point_cli_launches=direct_launches(point["cli"]),
-                     point_cli_train_launches=direct_launches(
-                         point["cli_train"])),
+        # library cuDNN f32 with TF32 off, bounds as the 3xTF32 entry's;
+        # cvp_*: the same over an f32 CVP / AACVP map's 15 (8a), cas_*: over
+        # an f32 CasMVSNet map's 3 (2b), mvsnet_*: over an f32 MVSNet map's
+        # 1 (9a). launches: per Point-MVSNet map
+        # (11c); cli_launches: 11d's run; {cvp,aacvp,cas,mvsnet}_f32_launches:
+        # per f32 map (8c, 4, 9c).
+        kernel_entry(cin64, "mvs_tpu_torch/csrc/conv3d_affine.cu",
+                     "mvs_tpu/ops/conv3d_pallas.py:259", cin64_rows,
+                     point["full"][4][0][cin64], point["cli"][cin64],
+                     library=True,
+                     f32_cuda_core_bound_ms=sum(
+                         max(r["bytes_ms"], r["f32_ops_ms"])
+                         for r in cin64_rows),
+                     bytes_bound_ms=sum(r["bytes_ms"] for r in cin64_rows),
+                     **row_sums(cvp_cin64_rows, "cvp"),
+                     **row_sums(cas_cin64_rows, "cas"),
+                     **row_sums(mvs["rows"]["cin64"], "mvsnet"),
+                     cvp_f32_launches=cvp_full[("cvp_mvsnet",
+                                                torch.float32)][cin64],
+                     aacvp_f32_launches=cvp_full[("aacvp_mvsnet",
+                                                  torch.float32)][cin64],
+                     cas_f32_launches=cas_counts[torch.float32][cin64],
+                     mvsnet_f32_launches=mvs["full"][torch.float32][0][cin64],
+                     **pyramid_training(cin64), **at_point(cin64)),
         # The backward has no Pallas counterpart (JAX trains through XLA's
         # gather path); it is the gradient of the kernel above. launches:
         # per train step (7c); cli_launches: 7d's cli train run.
@@ -3807,8 +4031,8 @@ def main() -> int:
                          "warp_variance_grad.depth"],
                      # One f32 Point-MVSNet train step's 7 launches, the
                      # flow's 6 with the hypotheses' gradient (11a).
-                     **point_times(point["rows"]["warp_grad"],
-                                   "point_train")),
+                     **row_sums(point["rows"]["warp_grad"],
+                                "point_train")),
         # No pallas_call of its own: the counterpart of the fused
         # group-correlation mode of the banded warp (hat_warp.py:413-417,
         # 477). launches: per AACVP map (8c); cli_launches: 8d's AACVP run.

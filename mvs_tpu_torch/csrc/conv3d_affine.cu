@@ -63,9 +63,8 @@
 //     tile): the halo ring then stays one f32 plane per z (11.5 KB at Cin =
 //     16), so two CTAs fit an SM. The epilogue stores a lane's two channels
 //     of a column as one 8-byte store; a quad's four fill one 32-byte sector.
-//     Cin = 64 does not fit: its f32 halo ring takes 4 x 46 KB and one n8
-//     tile of its split weights 110 KB, so those convs (only the f32 maps of
-//     CasMVSNet, MVSNet and CVP / AACVP run them) stay on the direct kernel.
+//     Cin = 64 does not fit this ring (4 x 46 KB of f32 halo beside 110 KB
+//     for one n8 tile of split weights): see conv3d_tf32x3_cin64_kernel.
 //     Measured on one H100 80GB HBM3 at 700 W (chip_smoke.py phase 8a),
 //     AACVP's 10 f32 launches of a bf16 map take 6.08 ms, against 45.8 ms
 //     on the direct kernel, 36.5 ms for cuDNN's f32 conv (TF32 off) and a
@@ -75,23 +74,73 @@
 //     8 x 1184 x 1600, takes 3.35 ms; without the split of x (wrong
 //     results, for timing) 2.76, as one TF32 product 2.05.
 //
+// conv3d_tf32x3_cin64_kernel: the f32 convs at Cin = 64 (Cout a multiple of
+// 8: the U-Nets' (64, 64) blocks and 64->32 transposed block, Point-MVSNet's
+// 64->8 and 64->64), with the 3xTF32 arithmetic, fragments, 8x16 tile, halo
+// swizzle and split-weight layout above. Those are bound by operations
+// (Point-MVSNet's 64->8 does 27 * 64 * 8 * 2 flop per 288 bytes of x and y),
+// and at Cin = 64 the K of an n8 tile (27 taps x 64 channels, 216 k steps)
+// is 110,592 bytes split: one n8 tile of weights and a halo ring cannot
+// both be resident over a CTA's run as the Cin <= 32 kernel keeps them. So
+// the loop over z is turned around: input-stationary. Step i loads input
+// plane z0 - 1 + i once and multiplies it by all three tap planes dz of the
+// weights, into the accumulators of the three output planes it feeds (z0 +
+// i - dz); output plane z0 + i - 2 is then complete, stored, and the
+// accumulators shift by one plane. A plane is read into shared memory once
+// per CTA, the ring holds 2 planes (one in use, one in flight) instead of
+// 4, and each A fragment is split once for 9 MMAs (3 dz x 3 products)
+// instead of 3. Planes outside the volume are neither loaded nor
+// multiplied; an output plane outside the CTA's z run takes no MMA.
+//   Shared memory per CTA: 2 halo planes of (8+2) x (16+2) pixels x 256 B
+//   (92,160 B), the split weights of the CTA's n8 tile (110,592 B, loaded
+//   once by cp.async with the first plane) and 4,096 B for partial sums:
+//   206,848 of 232,448 B, one CTA an SM. 8 warps (256 threads): warps 0-3
+//   and 4-7 take the same 2 tile rows each (two m16 tiles) over the low
+//   and the high 32 channels of every tap, two warps a scheduler; the
+//   upper half adds its sums into the lower's through shared memory before
+//   the epilogue. Registers: 134 a thread, no stack or local bytes
+//   (cuobjdump -res-usage of the sm_90a build): 48
+//   accumulators (3 planes x 2 m16 x 4, the big products and the two small
+//   ones apart), two A fragments in flight (ldmatrix of step c + 1 starts
+//   before step c's split), three B fragments. A warp runs its
+//   instructions in order, so each k step runs its 18 MMAs in three passes
+//   over the (dz, m16) pairs: the two MMAs into one accumulator are 12
+//   apart.
+//   Cout > 8: one CTA per n8 slice; the slices of a tile are neighbours in
+//   blockIdx.x, so they run together and all but the first find its halo
+//   planes in L2. At CVP level 0's (64, 64), 4 x 592 x 800 (D = 4: one z
+//   run a CTA, 3,700 tiles x 8 slices), x is 485 MB; device memory gives
+//   it about once, times the halo's 180 / 128 pixels (~0.68 GB), while
+//   shared memory takes 8 x 4 planes of 46,080 B a tile (5.5 GB) and the
+//   weights once a CTA (3.3 GB) from L2: a reckoning from the launch
+//   shape, not measured (no ncu on the card's machine).
+//   Measured on one H100 80GB HBM3 at 700 W (chip_smoke.py 11a and 8a;
+//   chip_ab.py for the direct kernel): Point-MVSNet's 64->8 at 96 x 120 x
+//   160 1.04 ms (direct 14.12-14.16, cuDNN f32 with TF32 off 7.28-7.31,
+//   3xTF32 bound 0.31), CVP level 0's (64, 64) at 4 x 592 x 800 6.99 ms
+//   (direct 98.8-99.3, cuDNN 10.74-11.03, bound 2.54): 30% and 36% of the
+//   TF32 rate.
+//
 // conv3d_direct_kernel (what the tensor-core kernels do not take: f32 with
-// Cin outside {4, 8, 16, 32}, bf16 with Cin not a multiple of 8): the direct
-// form on the CUDA cores. One thread computes one voxel for a block of kCob
-// output channels from a (27, Cin, kCob) f32 weight slice in shared memory.
+// Cin outside {4, 8, 16, 32, 64}, or at Cin = 64 with Cout not a multiple of
+// 8, bf16 with Cin not a multiple of 8): the direct form on the CUDA cores.
+// One thread computes one voxel for a block of kCob output channels from a
+// (27, Cin, kCob) f32 weight slice in shared memory.
 //
 // C interface (loaded with ctypes, see mvs_tpu_torch/ops/conv3d.py); every
 // pointer is a device pointer to contiguous memory,
 //   x      (B, D, H, W, Cin)   T
 //   w      (Kpad, ldw)         T, rows tap*Cin + i with tap = (dz*3+dy)*3+dx,
 //                              zero past 27*Cin rows and Cout columns; for
-//                              the 3xTF32 entry the split fragments above
+//                              the 3xTF32 entries the split fragments above
 //   scale  (Cout,)             f32
 //   shift  (Cout,)             f32
 //   y      (B, D, H, W, Cout)  T
 // with T = float (dtype 0) or __nv_bfloat16 (dtype 1) for the direct entry,
-// bf16 for mvs_conv3d_mma and f32 for mvs_conv3d_tf32x3; ldw is the padded
-// Cout. Each entry launches on `stream` and returns cudaGetLastError().
+// bf16 for mvs_conv3d_mma and f32 for mvs_conv3d_tf32x3 and
+// mvs_conv3d_tf32x3_cin64 (Cin = 64 only); ldw is the padded Cout. Each
+// entry launches on `stream` and returns cudaGetLastError() (an argument it
+// does not take: cudaErrorInvalidValue, before any launch).
 
 #include "mvs_common.cuh"
 
@@ -282,6 +331,32 @@ __device__ __forceinline__ uint32_t a_row(const uint32_t* plane,
   return plane[dz] + Halo<kChunks>::offset(p, q % kChunks);
 }
 
+// Halo plane z of batch b (rows h0 - 1 .. h0 + kTH, columns w0 - 1 .. w0 +
+// kTW) into dst as kChunks 16-byte chunks a pixel by cp.async, zero outside
+// the volume (z outside [0, D) included). Keep it a function taking x by
+// value: the same loop inlined in a lambda that captures x by reference
+// computes the addresses in more instructions, and CVP level 0's nine bf16
+// convs take 10.1 ms on one H100 at 700 W against 8.7 (chip_ab.py
+// ab_bf16_convs), with the same MMA, ldmatrix and cp.async counts.
+template <typename T, int kChunks, int kThreads = kMmaThreads>
+__device__ __forceinline__ void load_halo(unsigned char* dst, const T* x,
+                                          int b, int z, int D, int H, int W,
+                                          int h0, int w0, int tid) {
+  constexpr int kCh = kChunks * 16 / (int)sizeof(T);  // channels a pixel
+  const bool zok = z >= 0 && z < D;
+  const int64_t zrow = ((int64_t)b * D + (zok ? z : 0)) * H;
+  for (int i = tid; i < kHaloPix * kChunks; i += kThreads) {
+    const int p = i / kChunks, o = i % kChunks;
+    const int hr = p / kHaloW, hc = p - hr * kHaloW;
+    const int ih = h0 - 1 + hr, iw = w0 - 1 + hc;
+    const bool ok = zok && ih >= 0 && ih < H && iw >= 0 && iw < W;
+    const T* src = ok ? x + ((zrow + ih) * W + iw) * kCh + o * (16 / sizeof(T))
+                      : x;
+    mvs::cp_async16(mvs::smem_u32(dst + Halo<kChunks>::offset(p, o)), src,
+                    ok ? 16 : 0);
+  }
+}
+
 template <typename T, int kCin, int kNs>
 __global__ void __launch_bounds__(kMmaThreads)
 conv3d_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -330,20 +405,8 @@ conv3d_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   // Input plane z0 - 1 + iz into ring slot iz % kRing, zero outside.
   auto load_plane = [&](int iz) {
-    const int z = z0 - 1 + iz;
-    const bool zok = z >= 0 && z < D;
-    unsigned char* dst = ring + (iz % kRing) * L::kPlaneBytes;
-    const int64_t zrow = ((int64_t)b * D + (zok ? z : 0)) * H;
-    for (int i = tid; i < kHaloPix * kChunks; i += kMmaThreads) {
-      const int p = i / kChunks, o = i % kChunks;
-      const int hr = p / kHaloW, hc = p - hr * kHaloW;
-      const int ih = h0 - 1 + hr, iw = w0 - 1 + hc;
-      const bool ok = zok && ih >= 0 && ih < H && iw >= 0 && iw < W;
-      const T* src =
-          ok ? x + ((zrow + ih) * W + iw) * kCin + o * Gemm<T>::kChunkCh : x;
-      mvs::cp_async16(mvs::smem_u32(dst + L::offset(p, o)), src,
-                      ok ? 16 : 0);
-    }
+    load_halo<T, kChunks>(ring + (iz % kRing) * L::kPlaneBytes, x, b,
+                          z0 - 1 + iz, D, H, W, h0, w0, tid);
   };
   load_plane(0);
   mvs::cp_async_commit();  // with the weights
@@ -513,6 +576,26 @@ conv3d_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// The card's SM count, read once.
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// z planes a CTA marches over: up to kMaxZRun, halved while `tiles` CTAs
+// a z run give fewer than `min_ctas` in all.
+int z_run(int D, int64_t tiles, int64_t min_ctas) {
+  int zrun = D < kMaxZRun ? D : kMaxZRun;
+  while (zrun > 1 && tiles * ((D + zrun - 1) / zrun) < min_ctas)
+    zrun = (zrun + 1) / 2;
+  return zrun;
+}
+
 template <typename T, int kCin, int kNs>
 int launch_mma_ns(const void* x, const void* w, const void* scale,
                   const void* shift, void* y, int B, int D, int H, int W,
@@ -527,19 +610,11 @@ int launch_mma_ns(const void* x, const void* w, const void* scale,
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
   const int nns = ldw / kNs;
   const int64_t tiles =
       (int64_t)((W + kTW - 1) / kTW) * ((H + kTH - 1) / kTH) * nns * B;
-  // Runs of up to 8 planes; shorter when that leaves under 2 CTAs per SM.
-  int zrun = D < kMaxZRun ? D : kMaxZRun;
-  while (zrun > 1 && tiles * ((D + zrun - 1) / zrun) < 2 * (int64_t)sms)
-    zrun = (zrun + 1) / 2;
+  // Under 2 CTAs an SM, shorter runs.
+  const int zrun = z_run(D, tiles, 2 * (int64_t)sm_count());
   const int nzrun = (D + zrun - 1) / zrun;
   const int64_t gz = (int64_t)B * nzrun * nns;
   if (gz > 65535 || (H + kTH - 1) / kTH > 65535)
@@ -591,6 +666,244 @@ int dispatch_mma(const void* x, const void* w, const void* scale,
   return status;
 }
 
+// --------------------------------------------------------------------------
+// 3xTF32 at Cin = 64: the same tile, fragments and split, input-stationary
+// over z (see the header).
+
+using HaloC64 = Halo<16>;                     // 64 f32 channels a pixel
+constexpr int kC64Ring = 2;                   // halo planes: in use, in flight
+constexpr int kC64Steps = 27 * 8;             // k8 steps; a tap is 8 of them
+constexpr int kC64Tile = kC64Steps * 512;     // split B of one n8 tile
+constexpr int kC64Threads = 256;  // 2 channel halves x 4 warps x 2 rows
+constexpr int kC64Red = 4 * 2 * 32 * 16;      // one half's partial sums
+constexpr int kC64Smem = kC64Ring * HaloC64::kPlaneBytes + kC64Tile + kC64Red;
+
+__global__ void __launch_bounds__(kC64Threads, 1)
+conv3d_tf32x3_cin64_kernel(const float* __restrict__ x,
+                           const float* __restrict__ w,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ shift,
+                           float* __restrict__ y, int D, int H, int W,
+                           int Cout, int relu, int zrun, int nzrun, int nns) {
+  using L = HaloC64;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  unsigned char* wsm = smem + kC64Ring * L::kPlaneBytes;  // one n8 tile
+  float4* red = reinterpret_cast<float4*>(wsm + kC64Tile);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // Warp (half, wr): tile rows 2 wr, 2 wr + 1 over channels 32 half ..
+  // 32 half + 31 of every tap (k steps 4 half .. 4 half + 3 of the tap's 8).
+  const int half = tid >> 7, wr = (tid >> 5) & 3;
+  // The n8 slices of a tile are neighbours in the grid, so they run at the
+  // same time and all but the first read its halo planes from L2.
+  const int ns = blockIdx.x % nns;
+  const int w0 = (blockIdx.x / nns) * kTW, h0 = blockIdx.y * kTH;
+  const int zi = blockIdx.z % nzrun, b = blockIdx.z / nzrun;
+  const int z0 = zi * zrun, nz = min(zrun, D - z0);
+  const int co0 = ns * 8;
+
+  {
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(w) + (size_t)ns * kC64Tile;
+    for (int i = tid; i < kC64Tile / 16; i += kC64Threads)
+      mvs::cp_async16(mvs::smem_u32(wsm + i * 16), src + i * 16, 16);
+  }
+  // Step i (0 .. nz + 1) takes input plane z0 - 1 + i from ring slot
+  // i % kC64Ring; a plane outside the volume is zero: not loaded, not
+  // multiplied.
+  auto in_volume = [&](int i) {
+    return z0 - 1 + i >= 0 && z0 - 1 + i < D;
+  };
+  auto load_plane = [&](int i) {
+    load_halo<float, 16, kC64Threads>(ring + (i % kC64Ring) * L::kPlaneBytes,
+                                      x, b, z0 - 1 + i, D, H, W, h0, w0, tid);
+  };
+  if (in_volume(0)) load_plane(0);
+  mvs::cp_async_commit();  // with the weights
+
+  // ldmatrix.x4 of A as in conv3d_mma_kernel: lanes 0-15 address output
+  // columns 0-15 at a step's first chunk, lanes 16-31 at its second.
+  const int acol = lane & 15, ahalf = lane >> 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  float sc[2], sh[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int c = co0 + t4 * 2 + e;
+    sc[e] = c < Cout ? scale[c] : 0.f;
+    sh[e] = c < Cout ? shift[c] : 0.f;
+  }
+  const uint32_t ring0 = mvs::smem_u32(ring);
+  const unsigned char* wl = wsm + lane * 16;
+
+  // acc[k][mt]: output plane z0 + i - k of tile row wr * 2 + mt during step
+  // i, which it takes through tap plane dz = k. The big products go to acc,
+  // the two small ones to acs: three chains of MMAs, not one.
+  float acc[3][2][4], acs[3][2][4];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[k][mt][e] = acs[k][mt][e] = 0.f;
+
+  for (int i = 0; i < nz + 2; ++i) {
+    if (i + 1 < nz + 2 && in_volume(i + 1)) load_plane(i + 1);
+    mvs::cp_async_commit();
+    mvs::cp_async_wait<1>();  // plane i (and the weights) have landed
+    __syncthreads();
+
+    if (in_volume(i)) {
+      // Output planes of the run that this plane feeds: k in [klo, khi].
+      const int klo = max(0, i - nz + 1), khi = min(2, i);
+      const uint32_t plane = ring0 + (i % kC64Ring) * L::kPlaneBytes;
+      for (int t = 0; t < 9; ++t) {  // (dy, dx) = (t / 3, t % 3)
+        const int dy = t / 3, dx = t - dy * 3;
+        uint32_t arow[2];
+        int asw[2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int p = (wr * 2 + mt + dy) * kHaloW + acol + dx;
+          arow[mt] = plane + p * L::kPixBytes;
+          asw[mt] = ahalf ^ (p & 15);  // Halo<16>::offset's swizzle
+        }
+        // k step (dz * 9 + t) * 8 + c of the packed weights, c = 4 half +
+        // cc.
+        const unsigned char* bt = wl + (t * 8 + 4 * half) * 512;
+        uint32_t a[2][2][4];  // [cc & 1][mt]: the next step's is in flight
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mvs::ldsm_x4(arow[mt] + (((8 * half) ^ asw[mt]) << 4), a[0][mt]);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          uint32_t(&ab)[2][4] = a[cc & 1];
+          if (cc + 1 < 4) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              mvs::ldsm_x4(
+                  arow[mt] + (((8 * half + 2 * (cc + 1)) ^ asw[mt]) << 4),
+                  a[(cc + 1) & 1][mt]);
+          }
+          uint4 bw[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            if (k >= klo && k <= khi)
+              bw[k] = *reinterpret_cast<const uint4*>(bt +
+                                                      (k * 72 + cc) * 512);
+          uint32_t as[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const uint32_t big = mvs::tf32_rna(ab[mt][j]);
+              as[mt][j] = mvs::tf32_rna(__float_as_uint(
+                  __uint_as_float(ab[mt][j]) - __uint_as_float(big)));
+              ab[mt][j] = big;
+            }
+          // Three passes over the (k, mt) pairs: the two MMAs into one acs
+          // are 12 MMAs apart, not back to back (a warp runs in order).
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              if (k < klo || k > khi) continue;
+              const uint32_t wb[2] = {bw[k].x, bw[k].y};
+              const uint32_t ws[2] = {bw[k].z, bw[k].w};
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                if (pass == 0) mvs::mma_tf32_1688(acs[k][mt], as[mt], wb);
+                if (pass == 1) mvs::mma_tf32_1688(acc[k][mt], ab[mt], wb);
+                if (pass == 2) mvs::mma_tf32_1688(acs[k][mt], ab[mt], ws);
+              }
+            }
+        }
+      }
+    }
+
+    // Output plane z0 + i - 2 has all three of its planes: the upper
+    // half's sums go through shared memory to the lower half, which adds
+    // them and stores.
+    if (i >= 2 && half == 1) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        red[(wr * 2 + mt) * 32 + lane] = make_float4(
+            __fadd_rn(acc[2][mt][0], acs[2][mt][0]),
+            __fadd_rn(acc[2][mt][1], acs[2][mt][1]),
+            __fadd_rn(acc[2][mt][2], acs[2][mt][2]),
+            __fadd_rn(acc[2][mt][3], acs[2][mt][3]));
+    }
+    __syncthreads();
+    if (i >= 2 && half == 0) {
+      const int64_t zrow = ((int64_t)b * D + z0 + i - 2) * H;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int oh = h0 + wr * 2 + mt;
+        const float4 up = red[(wr * 2 + mt) * 32 + lane];
+        const float other[4] = {up.x, up.y, up.z, up.w};
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[e] = __fadd_rn(
+              __fmul_rn(__fadd_rn(__fadd_rn(acc[2][mt][e], acs[2][mt][e]),
+                                  other[e]),
+                        sc[e & 1]),
+              sh[e & 1]);
+          if (relu) v[e] = fmaxf(v[e], 0.f);
+        }
+        float* yp = y + (zrow + oh) * W * Cout + co0 + 2 * t4;
+        if (oh < H && w0 + g < W)
+          *reinterpret_cast<float2*>(yp + (int64_t)(w0 + g) * Cout) =
+              make_float2(v[0], v[1]);
+        if (oh < H && w0 + g + 8 < W)
+          *reinterpret_cast<float2*>(yp + (int64_t)(w0 + g + 8) * Cout) =
+              make_float2(v[2], v[3]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[2][mt][e] = acc[1][mt][e];
+        acc[1][mt][e] = acc[0][mt][e];
+        acc[0][mt][e] = 0.f;
+        acs[2][mt][e] = acs[1][mt][e];
+        acs[1][mt][e] = acs[0][mt][e];
+        acs[0][mt][e] = 0.f;
+      }
+    __syncthreads();  // slot i % kC64Ring is refilled at step i + 1
+  }
+}
+
+int launch_tf32x3_cin64(const void* x, const void* w, const void* scale,
+                        const void* shift, void* y, int B, int D, int H,
+                        int W, int Cout, int ldw, int relu,
+                        cudaStream_t stream) {
+  static_assert(kC64Smem <= 227 * 1024, "shared memory");
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv3d_tf32x3_cin64_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kC64Smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  const int nns = ldw / 8;
+  const int64_t gx = (int64_t)nns * ((W + kTW - 1) / kTW);
+  const int64_t tiles = gx * ((H + kTH - 1) / kTH) * B;
+  // One CTA an SM: shorter runs under one wave.
+  const int zrun = z_run(D, tiles, sm_count());
+  const int nzrun = (D + zrun - 1) / zrun;
+  const int64_t gz = (int64_t)B * nzrun;
+  if (gx > 0x7fffffff || gz > 65535 || (H + kTH - 1) / kTH > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)gx, (H + kTH - 1) / kTH, (unsigned)gz);
+  conv3d_tf32x3_cin64_kernel<<<grid, kC64Threads, kC64Smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(shift),
+      static_cast<float*>(y), D, H, W, Cout, relu, zrun, nzrun, nns);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int mvs_conv3d_direct(const void* x, const void* w,
@@ -622,4 +935,17 @@ extern "C" int mvs_conv3d_tf32x3(const void* x, const void* w,
                                  int Cout, int ldw, int relu, void* stream) {
   return dispatch_mma<float, 4, 8, 16, 32>(x, w, scale, shift, y, B, D, H, W,
                                            Cin, Cout, ldw, relu, stream);
+}
+
+extern "C" int mvs_conv3d_tf32x3_cin64(const void* x, const void* w,
+                                       const void* scale, const void* shift,
+                                       void* y, int B, int D, int H, int W,
+                                       int Cin, int Cout, int ldw, int relu,
+                                       void* stream) {
+  if ((B * (int64_t)D * H * W) == 0) return cudaSuccess;
+  if (Cin != 64 || Cout < 8 || Cout % 8 != 0 || ldw % 8 != 0 ||
+      Cout > ldw)
+    return (int)cudaErrorInvalidValue;
+  return launch_tf32x3_cin64(x, w, scale, shift, y, B, D, H, W, Cout, ldw,
+                             relu, static_cast<cudaStream_t>(stream));
 }

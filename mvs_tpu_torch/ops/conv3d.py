@@ -16,16 +16,25 @@ the kernel of a CUDA call from (dtype, Cin, Cout):
   products summed in f32, which keeps f32's accuracy. It takes f32 with Cin
   in {4, 8, 16, 32} and Cout a multiple of 8 or 1 (x 16-byte aligned, else
   it raises): AACVP's f32 blocks in its bf16 model, and every f32 conv of
-  the main paths but the Cin = 64 ones, whose f32 halo ring and weights do
-  not fit one block's shared memory;
+  the main paths with Cin under 64;
+* ``"tf32x3_cin64"``, the same 3xTF32 arithmetic at Cin = 64
+  (``mvs_conv3d_tf32x3_cin64``), a kernel of its own because its f32 halo
+  planes and split weights do not fit the ring of ``"tf32x3"``: it keeps one
+  n8 tile of the weights resident and reads each input plane once for the
+  three output planes it feeds. It takes f32 with Cin = 64 and Cout a
+  multiple of 8 (x 16-byte aligned, else it raises): every f32 conv of the
+  main paths at Cin = 64 (the (64, 64) and 64->32 blocks of the U-Nets,
+  Point-MVSNet's 64->8 and 64->64);
 * ``"direct"``, the direct kernel on the CUDA cores (``mvs_conv3d_direct``),
-  for everything else (Cin up to 256).
+  for everything else (Cin up to 256): f32 at other Cin, such as 12, or at
+  Cin = 64 with Cout = 1 or not a multiple of 8, and bf16 with Cin % 8 != 0.
 
 ``conv3d_affine.launches`` counts launches of any kernel,
-``conv3d_affine.mma_launches`` and ``conv3d_affine.tf32x3_launches`` those
-of the two tensor-core variants. The kernels read the weights as
-``pack_conv3d_taps`` (bf16 and direct) or ``pack_conv3d_tf32x3`` lays them
-out, packed once per weight tensor and kept on it until the weight changes.
+``conv3d_affine.mma_launches``, ``conv3d_affine.tf32x3_launches`` and
+``conv3d_affine.tf32x3_cin64_launches`` those of the three tensor-core
+variants. The kernels read the weights as ``pack_conv3d_taps`` (bf16 and
+direct) or ``pack_conv3d_tf32x3`` (both 3xTF32 variants) lays them out,
+packed once per weight tensor and kept on it until the weight changes.
 The TPU kernel's lane fold (fold_factor, fold_volume, fold_conv3d_weights)
 is a TPU layout device and has no counterpart here.
 
@@ -55,6 +64,8 @@ _SIGNATURES = {
                        + [ctypes.c_void_p], ctypes.c_int),
     "mvs_conv3d_tf32x3": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                           + [ctypes.c_void_p], ctypes.c_int),
+    "mvs_conv3d_tf32x3_cin64": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                                + [ctypes.c_void_p], ctypes.c_int),
 }
 _MAX_CIN = 256  # the direct kernel's (27, Cin, 8) f32 slice in shared memory
 _MMA_CIN = (8, 16, 32, 64)  # the implicit GEMM's halo ring fits up to 64
@@ -141,13 +152,15 @@ def _packed(weight: torch.Tensor, dtype: torch.dtype,
 
 
 def _variant(dtype: torch.dtype, cin: int, cout: int) -> str:
-    """The kernel a CUDA call of (dtype, Cin, Cout) takes: "mma", "tf32x3"
-    or "direct" (see the module's docstring)."""
+    """The kernel a CUDA call of (dtype, Cin, Cout) takes: "mma", "tf32x3",
+    "tf32x3_cin64" or "direct" (see the module's docstring)."""
     if dtype == torch.bfloat16 and cin % 8 == 0:
         return "mma"
     if dtype == torch.float32 and cin in _TF32_CIN and (cout % 8 == 0
                                                         or cout == 1):
         return "tf32x3"
+    if dtype == torch.float32 and cin == 64 and cout % 8 == 0:
+        return "tf32x3_cin64"
     return "direct"
 
 
@@ -204,7 +217,7 @@ def conv3d_affine(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"{str(x.dtype)[6:]} x must be 16-byte aligned")
     if variant == "direct" and cin > _MAX_CIN:
         raise ValueError(f"Cin {cin} > {_MAX_CIN}")
-    tf32x3 = variant == "tf32x3"
+    tf32x3 = variant in ("tf32x3", "tf32x3_cin64")  # split weights
     taps = _packed(weight, x.dtype, tf32x3)
     sc = scale.float().contiguous()
     sh = shift.float().contiguous()
@@ -217,17 +230,21 @@ def conv3d_affine(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                 y.data_ptr(), b, d, h, w, cin, cout, ldw, int(relu))
         if variant == "mma":
             status = lib.mvs_conv3d_mma(*args, stream)
-        elif tf32x3:
+        elif variant == "tf32x3":
             status = lib.mvs_conv3d_tf32x3(*args, stream)
+        elif variant == "tf32x3_cin64":
+            status = lib.mvs_conv3d_tf32x3_cin64(*args, stream)
         else:
             status = lib.mvs_conv3d_direct(*args, _DTYPES[x.dtype], stream)
     _build.check(status, "conv3d_affine")
     conv3d_affine.launches += 1
     conv3d_affine.mma_launches += int(variant == "mma")
-    conv3d_affine.tf32x3_launches += int(tf32x3)
+    conv3d_affine.tf32x3_launches += int(variant == "tf32x3")
+    conv3d_affine.tf32x3_cin64_launches += int(variant == "tf32x3_cin64")
     return y
 
 
 conv3d_affine.launches = 0
 conv3d_affine.mma_launches = 0
 conv3d_affine.tf32x3_launches = 0
+conv3d_affine.tf32x3_cin64_launches = 0

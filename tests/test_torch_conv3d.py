@@ -11,13 +11,15 @@ kernels' weight layout (pack_conv3d_taps) is held to the same bound as the
 GEMM the tensor-core kernel computes: an im2col of the input in its K order
 times the packed matrix, with the affine and ReLU.
 
-The f32 tensor-core kernel (3xTF32) is emulated here: split_tf32 splits
-both x and the weights into two TF32 parts, and the three products the
-kernel takes (small*big, big*small, big*big; exact in f64) are held against
-the Pallas kernel at AACVP's f32 shapes within the same 2e-4, while one
-TF32 product alone misses by more than 1e-4 of the largest output (the
-card's f32 limit), so dropping the split would show. _variant, the rule
-that picks a CUDA call's kernel, is pinned for every conv of the main paths.
+The f32 tensor-core kernels (3xTF32, and its Cin = 64 kernel, which reads
+the same split weights) are emulated here: split_tf32 splits both x and the
+weights into two TF32 parts, and the three products the kernels take
+(small*big, big*small, big*big; exact in f64) are held against the Pallas
+kernel at AACVP's f32 shapes and at the Cin = 64 ones (64->8, 64->64,
+64->32) within the same 2e-4, while one TF32 product alone misses by more
+than 1e-4 of the largest output (the card's f32 limit), so dropping the
+split would show. _variant, the rule that picks a CUDA call's kernel, is
+pinned for every conv of the main paths.
 """
 
 import jax
@@ -153,12 +155,16 @@ def test_packed_weights_follow_load_state_dict():
     assert not torch.equal(_packed(block.kernel, torch.bfloat16), first)
 
 
-@pytest.mark.parametrize("c_in,c_out", [(4, 16), (16, 16), (8, 1), (32, 8)])
+@pytest.mark.parametrize("c_in,c_out", [(4, 16), (16, 16), (8, 1), (32, 8),
+                                        (64, 8), (64, 64)])
 def test_tf32x3_packing_splits_the_weights(c_in, c_out):
     """pack_conv3d_tf32x3: big + small gives the f32 weight back within
     2^-21 relative, both parts are TF32 values (13 low mantissa bits zero),
     and lane g * 4 + t4 of (n8 tile nt, k step s) holds the m16n8k8 B
-    fragment rows k = 8 s + t4 and k + 4 of column n = 8 nt + g."""
+    fragment rows k = 8 s + t4 and k + 4 of column n = 8 nt + g. At Cin =
+    64 a tap is exactly 8 k steps (no padding), so the Cin = 64 kernel
+    finds tap plane dz, tap (dy, dx), step c at s = (dz * 9 + dy * 3 + dx)
+    * 8 + c."""
     weight = torch.randn(c_out, c_in, 3, 3, 3,
                          generator=torch.Generator().manual_seed(c_in))
     taps = pack_conv3d_taps(weight, torch.float32)
@@ -177,18 +183,27 @@ def test_tf32x3_packing_splits_the_weights(c_in, c_out):
     err = (big + small - want).abs()
     assert (err <= want.abs() * 2.0 ** -21).all()
     assert (big != want).any()  # the split is not empty
+    if c_in == 64:
+        assert steps == 27 * 8
+        dz, dy, dx, c = 2, 1, 0, 5
+        s = (dz * 9 + dy * 3 + dx) * 8 + c
+        assert torch.equal(big[8 * s:8 * s + 8], split_tf32(
+            weight[:, 8 * c:8 * c + 8, dz, dy, dx].T)[0])
 
 
 @pytest.mark.parametrize("c_in,c_out,shape", [
-    (4, 16, (4, 8, 16)),
-    (16, 16, (3, 6, 16)),
+    (4, 16, (3, 4, 8, 16)),
+    (16, 16, (3, 3, 6, 16)),
+    (64, 8, (1, 2, 4, 8)),
+    (64, 64, (1, 2, 6, 16)),
+    (64, 32, (1, 2, 5, 12)),
 ])
 def test_tf32x3_emulation_matches_pallas(c_in, c_out, shape):
-    """The 3xTF32 kernel's arithmetic against mvs_tpu's f32 conv: three
+    """The 3xTF32 kernels' arithmetic against mvs_tpu's f32 conv: three
     TF32 products (exact in f64) within 2e-4; one alone misses by more
-    than 1e-4 of the largest output."""
+    than 1e-4 of the largest output. shape is (B, D, H, W)."""
     rng = np.random.default_rng(7)
-    x = rng.standard_normal((3, *shape, c_in)).astype(np.float32)
+    x = rng.standard_normal((*shape, c_in)).astype(np.float32)
     k = (rng.standard_normal((3, 3, 3, c_in, c_out)) * 0.1).astype(np.float32)
     scale = rng.uniform(0.5, 2.0, c_out).astype(np.float32)
     shift = rng.standard_normal(c_out).astype(np.float32)
@@ -218,8 +233,9 @@ def test_tf32x3_emulation_matches_pallas(c_in, c_out, shape):
 # (Cin, Cout) of every conv3d_affine call of the main paths, with the
 # variant it takes in bf16 and in f32: CasMVSNet and MVSNet (U-Net base 8;
 # stage features 32, 16, 8), CVP and AACVP (base 16; AACVP's first block
-# takes its 4 groups, and its f32 blocks run in its bf16 model too), and
-# (12, 8).
+# takes its 4 groups, and its f32 blocks run in its bf16 model too),
+# Point-MVSNet's VolumeConv (f32 only; 64->8 first), and (12, 8). Every f32
+# conv at Cin = 64 takes the 3xTF32 Cin = 64 kernel.
 _MAIN_CONVS = {
     (4, 16): ("direct", "tf32x3"),
     (8, 1): ("mma", "tf32x3"),
@@ -231,8 +247,9 @@ _MAIN_CONVS = {
     (32, 8): ("mma", "tf32x3"),
     (32, 32): ("mma", "tf32x3"),
     (32, 64): ("mma", "tf32x3"),
-    (64, 32): ("mma", "direct"),
-    (64, 64): ("mma", "direct"),
+    (64, 8): ("mma", "tf32x3_cin64"),
+    (64, 32): ("mma", "tf32x3_cin64"),
+    (64, 64): ("mma", "tf32x3_cin64"),
 }
 
 
@@ -247,3 +264,7 @@ def test_variant_of_every_main_path_conv(dtype, c_in, c_out):
 def test_variant_sends_other_f32_couts_to_the_direct_kernel():
     assert _variant(torch.float32, 16, 12) == "direct"
     assert _variant(torch.float32, 16, 24) == "tf32x3"
+    assert _variant(torch.float32, 12, 8) == "direct"
+    assert _variant(torch.float32, 64, 12) == "direct"
+    assert _variant(torch.float32, 64, 1) == "direct"
+    assert _variant(torch.float32, 64, 24) == "tf32x3_cin64"
