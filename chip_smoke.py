@@ -10,9 +10,10 @@ Phases, in order; any failure exits non-zero:
      main path's shapes in bf16 and f32 (bf16 timed: kernel, plain, library
      call, bound) and at awkward shapes (batch 2, D = 1 and 2, sizes that
      cross the conv kernel's tiles and z runs, Cin = 12, AACVP's Cin = 4,
-     ragged C, off-image and behind-camera samples), each on the kernel
-     variant it should take (conv: bf16 tensor cores, f32 3xTF32 tensor
-     cores, its Cin = 64 kernel, or direct; conv_variant); the f32 convs at
+     ragged C, off-image and behind-camera samples, the depth step of
+     make_step_scene), each on the kernel variant it should take (conv:
+     bf16 tensor cores, f32 3xTF32 tensor cores, its Cin = 64 kernel, or
+     direct; conv_variant); the f32 convs at
      Cin = 64 at those shapes (64->8, 64->32, 64->64) and at CasMVSNet's
      three, timed (kernel, plain, cuDNN f32 with TF32 off, the 3xTF32 and
      f32 CUDA-core bounds); an unaligned x raises on each tensor-core
@@ -187,6 +188,20 @@ Phases, in order; any failure exits non-zero:
      (f) `train model.name=point_mvsnet` on a synthetic training layout (2
          steps, a val split, a checkpoint), launches exact, then `infer`
          from its checkpoint;
+ 12. mvs_tpu's quality matrix (tests/test_e2e_matrix.py) through the CLIs
+     on the multi-object fixture (64x96, 5 views, 2 scans, 16 hypotheses):
+     each family trained by `train` in f32 at mvs_tpu's settings (global
+     batch 2 on one card; mvs_tpu splits it over train.mesh_data=2),
+     inferred by `infer` in f32 and, for the four with a bf16 path, bf16;
+     the mean depth error held to mvs_tpu's gates against the constant-z0
+     floor; CasMVSNet's maps through `fuse` and `evaluate` (overall < 0.30);
+     launches per family; then each bf16-capable checkpoint over one
+     objects scan at its family's full width, f32 and bf16: errors against
+     GT, bf16 within 1.25x f32's, |bf16 - f32| in finest intervals;
+ 12b. phase 6d's oracle cloud (~10.4M points) scored whole through the
+     native KD-tree (mvs_tpu_torch.native, required), host seconds; its
+     GT-window crop through the native and the scipy branch, which agree
+     within 1e-5;
 then one JSON line listing the kernels (the 3xTF32 conv,
 conv3d_affine.tf32x3, as an entry of its own: times over 8a's 10 AACVP f32
 launches, launches per AACVP bf16 map, 8c; elsewhere launches: per map,
@@ -239,6 +254,8 @@ from mvs_tpu_torch.cli import infer as cli_infer
 from mvs_tpu_torch.cli import train as cli_train
 from mvs_tpu_torch.cli.infer import (make_apply_fn, run_batched_inference,
                                      stack_model_inputs, write_depth_outputs)
+from mvs_tpu_torch import native
+from mvs_tpu_torch.dtu_eval import evaluate_scan
 from mvs_tpu_torch.fusion import FusionConfig, fuse_scene
 from mvs_tpu_torch.geometry.homography import plane_sweep_coords
 from mvs_tpu_torch.io import png as png_codec
@@ -266,9 +283,10 @@ from mvs_tpu_torch.ops.point_ops import lattice_knn, point_sweep_projections
 from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask, PointTask,
                                       PyramidTask, batch_to_device)
 from mvs_tpu_torch.utils.config import load_config
-from mvs_tpu_torch.utils.make_synthetic_dtu import generate
+from mvs_tpu_torch.utils.make_synthetic_dtu import generate, write_eval_scan
 from mvs_tpu_torch.utils.platform import full_f32, resolve_device
-from mvs_tpu_torch.utils.synthetic import make_plane_scene
+from mvs_tpu_torch.utils.synthetic import (make_objects_scene,
+                                           make_plane_scene, make_step_scene)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
 # tensor-core FLOP/s, f32 FLOP/s outside the tensor cores, TF32 tensor-core
@@ -538,7 +556,28 @@ def phase_warp(scene, device):
                 f"off-image/behind-camera C=12 {str(dtype)[6:]} (scalar)")
         if fused_variance_volume.vector_launches != vec:
             fail("C=12 must take the scalar variant")
+    for dtype in (torch.float32, torch.bfloat16):
+        args = step_inputs(dtype, device)
+        compare("warp", fused_variance_volume(*args),
+                fused_variance_volume_plain(*args),
+                f"depth step 128x96 C=8 D=3 {str(dtype)[6:]}")
     return rows
+
+
+def step_inputs(dtype, device):
+    """The depth discontinuity of tests/test_torch_warp_variance.py: two
+    planes with a step at x = 0 seen from a source 1.2 units off (occlusion
+    and an abrupt disparity jump across the edge), per-pixel hypotheses
+    around the ref's true depth, the images and a seeded mix of them as 8
+    channels (the vector variant)."""
+    scene = make_step_scene(num_views=2, height=96, width=128, baseline=1.2)
+    mix = np.random.default_rng(3).standard_normal((3, 5)).astype(np.float32)
+    feats = torch.from_numpy(np.concatenate(
+        [scene.images, scene.images @ mix], axis=-1))[None].to(device, dtype)
+    hyp = torch.from_numpy(np.stack([scene.depths[0] + o
+                                     for o in (-0.2, 0.0, 0.2)]))
+    return (feats[:, 0].contiguous(), feats[:, 1:].contiguous(),
+            stage_geometry(scene, 1, device), hyp[None].to(device))
 
 
 def conv_shapes():
@@ -1212,6 +1251,8 @@ def phase_oracle(root: Path, work: Path, device, height=HEIGHT,
         f"{eval_s:.3f} s host")
     if not (acc < ACC_LIMIT and comp < COMP_LIMIT):
         fail("oracle acc / comp over their limits")
+    stl = read_ply(root / "Points" / "stl" / "stl001_total.ply")["xyz"]
+    return xyz, keep, stl
 
 
 def check_cloud(ply: Path) -> str:
@@ -1237,9 +1278,9 @@ def phase_user_path(device, apply_ms: float):
         work = Path(tmp)
         counts, root, out = phase_scan_from_disk(work, device, apply_ms)
         phase_fusion_card_vs_cpu(device)
-        phase_oracle(root, work, device)
+        oracle = phase_oracle(root, work, device)
         phase_model_fusion(root, out, device)
-    return counts
+    return counts, oracle
 
 
 # Phase 7. The JAX training envelope (bench.py --train): 640x512, 5 views,
@@ -3676,6 +3717,286 @@ def phase_point(device, root: Path, work: Path) -> dict:
                 cli_train=cli_train_counts)
 
 
+# Phase 12. mvs_tpu's quality matrix (tests/test_e2e_matrix.py) on the card:
+# each family trained by cli train on the multi-object fixture (a tilted
+# backdrop with three spheres in front of it: occlusion boundaries, curved
+# depth, view-dependent visibility), inferred by cli infer, and its depth
+# error gated as mvs_tpu gates it, against the constant-z0 floor (the
+# soft-argmin prior) and in absolute units. mvs_tpu trains with
+# train.mesh_data=2, the global batch of 2 split over two devices; the port
+# trains the same global batch of 2 on one card.
+MATRIX_H, MATRIX_W, MATRIX_VIEWS, MATRIX_Z0 = 64, 96, 5, 10.0
+MATRIX_TILT = (0.08, 0.05)
+MATRIX_DATA = ["data.num_views=3", "data.num_depth=16",
+               "data.interval_scale=1.0"]
+MATRIX_TRAIN = [*MATRIX_DATA, "data.batch_size=2", "train.lr=0.002",
+                "train.lr_schedule=99:2", "train.warmup_steps=4",
+                "train.summary_every_steps=10", "train.bn_recal_batches=8"]
+MATRIX_INFER = [*MATRIX_DATA, "data.max_h=64", "data.max_w=96",
+                "data.align=32"]
+# name: (model arguments, epochs, gate as a share of the constant floor,
+# absolute gate), as tests/test_e2e_matrix.py has them.
+MATRIX = {
+    "cas_mvsnet": (["model.ndepths=8,8,8"], 6, 0.68, 0.33),
+    "mvsnet": ([], 6, 0.68, 0.33),
+    "cvp_mvsnet": (["model.num_levels=2", "model.coarse_depths=16",
+                    "model.train_interval=0.4"], 6, 0.5, 0.45),
+    "point_mvsnet": (["model.num_depth_coarse=16"], 6, 0.7, 0.6),
+    "aacvp_mvsnet": (["model.num_levels=2", "model.coarse_depths=16",
+                      "model.num_groups=4", "model.train_interval=0.4"],
+                     16, 0.85, 0.41),
+}
+MATRIX_FLOOR, MATRIX_OVERALL = 0.4, 0.30
+MATRIX_FUSION = ["fusion.conf_thresh=0.3", "fusion.num_consistent=2",
+                 "fusion.pixel_thresh=2.0", "fusion.depth_thresh=0.05"]
+# Full width: one objects scan at the family's eval size, rendered with
+# focal 100 W / 96 so that the rig's angles are the fixture's; CVP / AACVP
+# at 5 levels from their 2-level checkpoints. The unit of |bf16 - f32| is the
+# finest hypothesis interval: the ladder's (CasMVSNet's last ratio is 1),
+# the fixed residual interval for CVP / AACVP.
+MATRIX_FULL = {"cas_mvsnet": (864, 1152), "mvsnet": (1184, 1600),
+               "cvp_mvsnet": (1184, 1600), "aacvp_mvsnet": (1184, 1600)}
+MATRIX_LADDER_INTERVAL = MATRIX_Z0 * (1.28 - 0.72) / 15
+MATRIX_UNIT = {"cas_mvsnet": MATRIX_LADDER_INTERVAL,
+               "mvsnet": MATRIX_LADDER_INTERVAL,
+               "cvp_mvsnet": 0.4, "aacvp_mvsnet": 0.4}
+BF16_GATE = 1.25
+
+
+def matrix_kernels(name) -> tuple[str, str]:
+    """The family's cost-volume kernel and its backward."""
+    if name == "aacvp_mvsnet":
+        return "group_correlation", "group_correlation_grad"
+    return "warp_variance", "warp_variance_grad"
+
+
+def upsampled(depth: np.ndarray, shape) -> np.ndarray:
+    """`depth` bilinearly resized to `shape` with half-pixel centres (as
+    cv2.resize, which mvs_tpu's matrix uses)."""
+    if depth.shape == tuple(shape):
+        return depth
+    return F.interpolate(torch.from_numpy(np.ascontiguousarray(depth))[
+        None, None], size=tuple(shape), mode="bilinear",
+        align_corners=False)[0, 0].numpy()
+
+
+def matrix_maps(out: Path, scenes: dict) -> list:
+    """(estimate at the GT's size, GT) of every map written under `out`."""
+    maps = []
+    for scan, scene in scenes.items():
+        for v, gt in enumerate(scene.depths):
+            pfm = out / scan / "depth_est" / f"{v:08d}.pfm"
+            if pfm.exists():
+                maps.append((upsampled(read_pfm(pfm)[0], gt.shape), gt))
+    if not maps:
+        fail(f"no depth maps under {out}")
+    return maps
+
+
+def depth_errors(maps) -> tuple[float, float]:
+    """Mean over the maps of mean |est - gt| where gt > 0, and the same of
+    the constant z0 (tests/test_e2e_matrix.py's _depth_errors)."""
+    errs = [np.abs(est - gt)[gt > 0].mean() for est, gt in maps]
+    consts = [np.abs(MATRIX_Z0 - gt)[gt > 0].mean() for _, gt in maps]
+    return float(np.mean(errs)), float(np.mean(consts))
+
+
+def matrix_cli_infer(ckpt, out: Path, root: Path, device, model, dtype,
+                     *data) -> dict:
+    """cli infer of the test list with the launch counts of that run."""
+    reset_counts()
+    cli_infer.main(["--ckpt", str(ckpt), "--out", str(out), "--device",
+                    str(device), *model, f"model.compute_dtype={dtype}",
+                    f"data.eval_root={root}",
+                    f"data.eval_list={root / 'lists' / 'test.txt'}", *data])
+    torch.cuda.synchronize()
+    return read_counts()
+
+
+def check_launched(what, counts, keys) -> None:
+    """Fail unless every kernel in `keys` launched in the run."""
+    missing = [k for k in keys if counts[k] == 0]
+    if missing:
+        fail(f"{what}: no launch of {missing} ({json.dumps(counts)})")
+
+
+def matrix_family(name, root: Path, work: Path, device, scenes) -> dict:
+    args, epochs, share, gate = MATRIX[name]
+    model = [f"model.name={name}", *args]
+    run = work / f"run_{name}"
+    fwd, grad = matrix_kernels(name)
+    t0 = time.perf_counter()
+    reset_counts()
+    result = cli_train.main([
+        "--device", str(device), *model, f"data.root={root}",
+        f"data.train_list={root / 'lists' / 'train.txt'}",
+        f"data.val_list={root / 'lists' / 'val.txt'}", *MATRIX_TRAIN,
+        f"train.epochs={epochs}", f"train.log_dir={run}"])
+    torch.cuda.synchronize()
+    train_counts = read_counts()
+    log(f"  {name}: cli train {epochs} epochs, {result['step']} steps at "
+        f"global batch 2 on one card in {time.perf_counter() - t0:.2f} s, "
+        f"loss {result['losses'][0]:.4f} -> {result['losses'][-1]:.4f}, "
+        f"val abs_depth_error {result['val']['abs_depth_error']:.4f}; "
+        f"launches {json.dumps(train_counts)}")
+    check_launched(f"{name} cli train", train_counts, (fwd, grad))
+    if not np.isfinite(result["losses"]).all():
+        fail(f"{name}: losses not finite")
+    dtypes = (torch.float32,) if name == "point_mvsnet" else (
+        torch.float32, torch.bfloat16)
+    row = {}
+    for dtype in dtypes:
+        short = str(dtype)[6:]
+        out = work / f"out_{name}_{short}"
+        t1 = time.perf_counter()
+        counts = matrix_cli_infer(f"{run}/ckpt", out, root, device, model,
+                                  short, *MATRIX_INFER)
+        err, const = depth_errors(matrix_maps(out, scenes))
+        log(f"  {name} {short}: mean |depth - gt| {err:.4f} over "
+            f"{2 * MATRIX_VIEWS} maps, constant-z0 floor {const:.4f}; gates "
+            f"< {share} x floor = {share * const:.4f} and < {gate}; cli infer "
+            f"{time.perf_counter() - t1:.2f} s, launches "
+            f"{json.dumps(counts)}")
+        check_launched(f"{name} cli infer {short}", counts,
+                       (fwd, "conv3d_affine"))
+        if not const > MATRIX_FLOOR:
+            fail(f"fixture degenerate: constant floor {const}")
+        if not (err < share * const and err < gate):
+            fail(f"{name} {short}: depth error {err:.4f} misses the gates "
+                 f"({share} x {const:.4f}, {gate})")
+        row[short] = dict(err=err, const=const)
+        if name == "cas_mvsnet":
+            matrix_cloud(out, root, device)
+    return row
+
+
+def matrix_cloud(out: Path, root: Path, device) -> None:
+    """cli fuse and cli evaluate over the two scans' maps; fail unless both
+    are scored and the overall distance is under its gate."""
+    cli_fuse.main(["--out", str(out), "--device", str(device),
+                   f"data.eval_root={root}", *MATRIX_FUSION])
+    report = cli_evaluate.main(["--out", str(out), "--gt", str(root)])
+    agg = report["aggregate"] if report else {}
+    log(f"    cli fuse + cli evaluate: {json.dumps(agg)} (gate overall < "
+        f"{MATRIX_OVERALL})")
+    if agg.get("num_scans") != 2 or not agg["overall"] < MATRIX_OVERALL:
+        fail(f"cli evaluate: {agg}")
+
+
+def matrix_full_width(name, work: Path, device, scans: dict) -> dict:
+    """The family's checkpoint over one objects scan at its eval size, f32
+    and bf16: error against GT for both, and how far bf16 lies from f32."""
+    h, w = MATRIX_FULL[name]
+    if (h, w) not in scans:
+        t0 = time.perf_counter()
+        scene = make_objects_scene(
+            num_views=MATRIX_VIEWS, height=h, width=w, z0=MATRIX_Z0, seed=0,
+            tilt=MATRIX_TILT, focal=100.0 * w / MATRIX_W)
+        root = work / f"objects_{w}x{h}"
+        write_eval_scan(root, "scan1", scene, 16, MATRIX_Z0)
+        (root / "lists").mkdir(parents=True, exist_ok=True)
+        (root / "lists" / "test.txt").write_text("scan1\n")
+        scans[(h, w)] = (root, {"scan1": scene})
+        log(f"  objects scan at {w}x{h} (focal {100.0 * w / MATRIX_W:.1f}) "
+            f"rendered and written in {time.perf_counter() - t0:.2f} s")
+    root, scenes = scans[(h, w)]
+    args = [a for a in MATRIX[name][0] if a != "model.num_levels=2"]
+    if name in CVP_NAMES:
+        args.append("model.num_levels=5")
+    model = [f"model.name={name}", *args]
+    fwd, _ = matrix_kernels(name)
+    maps, row = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        out = work / f"full_{name}_{dtype}"
+        t0 = time.perf_counter()
+        counts = matrix_cli_infer(work / f"run_{name}" / "ckpt", out, root,
+                                  device, model, dtype, *MATRIX_DATA,
+                                  f"data.max_h={h}", f"data.max_w={w}",
+                                  "data.align=32")
+        check_launched(f"{name} full width {dtype}", counts,
+                       (fwd, "conv3d_affine"))
+        maps[dtype] = matrix_maps(out, scenes)
+        row[dtype], const = depth_errors(maps[dtype])
+        row[f"{dtype}_s"] = time.perf_counter() - t0
+    unit = MATRIX_UNIT[name]
+    apart = np.concatenate([np.abs(a - b)[gt > 0] / unit for (a, gt), (b, _)
+                            in zip(maps["bfloat16"], maps["float32"])])
+    row.update(apart_mean=float(apart.mean()),
+               apart_share=float((apart > 1.0).mean()))
+    log(f"  {name} at {w}x{h}, {len(maps['float32'])} maps: mean |depth - "
+        f"gt| f32 {row['float32']:.4f}, bf16 {row['bfloat16']:.4f} (gate "
+        f"{BF16_GATE} x f32 = {BF16_GATE * row['float32']:.4f}; floor "
+        f"{const:.4f}); |bf16 - f32| mean {row['apart_mean']:.4f} finest "
+        f"intervals ({unit:.4f}), {row['apart_share']:.4f} of the pixels "
+        f"beyond one; cli infer f32 {row['float32_s']:.2f} s, bf16 "
+        f"{row['bfloat16_s']:.2f} s (PNG reads and PFM writes included)")
+    if not row["bfloat16"] <= BF16_GATE * row["float32"]:
+        fail(f"{name} full width: bf16 error {row['bfloat16']:.4f} over "
+             f"{BF16_GATE} x f32's {row['float32']:.4f}")
+    return row
+
+
+def phase_matrix(device, work: Path) -> dict:
+    log(f"phase 12: mvs_tpu's quality matrix through the CLIs: objects "
+        f"fixture {MATRIX_W}x{MATRIX_H}, {MATRIX_VIEWS} views, 2 scans; "
+        f"cli train (f32, global batch 2 on one card; mvs_tpu splits it over "
+        f"train.mesh_data=2) -> cli infer f32 / bf16 -> depth error gates")
+    t0 = time.perf_counter()
+    root = generate(work / "objects", num_scans=2, num_views=MATRIX_VIEWS,
+                    height=MATRIX_H, width=MATRIX_W, num_depth=16,
+                    scene_type="objects", tilt=MATRIX_TILT)
+    scenes = {f"scan{s + 1}": make_objects_scene(
+        num_views=MATRIX_VIEWS, height=MATRIX_H, width=MATRIX_W,
+        z0=MATRIX_Z0, seed=s, tilt=MATRIX_TILT) for s in range(2)}
+    rows = {name: matrix_family(name, root, work, device, scenes)
+            for name in MATRIX}
+    scans = {}
+    for name in MATRIX_FULL:
+        rows[name]["full"] = matrix_full_width(name, work, device, scans)
+    seconds = time.perf_counter() - t0
+    log("  matrix: " + json.dumps({
+        name: {k: (round(v["err"], 4), round(v["const"], 4))
+               for k, v in row.items() if k in ("float32", "bfloat16")}
+        for name, row in rows.items()}) + f"; phase 12 {seconds:.1f} s")
+    return rows
+
+
+def phase_eval_scale(oracle) -> None:
+    """Phase 6d's oracle cloud scored whole through the native KD-tree, and
+    its GT-window crop through both branches."""
+    xyz, keep, stl = oracle
+    log(f"phase 12b: DTU evaluation at a scan's size: {len(xyz)} points "
+        f"through the native KD-tree (mvs_tpu_torch.native), host clock")
+    if not native.available():
+        fail("the native KD-tree did not build")
+    t0 = time.perf_counter()
+    whole = evaluate_scan(xyz, stl)
+    whole_s = time.perf_counter() - t0
+    log(f"  whole cloud: {whole_s:.3f} s (decimation at 0.2 and both "
+        f"nearest-neighbour passes), {whole.n_data} points after "
+        f"decimation and the 20-unit cutoff, acc {whole.acc_mean:.6f} comp "
+        f"{whole.comp_mean:.6f}")
+    if not (np.isfinite(whole.acc_mean) and np.isfinite(whole.comp_mean)):
+        fail("whole-cloud evaluation not finite")
+    crop = xyz[keep]
+    times, results = {}, {}
+    for branch, use_native in (("native", True), ("scipy", False)):
+        t0 = time.perf_counter()
+        results[branch] = evaluate_scan(crop, stl, use_native=use_native)
+        times[branch] = time.perf_counter() - t0
+    fast, slow = results["native"], results["scipy"]
+    rel = max(abs(getattr(fast, f) / getattr(slow, f) - 1)
+              for f in ("acc_mean", "comp_mean"))
+    log(f"  crop of {len(crop)} points: native {times['native']:.3f} s, "
+        f"scipy {times['scipy']:.3f} s; acc {fast.acc_mean:.8f} / "
+        f"{slow.acc_mean:.8f}, comp {fast.comp_mean:.8f} / "
+        f"{slow.comp_mean:.8f}, largest relative difference {rel:.3e} "
+        f"(limit 1e-5)")
+    if (fast.n_data, fast.n_stl) != (slow.n_data, slow.n_stl) or \
+            not rel <= 1e-5:
+        fail("native and scipy evaluations disagree")
+
+
 def ab_group_levels(device) -> dict:
     """The group-correlation forward at each AACVP level (8a's inputs), f32
     and bf16: device ms per launch."""
@@ -3864,7 +4185,7 @@ def main() -> int:
     cas_counts, apply_ms = timed(4, phase_full_width(scene, device))
     launches = cas_counts[torch.bfloat16]
     timed(5, phase_batched(scene, device))
-    cli_launches = timed(6, phase_user_path(device, apply_ms))
+    cli_launches, oracle = timed(6, phase_user_path(device, apply_ms))
     grad_rows, train_counts, cli_train_counts = timed(
         7, phase_training(device))
     del scene
@@ -3875,6 +4196,9 @@ def main() -> int:
         mvs = timed(9, phase_mvsnet(device, scan_root, work))
         pyr = timed(10, phase_cvp_training(device, work, grad_rows))
         point = timed(11, phase_point(device, scan_root, work))
+        timed(12, phase_matrix(device, work))
+    timed("12b", phase_eval_scale(oracle))
+    del oracle
 
     cvp, aacvp = cvp_full["cvp_mvsnet"][0], cvp_full["aacvp_mvsnet"][0]
     mvs_map = mvs["full"][torch.bfloat16][0]

@@ -9,10 +9,10 @@ Re-implements the reference MATLAB protocol (Evaluation/dtu/):
   * 20 mm outlier cutoff, per-scan mean/median/var, cross-scan means
                                                 (ComputeStat_web.m:30-88)
 
-KD-tree nearest neighbours via scipy cKDTree (the MATLAB code's chunked
-KDTreeSearcher is an out-of-core workaround we don't need). A copy of
-mvs_tpu.dtu_eval.protocol without its branch to mvs_tpu's native C++ KD-tree:
-the port keeps no copy of that library yet, so it always runs scipy.
+KD-tree nearest neighbours and the decimation run on the port's native C++
+KD-tree (mvs_tpu_torch.native) when the host can build it, else on scipy's
+cKDTree (the MATLAB code's chunked KDTreeSearcher is an out-of-core
+workaround we don't need); use_native=False asks for scipy.
 """
 
 from __future__ import annotations
@@ -27,13 +27,19 @@ __all__ = ["reduce_points", "ScanEvalResult", "evaluate_scan", "aggregate_scans"
 
 
 def reduce_points(pts: np.ndarray, dst: float = 0.2, seed: int | None = 0,
-                  chunk: int = 4_000_000) -> np.ndarray:
+                  chunk: int = 4_000_000, use_native: bool = True) -> np.ndarray:
     """Stochastic decimation: visit points in random order, keep a point iff no
     already-kept point lies within `dst`. Matches reducePts_haa.m (the
     reference uses MATLAB randperm; pass seed=None for nondeterministic order).
 
-    pts: (N, 3). Returns a boolean keep-mask (N,).
+    pts: (N, 3). Returns a boolean keep-mask (N,). Uses the C++ KD-tree core
+    (mvs_tpu_torch.native) when built; falls back to scipy.
     """
+    if use_native:
+        from mvs_tpu_torch import native
+
+        if native.available():
+            return native.reduce_points_mask(pts, dst, seed=seed)
     n = pts.shape[0]
     rng = np.random.default_rng(seed)
     order = rng.permutation(n) if seed is not None else np.random.permutation(n)
@@ -65,7 +71,13 @@ class ScanEvalResult:
         return 0.5 * (self.acc_mean + self.comp_mean)
 
 
-def _nn_distances(query: np.ndarray, target: np.ndarray) -> np.ndarray:
+def _nn_distances(query: np.ndarray, target: np.ndarray,
+                  use_native: bool = True) -> np.ndarray:
+    if use_native:
+        from mvs_tpu_torch import native
+
+        if native.available():
+            return native.nn_distances(query, target).astype(np.float64)
     dists, _ = cKDTree(target).query(query, k=1, workers=-1)
     return dists
 
@@ -110,15 +122,17 @@ def evaluate_scan(
     ground_plane: np.ndarray | None = None,  # (4,) plane, STL kept where P·[x;1]>0
     decimate_data: bool = True,
     seed: int | None = 0,
+    use_native: bool = True,  # False: scipy's KD-tree even where native builds
 ) -> ScanEvalResult:
     data = np.asarray(data_pts, dtype=np.float64)
     stl = np.asarray(stl_pts, dtype=np.float64)
     if decimate_data and len(data):
-        data = data[reduce_points(data, dst, seed=seed)]
+        data = data[reduce_points(data, dst, seed=seed, use_native=use_native)]
     # (The reference STL clouds ship pre-decimated at 0.2 mm.)
 
-    d_data = _nn_distances(data, stl) if len(data) and len(stl) else np.empty(0)
-    d_stl = _nn_distances(stl, data) if len(data) and len(stl) else np.empty(0)
+    both = len(data) and len(stl)
+    d_data = _nn_distances(data, stl, use_native) if both else np.empty(0)
+    d_stl = _nn_distances(stl, data, use_native) if both else np.empty(0)
 
     if obs_mask is not None and len(data):
         mask_grid, bb, res = obs_mask

@@ -334,27 +334,38 @@ def init_random_(module: nn.Module, generator: torch.Generator,
                  trained: bool = True) -> nn.Module:
     """Fill every parameter and statistic from `generator`, in place.
 
-    Kernels are normal with variance 1 / fan_in (lecun). With `trained`,
-    conv biases are small normal and BatchNorm gets a non-trivial affine and
-    statistics (scale U(0.5, 1.5), bias N(0, 0.1), mean N(0, 0.1), var
-    U(0.5, 2)), so a model built this way exercises every epilogue term.
-    With trained=False the rest is the Flax modules' initial state, the
-    start of training: conv biases 0, BatchNorm scale 1 and bias 0,
-    statistics mean 0, var 1 and count 0.
+    Kernels have variance 1 / fan_in (lecun). With `trained` they are
+    normal, conv biases are small normal and BatchNorm gets a non-trivial
+    affine and statistics (scale U(0.5, 1.5), bias N(0, 0.1), mean N(0,
+    0.1), var U(0.5, 2)), so a model built this way exercises every
+    epilogue term. With trained=False everything is the Flax modules'
+    initial state, the start of training: kernels from Flax's lecun_normal
+    (a normal truncated at two standard deviations, rescaled to variance
+    1 / fan_in), conv biases 0, BatchNorm scale 1 and bias 0, statistics
+    mean 0, var 1 and count 0.
     """
     def normal(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    def lecun(t, fan_in):
+        if trained:
+            normal(t, fan_in ** -0.5)
+            return
+        # jax.nn.initializers.variance_scaling(1, "fan_in",
+        # "truncated_normal"): 0.8796... is the standard deviation of a
+        # unit normal truncated to [-2, 2].
+        std = fan_in ** -0.5 / 0.87962566103423978
+        torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                    generator=generator)
 
     def uniform(t, lo, hi):
         t.copy_(torch.rand(t.shape, generator=generator) * (hi - lo) + lo)
 
     for m in module.modules():
         if isinstance(m, (Conv, FusedConvBlock3D, Dense)):
-            fan_in = m.kernel[0].numel()
-            normal(m.kernel, fan_in ** -0.5)
+            lecun(m.kernel, m.kernel[0].numel())
         elif isinstance(m, ConvTranspose):
-            fan_in = m.kernel.shape[0] * m.kernel[0, 0].numel()
-            normal(m.kernel, fan_in ** -0.5)
+            lecun(m.kernel, m.kernel.shape[0] * m.kernel[0, 0].numel())
         # AttentionConv's relative position embeddings: N(0, 1), as Flax
         # draws them, trained or not.
         for name in ("rel_h", "rel_w"):

@@ -1,13 +1,15 @@
 """Generate a synthetic dataset in the DTU on-disk layouts (counterpart of
-mvs_tpu.utils.make_synthetic_dtu, plane scenes only).
+mvs_tpu.utils.make_synthetic_dtu).
 
-    python -m mvs_tpu_torch.utils.make_synthetic_dtu --root /tmp/dtu --scans 2
+    python -m mvs_tpu_torch.utils.make_synthetic_dtu --root /tmp/dtu --scans 2 \
+        [--scene plane|objects]
 
 Writes the preprocessed-DTU *training* layout (Rectified/, Depths/,
 Cameras/ with 1/4-res intrinsics), the *eval* layout ({scan}/images,
 {scan}/cams, {scan}/pair.txt), a GT point cloud per scan under Points/stl/
 for the DTU evaluation, and lists/{train,val,test}.txt. Scenes are textured
-planes with analytic depth (utils.synthetic). Images are PNG, written by
+planes, or a tilted backdrop with spheres in front of it, with analytic
+depth (utils.synthetic). Images are PNG, written by
 io.png, so neither PIL nor cv2 is needed; the JAX generator writes the eval
 images as JPEG.
 """
@@ -24,9 +26,9 @@ from mvs_tpu_torch.io.pairs import write_pair_file
 from mvs_tpu_torch.io.pfm import write_pfm
 from mvs_tpu_torch.io.ply import write_ply
 from mvs_tpu_torch.io.png import write_png
-from mvs_tpu_torch.utils.synthetic import make_plane_scene
+from mvs_tpu_torch.utils.synthetic import make_objects_scene, make_plane_scene
 
-__all__ = ["generate", "main"]
+__all__ = ["generate", "main", "write_eval_scan"]
 
 
 def _to_u8(img: np.ndarray) -> np.ndarray:
@@ -51,6 +53,23 @@ def _visible_plane_points(scene, z0, tilt, height, width) -> np.ndarray:
     return stl[visible]
 
 
+def _unprojected_depth_points(scene, height, width) -> np.ndarray:
+    """GT cloud of any geometry: every view's analytic depth unprojected
+    (perfect fusion, observed by construction), every (N // 60000)-th
+    point kept to keep the evaluation's KD-trees small."""
+    ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    pix = np.stack([xs, ys, np.ones_like(xs)], 0).reshape(3, -1).astype(
+        np.float64)
+    pts = []
+    for k, rt, depth in zip(scene.intrinsics, scene.extrinsics, scene.depths):
+        d = depth.reshape(-1)
+        cam = np.linalg.inv(k) @ (pix * d[None])
+        world = rt[:3, :3].T @ (cam - rt[:3, 3:4])
+        pts.append(world[:, d > 0].T)
+    stl = np.concatenate(pts, axis=0)
+    return stl[:: max(1, len(stl) // 60000)]
+
+
 def _write_train_scan(root: Path, scan: str, scene, num_lights: int):
     """One scan's training layout: Rectified/ images per light, Depths/ at
     1/4 resolution with their visual masks."""
@@ -67,46 +86,67 @@ def _write_train_scan(root: Path, scan: str, scene, num_lights: int):
                   np.stack([vis] * 3, -1))
 
 
+def write_eval_scan(root, scan: str, scene, num_depth: int,
+                    z0: float = 10.0) -> None:
+    """One scan's eval layout: {scan}/images as PNG, {scan}/cams with the
+    ladder [0.72 z0, 1.28 z0] in `num_depth` hypotheses, and {scan}/pair.txt
+    with every other view as a source, ranked by index distance."""
+    root = Path(root)
+    num_views = len(scene.images)
+    depth_min, depth_max = z0 * 0.72, z0 * 1.28
+    interval = (depth_max - depth_min) / (num_depth - 1)
+    for v in range(num_views):
+        write_png(root / scan / "images" / f"{v:08d}.png",
+                  _to_u8(scene.images[v]))
+        write_cam_file(root / scan / "cams" / f"{v:08d}_cam.txt",
+                       CameraParams(
+                           intrinsics=scene.intrinsics[v],
+                           extrinsics=scene.extrinsics[v],
+                           depth_min=depth_min, depth_interval=interval,
+                           num_depth=num_depth, depth_max=depth_max))
+    write_pair_file(root / scan / "pair.txt", _pairs(num_views))
+
+
+def _pairs(num_views: int):
+    return [(r, [(v, float(num_views - abs(v - r)))
+                 for v in range(num_views) if v != r])
+            for r in range(num_views)]
+
+
 def generate(root, num_scans=2, num_views=5, height=64, width=96,
              num_depth=16, num_lights=2, z0=10.0, tilt=(0.0, 0.0),
-             train_layout=True):
+             scene_type="plane", train_layout=True):
     """tilt: plane slope (dz/dx, dz/dy). A nonzero tilt makes GT depth vary
     across the image, so an end-to-end quality number cannot be faked by the
     soft-argmin mid-range prior (the plane z=z0 sits at the ladder centre).
+    scene_type "objects" renders a tilted backdrop with textured spheres in
+    front of it (make_objects_scene): occlusion boundaries and curved
+    surfaces; its GT cloud is every view's analytic depth unprojected.
     Every ref view gets every other view as a source, ranked by index
     distance. train_layout=False writes only the eval layout, the GT clouds
     and the lists. Returns `root` as a Path."""
     root = Path(root)
     depth_min, depth_max = z0 * 0.72, z0 * 1.28
     interval = (depth_max - depth_min) / (num_depth - 1)
-    pairs = [(r, [(v, float(num_views - abs(v - r)))
-                  for v in range(num_views) if v != r])
-             for r in range(num_views)]
 
+    make_scene = (make_objects_scene if scene_type == "objects"
+                  else make_plane_scene)
     scenes = {}
     for s in range(num_scans):
-        scene = make_plane_scene(num_views=num_views, height=height,
-                                 width=width, z0=z0, seed=s, tilt=tilt)
+        scene = make_scene(num_views=num_views, height=height, width=width,
+                           z0=z0, seed=s, tilt=tilt)
         scan = f"scan{s + 1}"
         scenes[scan] = scene
 
         if train_layout:
             _write_train_scan(root, scan, scene, num_lights)
 
-        # ---- eval layout ----
-        for v in range(num_views):
-            write_png(root / scan / "images" / f"{v:08d}.png",
-                      _to_u8(scene.images[v]))
-            write_cam_file(root / scan / "cams" / f"{v:08d}_cam.txt",
-                           CameraParams(
-                               intrinsics=scene.intrinsics[v],
-                               extrinsics=scene.extrinsics[v],
-                               depth_min=depth_min, depth_interval=interval,
-                               num_depth=num_depth, depth_max=depth_max))
-        write_pair_file(root / scan / "pair.txt", pairs)
+        write_eval_scan(root, scan, scene, num_depth, z0)
+        stl = (_unprojected_depth_points(scene, height, width)
+               if scene_type == "objects"
+               else _visible_plane_points(scene, z0, tilt, height, width))
         write_ply(root / "Points" / "stl" / f"stl{s + 1:03d}_total.ply",
-                  _visible_plane_points(scene, z0, tilt, height,
-                                        width).astype(np.float32))
+                  stl.astype(np.float32))
 
     # shared training cams at 1/4 resolution
     if train_layout:
@@ -119,7 +159,7 @@ def generate(root, num_scans=2, num_views=5, height=64, width=96,
                                extrinsics=scenes["scan1"].extrinsics[v],
                                depth_min=depth_min, depth_interval=interval,
                                num_depth=num_depth, depth_max=depth_max))
-        write_pair_file(root / "Cameras" / "pair.txt", pairs)
+        write_pair_file(root / "Cameras" / "pair.txt", _pairs(num_views))
 
     (root / "lists").mkdir(parents=True, exist_ok=True)
     for split, scans in (("train", list(scenes)[:max(1, num_scans - 1)]),
@@ -139,9 +179,10 @@ def main(argv=None):
     p.add_argument("--depths", type=int, default=16)
     p.add_argument("--tilt", type=float, nargs=2, default=(0.0, 0.0),
                    metavar=("DZDX", "DZDY"))
+    p.add_argument("--scene", default="plane", choices=("plane", "objects"))
     args = p.parse_args(argv)
     generate(args.root, args.scans, args.views, args.height, args.width,
-             args.depths, tilt=tuple(args.tilt))
+             args.depths, tilt=tuple(args.tilt), scene_type=args.scene)
     print(f"synthetic DTU layout written to {args.root}")
 
 

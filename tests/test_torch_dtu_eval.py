@@ -1,9 +1,9 @@
 """The port's DTU evaluation protocol against mvs_tpu's, on seeded clouds.
 
-mvs_tpu's protocol runs its native C++ KD-tree when that is built (f32
-distances); the port always runs scipy. The comparisons turn the native
-path off on the JAX side, so both compute the same f64 arithmetic and are
-held to 1e-9 relative.
+Both protocols run their native C++ KD-tree when it is built (f32
+distances). These comparisons turn the native path off on both sides, so
+both compute the same f64 scipy arithmetic and are held to 1e-9 relative;
+test_torch_native.py holds the native paths.
 """
 
 import numpy as np
@@ -12,6 +12,7 @@ from scipy.io import savemat
 from scipy.spatial import cKDTree
 
 import mvs_tpu.native
+import mvs_tpu_torch.native
 from mvs_tpu.dtu_eval import aggregate_scans as jax_aggregate_scans
 from mvs_tpu.dtu_eval import evaluate_scan as jax_evaluate_scan
 from mvs_tpu.dtu_eval import load_ground_plane as jax_load_ground_plane
@@ -27,6 +28,7 @@ REL = 1e-9
 @pytest.fixture
 def scipy_only(monkeypatch):
     monkeypatch.setattr(mvs_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(mvs_tpu_torch.native, "available", lambda: False)
 
 
 def _clouds(seed):
@@ -42,7 +44,7 @@ def _clouds(seed):
 
 
 @pytest.mark.parametrize("seed,dst", [(0, 0.2), (3, 1.0), (7, 0.5)])
-def test_reduce_points_matches_jax(seed, dst):
+def test_reduce_points_matches_jax(scipy_only, seed, dst):
     data, _ = _clouds(seed)
     keep = reduce_points(data, dst, seed=seed)
     np.testing.assert_array_equal(

@@ -270,3 +270,46 @@ def test_warp_refuses_geometry_gradients():
     hyp.requires_grad_()
     fused_variance_volume(ref, src, rel.detach(), hyp).sum().backward()
     assert hyp.grad is not None and hyp.grad.abs().max() > 0
+
+
+# Flax's lecun_normal: a unit normal truncated to [-2, 2], rescaled to
+# variance 1 / fan_in; 0.8796... is the truncated normal's std.
+LECUN_BOUND = 2.0 / 0.87962566103423978
+
+
+@pytest.mark.parametrize("jmodule,port,x_shape", [
+    (jblocks.ConvBlock(32, (3, 3)), blocks.ConvBlock(16, 32, (3, 3)),
+     (1, 9, 11, 16)),
+    (jblocks.ConvTransposeBlock(16, (3, 3, 3), strides=2),
+     blocks.ConvTransposeBlock(32, 16), (1, 3, 4, 5, 32)),
+    (jblocks.FusedConvBlock3D(32), blocks.FusedConvBlock3D(32, 32),
+     (1, 4, 6, 7, 32)),
+])
+def test_training_init_is_flax_initial_state(jmodule, port, x_shape):
+    """cli train starts from init_random_(trained=False): every kernel
+    drawn as Flax's module.init draws it (lecun_normal), the rest Flax's
+    initial values. Both sides' kernels, scaled by sqrt(fan_in) of the Flax
+    layout, stay within the truncation bound and have unit variance; a
+    plain normal (the port's first training init) exceeds the bound."""
+    variables = jax.tree.map(np.asarray, jmodule.init(
+        jax.random.key(0), jnp.zeros(x_shape), train=False))
+    want = flax_to_state_dict(variables)
+    fan_in = {".".join(k.key for k in path): int(np.prod(leaf.shape[:-1]))
+              for path, leaf in jax.tree_util.tree_leaves_with_path(
+                  variables["params"]) if path[-1].key == "kernel"}
+    assert fan_in
+    blocks.init_random_(port, torch.Generator().manual_seed(0),
+                        trained=False)
+    got = port.state_dict()
+    assert set(got) == set(want)
+    for key, value in want.items():
+        if not key.endswith("kernel"):
+            np.testing.assert_array_equal(got[key].numpy(), value.numpy(),
+                                          err_msg=key)
+            continue
+        for w in (got[key].numpy(), value.numpy()):
+            scaled = w * np.sqrt(fan_in[key])
+            assert np.abs(scaled).max() <= LECUN_BOUND * (1 + 1e-6), key
+            assert abs(scaled.var() - 1.0) < 0.05, key
+        plain = np.random.default_rng(0).standard_normal(value.shape)
+        assert np.abs(plain).max() > LECUN_BOUND
