@@ -202,6 +202,33 @@ Phases, in order; any failure exits non-zero:
      native KD-tree (mvs_tpu_torch.native, required), host seconds; its
      GT-window crop through the native and the scipy branch, which agree
      within 1e-5;
+ 13. data-parallel and view-sharded training (mvs_tpu_torch.parallel):
+     (a) the warp kernel's partial-moment variant, forward and backward,
+         against its plain version at CasMVSNet's three training stages
+         (640x512, batch 4, the 4 sources split 2 + 2, the reference on
+         view rank 0), f32 and bf16, bf16 timed (kernel, plain, bound),
+         then one and three local views, C = 12 and 16, the reference on
+         and off, ddepth on and off, off-image and behind-camera samples;
+         then at (b)'s MVSNet view=2 inputs (batch 4, D = 192, 160x128,
+         C = 32, one source view a rank, the reference on and off), f32
+         and bf16, timed;
+     (b) two ranks on the one card over gloo (`--rank-worker`, the backend
+         rule for a named card), each configuration against one process on
+         the same global batch (4) and weights, 2 SGD steps: CasMVSNet
+         data=2 in bf16, MVSNet view=2 (D = 192, one source view a rank)
+         in bf16 and in f32: each step's loss, the update-norm ratio, the
+         ranks' parameters bit for bit, the launches of a step (the
+         partial kernels in the view=2 runs); the bf16 view=2 run's update
+         norm against a one-process control of the two view groups'
+         arithmetic and against one f32 process (check_view_bf16); ms per
+         step labelled as two ranks sharing a card; with two or more
+         cards, also over NCCL, a card a rank, and with four, CasMVSNet
+         data=4 and MVSNet data=2 x view=2 in f32 over NCCL (samples/s of
+         the global batch);
+     (c) `torchrun --standalone --nproc_per_node=1 -m mvs_tpu_torch.cli
+         train` (NCCL, world size 1): 2 steps and a checkpoint, --resume;
+     (d) cli.fuse.fuse_scans over the visible cards and as two streams on
+         one card: the serial path's clouds;
 then one JSON line listing the kernels (the 3xTF32 conv,
 conv3d_affine.tf32x3, as an entry of its own: times over 8a's 10 AACVP f32
 launches, launches per AACVP bf16 map, 8c; elsewhere launches: per map,
@@ -229,7 +256,13 @@ launches, 11a, and point_train_* on its backward: a train step's 7; the
 own: times over Point-MVSNet's two Cin = 64 convs, 11a, launches per
 Point-MVSNet map, 11c, cvp_* times over an f32 CVP / AACVP map's 15, 8a,
 cas_* over an f32 CasMVSNet map's 3, 2b, mvsnet_* over an f32 MVSNet
-map's 1, 9a, and launches per f32 map of each family), and last
+map's 1, 9a, and launches per f32 map of each family; the partial-moment
+forward and backward, warp_variance_partials and _grad: times of one
+launch at 13b's bf16 MVSNet view=2 inputs on view rank 0, 13a, beside
+view rank 1's (view_rank1_*), both in f32 (f32_view_rank*_) and the sums
+over one view rank's three launches of a bf16 CasMVSNet train step
+(cas_train_*), launches per train step of view rank 0 of 13b's bf16
+MVSNet view=2 run), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -238,10 +271,12 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -260,6 +295,8 @@ from mvs_tpu_torch.fusion import FusionConfig, fuse_scene
 from mvs_tpu_torch.geometry.homography import plane_sweep_coords
 from mvs_tpu_torch.io import png as png_codec
 from mvs_tpu_torch.io import read_pfm, read_ply, write_pfm, write_ply
+from mvs_tpu_torch.io.cams import CameraParams, write_cam_file
+from mvs_tpu_torch.io.pairs import write_pair_file
 from mvs_tpu_torch.io.dtu import (DTUEvalDataset, collate_cascade,
                                   collate_mvsnet, collate_point,
                                   collate_pyramid)
@@ -271,12 +308,19 @@ from mvs_tpu_torch.models.point_mvsnet import PointMVSNet
 from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.ops import _build
 from mvs_tpu_torch.ops.conv3d import conv3d_affine, conv3d_affine_plain
+from mvs_tpu_torch.ops.cost_volume import variance_from_partials
 from mvs_tpu_torch.ops.group_correlation import (
     group_correlation_volume, group_correlation_volume_grad,
     group_correlation_volume_grad_plain, group_correlation_volume_plain)
 from mvs_tpu_torch.ops.warp_variance import (
+    fused_variance_partials, fused_variance_partials_grad,
+    fused_variance_partials_grad_plain, fused_variance_partials_plain,
     fused_variance_volume, fused_variance_volume_grad,
     fused_variance_volume_grad_plain, fused_variance_volume_plain)
+from mvs_tpu_torch.parallel import (launch_local, make_mesh,
+                                    make_view_variance,
+                                    maybe_initialize_distributed, shard_batch,
+                                    shutdown)
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.train.state import make_train_step
 from mvs_tpu_torch.ops.point_ops import lattice_knn, point_sweep_projections
@@ -361,6 +405,10 @@ def reset_counts() -> None:
     group_correlation_volume.vector_launches = 0
     group_correlation_volume_grad.launches = 0
     group_correlation_volume_grad.depth_launches = 0
+    fused_variance_partials.launches = 0
+    fused_variance_partials.vector_launches = 0
+    fused_variance_partials_grad.launches = 0
+    fused_variance_partials_grad.depth_launches = 0
 
 
 def read_counts() -> dict:
@@ -3997,6 +4045,665 @@ def phase_eval_scale(oracle) -> None:
         fail("native and scipy evaluations disagree")
 
 
+# Phase 13. Data-parallel and view-sharded training (mvs_tpu_torch.parallel).
+# The view shards' cost volume runs on the warp kernel's partial-moment
+# variant: each rank sums its own source views' warped features and their
+# squares in f32 (the reference view on view rank 0 only), one all-reduce
+# over the 'view' group, then the variance. mvs_tpu's view-sharded path
+# warps each local view with its gather warp (collectives.py:63) and has
+# no Pallas kernel for it.
+PARTIAL_REPLACES = "mvs_tpu/parallel/collectives.py:63"
+PARALLEL_LR = 1e-2  # SGD: the update is -lr x the gradient
+# 13b, two ranks against one process on the same global batch and weights:
+# CasMVSNet data=2 in bf16, as its training path runs; MVSNet view=2 in
+# bf16 (configs/cas_train_dtu.yaml's dtype) and in f32. The ranks'
+# BatchNorm moments are two halves' f32 means averaged and their convs run
+# at half the batch, so their sums round in another order; a network
+# carries such a change on through its roundings, and the SGD step through
+# the gradient. The one process is also run on images moved by one f32
+# rounding (x * (1 +- 2^-24), random signs), which measures that for each
+# step's loss. Limits: each step's loss (the second is the updated
+# network's output on the batch) within 1e-3 relative or within 3x what
+# that rounding moved it; the global update-norm ratio of the first step
+# within 2% of 1 (averaged gradients give 0.5, a loss share without
+# 1 / |view| gives 2); the ranks' parameters equal bit for bit after both
+# steps.
+# The bf16 view=2 step's update norm is 2.2% below one bf16 process's
+# (0.97823 on an H100 80GB HBM3 at 700 W): each view rank runs the feature
+# net's backward for its own views only, and rounds it in bf16 on its own
+# before the ranks' f32 sum. view_split_control does that split in one
+# process and gives the same norm (ranks / control 1.000001 there), so the
+# split's bf16 roundings, not a collective or a kernel, move it. One bf16
+# process is itself 4.4% above one f32 process (1.04440; 1.04156 on the
+# nudged images), the view ranks 2.2% (1.02166). So that run is held
+# to the control within PARALLEL_CONTROL_RTOL, and to one f32 process
+# within 2% or 3x the farthest of one bf16 process from it, read in the
+# same run (check_view_bf16).
+PARALLEL_LOSS_RTOL, PARALLEL_NORM_RTOL = 1e-3, 0.02
+PARALLEL_CONTROL_RTOL = 1e-3
+PARALLEL_STEPS = 2
+
+
+def read_partial_counts() -> dict:
+    return {"warp_variance_partials": fused_variance_partials.launches,
+            "warp_variance_partials.vector":
+                fused_variance_partials.vector_launches,
+            "warp_variance_partials_grad":
+                fused_variance_partials_grad.launches,
+            "warp_variance_partials_grad.depth":
+                fused_variance_partials_grad.depth_launches}
+
+
+def partial_bound(b, v, d, h, w, c, itemsize, with_ref):
+    """Least time of the partial forward: the local views' features (and
+    the reference's with `with_ref`) and the hypotheses read once, the two
+    f32 sums written once; the least f32 work as warp_bound's without the
+    variance: per (pixel, view) 12, per (depth, pixel, view) 16, per
+    (channel, view) 10."""
+    nbytes = (b * (v + int(with_ref)) * h * w * c * itemsize
+              + b * d * h * w * 4 + b * v * 12 * 4 + 2 * b * d * h * w * c * 4)
+    ops = b * h * w * v * 12 + b * d * h * w * v * (16 + 10 * c)
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / PEAK_FLOPS[torch.float32] * 1e3)
+
+
+def partial_grad_bound(b, v, d, h, w, c, itemsize, with_ref, depth=False):
+    """Least time of the partial backward: g1 and g2 (f32), the features
+    and the hypotheses read once, dsrc and (with `with_ref`) dref written
+    once in the features' dtype, ddepth in f32 with `depth`. Least f32
+    work: per (pixel, view) 12, per (depth, pixel, view) 16, per (channel,
+    view) the blend (7), the cotangent g1 + 2 f g2 (3) and four weighted
+    scatter-adds (8), per channel of the reference 3; with `depth`,
+    DEPTH_GRAD_OPS."""
+    per_view, per_channel = (16, 18) if not depth else (
+        16 + DEPTH_GRAD_OPS[0], 18 + DEPTH_GRAD_OPS[1])
+    nbytes = (2 * b * d * h * w * c * 4
+              + 2 * b * (v + int(with_ref)) * h * w * c * itemsize
+              + b * d * h * w * 4 * (2 if depth else 1) + b * v * 12 * 4)
+    ops = (b * h * w * v * 12 + b * d * h * w * (
+        v * (per_view + per_channel * c) + 3 * c * int(with_ref)))
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / PEAK_FLOPS[torch.float32] * 1e3)
+
+
+def check_partials(args, with_ref, what, depth=False, timed=False):
+    """The partial-moment forward and backward kernels against their plain
+    versions (phase 2's limits: the sums are f32 whatever the inputs, so
+    the f32 limit; the features' gradients in their dtype's), each launched
+    once. With `timed`: kernel and plain ms of both. Returns a row."""
+    ref, src, rel, hyp = args
+    n = read_partial_counts()
+    got = fused_variance_partials(*args, with_ref=with_ref)
+    want = fused_variance_partials_plain(*args, with_ref=with_ref)
+    err = max(compare("warp", a, b, f"{what} {name}")
+              for a, b, name in zip(got, want, ("sum_f", "sum_sq")))
+    g = torch.Generator(ref.device).manual_seed(zlib.crc32(what.encode()))
+    g1, g2 = (torch.randn(got[0].shape, generator=g, device=ref.device)
+              for _ in range(2))
+    dgot = fused_variance_partials_grad(g1, g2, *args, with_ref=with_ref,
+                                        depth_grad=depth)
+    dwant = fused_variance_partials_grad_plain(g1, g2, *args,
+                                               with_ref=with_ref,
+                                               depth_grad=depth)
+    for a, b, name in zip(dgot, dwant, ("dref", "dsrc", "ddepth")):
+        if (a is None) != (b is None):
+            fail(f"{what} {name}: kernel gives {a is not None}, plain "
+                 f"{b is not None}")
+        if a is not None:
+            err = max(err, compare("warp_grad", a, b, f"{what} {name}"))
+    m = read_partial_counts()
+    if [m[k] - n[k] for k in m] != [1, int(ref.shape[-1] % 8 == 0), 1,
+                                    int(depth)]:
+        fail(f"{what}: launches {m} after {n}")
+    row = dict(err=err)
+    if timed:
+        row["ms"] = cuda_ms(lambda: fused_variance_partials(
+            *args, with_ref=with_ref))
+        row["plain_ms"] = cuda_ms(lambda: fused_variance_partials_plain(
+            *args, with_ref=with_ref), iters=3, warmup=1)
+        row["grad_ms"] = cuda_ms(lambda: fused_variance_partials_grad(
+            g1, g2, *args, with_ref=with_ref, depth_grad=depth))
+        row["grad_plain_ms"] = cuda_ms(
+            lambda: fused_variance_partials_grad_plain(
+                g1, g2, *args, with_ref=with_ref, depth_grad=depth),
+            iters=3, warmup=1)
+    return row
+
+
+def phase_partials(device):
+    """13a: the partial-moment kernels at CasMVSNet's three training stages
+    (TRAIN_W x TRAIN_H, batch TRAIN_BATCH, the 4 sources split 2 + 2: view
+    rank 0 with the reference, view rank 1 without), f32 and bf16, bf16
+    timed for view rank 0; then awkward inputs; then at 13b's MVSNet view=2
+    inputs (mvsnet_partials). Returns {"cas": one row per stage (view rank
+    0's launches) with ms, plain ms and bounds of both kernels, "mvsnet":
+    mvsnet_partials' rows}."""
+    log(f"phase 13a: warp partial-moment kernels (forward and backward) vs "
+        f"plain, {TRAIN_W}x{TRAIN_H} stages, batch {TRAIN_BATCH}, "
+        f"{VIEWS - 1} sources split 2 + 2 over two view ranks")
+    scene = make_plane_scene(num_views=VIEWS, height=TRAIN_H, width=TRAIN_W,
+                             z0=10.0)
+    rows = []
+    for stage, scale, c in STAGES:
+        d, h, w = NDEPTHS[stage - 1], TRAIN_H // scale, TRAIN_W // scale
+        for dtype in (torch.float32, torch.bfloat16):
+            ref, src, rel, hyp = warp_inputs(
+                scene, stage, scale, c, d, dtype, device, batch=TRAIN_BATCH,
+                seed=stage, height=TRAIN_H, width=TRAIN_W)
+            for shard in (0, 1):
+                local = slice(2 * shard, 2 * shard + 2)
+                timed = dtype is torch.bfloat16 and shard == 0
+                row = check_partials(
+                    (ref, src[:, local].contiguous(),
+                     rel[:, local].contiguous(), hyp), shard == 0,
+                    f"stage{stage} view rank {shard} B={TRAIN_BATCH} D={d} "
+                    f"{h}x{w} C={c} {str(dtype)[6:]}", timed=timed)
+                if not timed:
+                    continue
+                by, ops = partial_bound(TRAIN_BATCH, 2, d, h, w, c, 2, True)
+                gby, gops = partial_grad_bound(TRAIN_BATCH, 2, d, h, w, c, 2,
+                                               True)
+                row.update(bytes_ms=by, ops_ms=ops, grad_bytes_ms=gby,
+                           grad_ops_ms=gops)
+                log(f"    forward kernel {row['ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f}, bound {max(by, ops):.4f} (bytes "
+                    f"{by:.4f}, ops {ops:.4f}); backward kernel "
+                    f"{row['grad_ms']:.4f} ms, plain "
+                    f"{row['grad_plain_ms']:.4f}, bound {max(gby, gops):.4f} "
+                    f"(bytes {gby:.4f}, ops {gops:.4f})")
+                rows.append(row)
+            del ref, src, rel, hyp
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (12, 16):
+            ref, src, rel, hyp = ragged_volume_inputs(dtype, device, c=c)
+            for views, with_ref, depth in ((1, True, True), (3, False, True),
+                                           (2, True, False),
+                                           (3, True, False)):
+                check_partials((ref, src[:, :views].contiguous(),
+                                rel[:, :views].contiguous(), hyp), with_ref,
+                               f"ragged B=2 D=7 37x53 C={c} {views} local "
+                               f"view(s) ref {with_ref} ddepth {depth} "
+                               f"{str(dtype)[6:]}", depth=depth)
+    log("  one view rank's CasMVSNet train step (bf16, 3 launches each): "
+        f"forward {sum(r['ms'] for r in rows):.4f} ms, backward "
+        f"{sum(r['grad_ms'] for r in rows):.4f} ms")
+    return dict(cas=rows, mvsnet=mvsnet_partials(device))
+
+
+def mvsnet_partials(device) -> dict:
+    """13a at 13b's MVSNet view=2 inputs: batch TRAIN_BATCH, D = LADDER,
+    TRAIN_W / 4 x TRAIN_H / 4, C = MVS_C, one local source view a rank
+    (view rank 0 with the reference, view rank 1 without), f32 and bf16,
+    each timed. Returns {(dtype, view rank): row}."""
+    h, w = TRAIN_H // 4, TRAIN_W // 4
+    log(f"  MVSNet view=2's shape: B={TRAIN_BATCH} D={LADDER} {w}x{h} "
+        f"C={MVS_C}, one of the {MVS_TRAIN_VIEWS - 1} sources a view rank")
+    scene = make_plane_scene(num_views=MVS_TRAIN_VIEWS, height=TRAIN_H,
+                             width=TRAIN_W, z0=10.0)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ref, src, rel, hyp = warp_inputs(
+            scene, 1, 4, MVS_C, LADDER, dtype, device, batch=TRAIN_BATCH,
+            seed=4, height=TRAIN_H, width=TRAIN_W)
+        for shard in (0, 1):
+            local = slice(shard, shard + 1)
+            row = check_partials(
+                (ref, src[:, local].contiguous(), rel[:, local].contiguous(),
+                 hyp), shard == 0,
+                f"MVSNet view rank {shard} B={TRAIN_BATCH} D={LADDER} {h}x{w} "
+                f"C={MVS_C} {str(dtype)[6:]}", timed=True)
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            by, ops = partial_bound(TRAIN_BATCH, 1, LADDER, h, w, MVS_C,
+                                    itemsize, shard == 0)
+            gby, gops = partial_grad_bound(TRAIN_BATCH, 1, LADDER, h, w,
+                                           MVS_C, itemsize, shard == 0)
+            row.update(bytes_ms=by, ops_ms=ops, grad_bytes_ms=gby,
+                       grad_ops_ms=gops)
+            log(f"    forward kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f}, bound {max(by, ops):.4f} (bytes "
+                f"{by:.4f}, ops {ops:.4f}); backward kernel "
+                f"{row['grad_ms']:.4f} ms, plain {row['grad_plain_ms']:.4f}, "
+                f"bound {max(gby, gops):.4f} (bytes {gby:.4f}, ops "
+                f"{gops:.4f})")
+            rows[dtype, shard] = row
+        del ref, src, rel, hyp
+        torch.cuda.empty_cache()
+    return rows
+
+
+def parallel_spec(name):
+    """The 13b configuration `name` (cas_mvsnet, mvsnet, mvsnet_f32): its
+    model, task and collated global batch (numpy), its mesh, and the
+    weights (seeded, the Flax initial state; the two MVSNet configurations
+    share them)."""
+    if name == "cas_mvsnet":
+        cfg = load_config(str(MVS_TRAIN_CONFIG),
+                          ["model.compute_dtype=bfloat16"])
+        mesh, views = dict(data=2), VIEWS
+    else:
+        dtype = torch.float32 if name == "mvsnet_f32" else torch.bfloat16
+        cfg = mvs_config(dtype, f"data.num_views={MVS_TRAIN_VIEWS}",
+                         config=MVS_TRAIN_CONFIG)
+        mesh, views = dict(view=2), MVS_TRAIN_VIEWS
+    model = build_model(cfg, torch.Generator().manual_seed(5), trained=False)
+    _, collate = cli_train.build_task(cfg, model)
+    batch = collate(train_samples(TRAIN_H, TRAIN_W, TRAIN_BATCH, views=views,
+                                  seed=11))
+    # Unequal mask counts over the data ranks: the top quarter of the
+    # second half's GT masked out.
+    masks = batch["mask"] if isinstance(batch["mask"], dict) else {
+        None: batch["mask"]}
+    for m in masks.values():
+        m[TRAIN_BATCH // 2:, :m.shape[1] // 4] = 0.0
+    return dict(name=name, cfg=cfg, mesh=mesh, batch=batch,
+                state=model.state_dict())
+
+
+class _Gate(torch.autograd.Function):
+    """The identity; its backward passes the cotangent while
+    state["open"] is `group` or "all", and zeros otherwise."""
+
+    @staticmethod
+    def forward(ctx, x, group, state):
+        ctx.group, ctx.state = group, state
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        keep = ctx.state["open"] in (ctx.group, "all")
+        return (grad if keep else torch.zeros_like(grad)), None, None
+
+
+def view_split_control(spec, device) -> dict:
+    """The control of an MVSNet view=2 run, in one process on the whole
+    batch: the variance built as the two view ranks build it (group 0 the
+    reference and the first half of the sources, group 1 the second half;
+    each group's f32 partial sums on the partial kernel, added), and the
+    gradient taken in two backward passes, each passing only one group's
+    feature cotangents, as each view rank's backward does. The feature
+    net's parameter gradients of the two passes, each rounded by its own
+    backward in the compute dtype, are summed in f32 as sum_gradients sums
+    the ranks'; the other parameters take the first pass's (the whole
+    loss's, which the ranks' halves sum to). Returns the first SGD step's
+    update norm, the loss, the feature net's gradient norms (each pass's
+    and their sum's), and the update norm of one backward pass through
+    both groups (the split forward alone; SGD's first update is -lr x the
+    gradient)."""
+    model = build_model(spec["cfg"], torch.Generator().manual_seed(5),
+                        trained=False)
+    model.load_state_dict(spec["state"])
+    model = model.to(device)
+    gates = {"open": 0}
+
+    def split_variance(ref_feat, src_feats, rel_projs, depth_values):
+        per = src_feats.shape[1] // 2
+        sums = [fused_variance_partials(
+            _Gate.apply(ref_feat, 0, gates),
+            _Gate.apply(src_feats[:, g * per:(g + 1) * per].contiguous(), g,
+                        gates),
+            rel_projs[:, g * per:(g + 1) * per].contiguous(), depth_values,
+            with_ref=g == 0) for g in (0, 1)]
+        return variance_from_partials(
+            sums[0][0] + sums[1][0], sums[0][1] + sums[1][1],
+            2 * per + 1).to(ref_feat.dtype)
+
+    model.view_variance = split_variance
+    task, _ = cli_train.build_task(spec["cfg"], model)
+    opt = OptaxChain(model.parameters(), "sgd", lambda count: PARALLEL_LR)
+    batch = batch_to_device(spec["batch"], device)
+    start = [p.detach().clone() for p in opt.params]
+    model.train()
+    with full_f32():
+        loss, _ = task.loss_and_metrics(batch)
+        passes = []
+        for g in ("all", 0, 1):
+            gates["open"] = g
+            passes.append([torch.zeros_like(p) if x is None else x
+                           for p, x in zip(opt.params, torch.autograd.grad(
+                               loss, opt.params, allow_unused=True,
+                               retain_graph=g != 1))])
+    whole, passes = passes[0], passes[1:]
+    feature = {id(p) for p in model.MVSNetFeatureNet_0.parameters()}
+    grads = [a + b if id(p) in feature else a
+             for p, a, b in zip(opt.params, *passes)]
+
+    def norm(gs, only=feature):
+        return float(torch.sqrt(sum((x.double() ** 2).sum() for p, x in
+                                    zip(opt.params, gs)
+                                    if only is None or id(p) in only)))
+
+    features = (norm(passes[0]), norm(passes[1]), norm(grads))
+    opt.step(grads)
+    torch.cuda.synchronize(device)
+    return dict(loss=float(loss.detach()), features=features,
+                forward_split_norm=PARALLEL_LR * norm(whole, None),
+                norm=float(torch.sqrt(sum(
+                    ((p.detach() - q).double() ** 2).sum()
+                    for p, q in zip(opt.params, start)))))
+
+
+def parallel_run(spec, device, mesh) -> dict:
+    """PARALLEL_STEPS SGD train steps of spec's model on this rank's rows
+    of its global batch under `mesh` (a one-process mesh: the whole batch):
+    each step's loss, the first step's global update norm, the second
+    step's ms (host clock) and launches (counts zeroed just before it),
+    peak memory, and the parameters and the BatchNorm statistics after the
+    last step."""
+    model = build_model(spec["cfg"], torch.Generator().manual_seed(5),
+                        trained=False)
+    model.load_state_dict(spec["state"])
+    model = model.to(device)
+    if mesh.size("view") > 1:
+        model.view_variance = make_view_variance(mesh)
+    task, _ = cli_train.build_task(spec["cfg"], model)
+    opt = OptaxChain(model.parameters(), "sgd", lambda count: PARALLEL_LR)
+    step = make_train_step(task, opt, mesh=mesh)
+    batch = batch_to_device(shard_batch(spec["batch"], mesh), device)
+    start = [p.detach().clone() for p in opt.params]
+    card = torch.device(device).type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if card else (
+        lambda: None)
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, ms, counts = [], None, None
+    for i in range(PARALLEL_STEPS):
+        sync()
+        if i == 1:
+            reset_counts()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)["loss"]))
+        sync()
+        if i == 0:
+            norm = float(torch.sqrt(sum(((p.detach() - q).double() ** 2).sum()
+                                        for p, q in zip(opt.params, start))))
+        if i == 1:
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {**read_counts(), **read_partial_counts()}
+    params = {k for k, _ in model.named_parameters()}
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    return dict(losses=losses, norm=norm, ms=ms, counts=counts,
+                peak=(torch.cuda.max_memory_allocated(device) / 2 ** 30
+                      if card else 0.0),
+                params={k: v for k, v in state.items() if k in params},
+                stats={k: v for k, v in state.items() if k not in params})
+
+
+def rank_worker(spec_path) -> int:
+    """One rank of 13b (chip_smoke.py --rank-worker <spec>): every
+    configuration of the spec file under its mesh; results to
+    <spec>.rank<r>.pt."""
+    specs = torch.load(spec_path, weights_only=False)
+    proc = maybe_initialize_distributed(specs["device"])
+    out = {}
+    for spec in specs["runs"]:
+        mesh = make_mesh(**spec["mesh"])
+        out[spec["name"]] = parallel_run(spec, proc.device, mesh)
+        out[spec["name"]]["coords"] = mesh.coords
+    torch.save(out, f"{spec_path}.rank{proc.rank}.pt")
+    shutdown()
+    return 0
+
+
+def phase_parallel_steps(device, work: Path,
+                         names=("cas_mvsnet", "mvsnet", "mvsnet_f32"),
+                         world=2, meshes=None, shared=True) -> dict:
+    """13b: each configuration's steps as `world` ranks against one process
+    on the same global batch and weights: sharing the card over gloo (the
+    backend rule for a named card) unless not `shared`, and where the host
+    has `world` cards, a card a rank over NCCL. `meshes` ({name: mesh})
+    replaces a configuration's mesh. The bf16 MVSNet view=2 run is also
+    held against view_split_control and mvsnet_f32's one process."""
+    specs = [parallel_spec(n) for n in names]
+    for spec in specs:
+        spec["mesh"] = (meshes or {}).get(spec["name"], spec["mesh"])
+    log(f"phase 13b: {world} ranks vs one process, {TRAIN_W}x{TRAIN_H}, "
+        f"global batch {TRAIN_BATCH}, SGD {PARALLEL_LR}: "
+        + ", ".join(f"{s['name']} {s['mesh']}" for s in specs)
+        + f" (CasMVSNet {VIEWS} views, bf16; MVSNet {MVS_TRAIN_VIEWS} views, "
+        f"D={LADDER}, bf16 and f32)")
+    single, nudged, control = {}, {}, {}
+    for spec in specs:
+        single[spec["name"]] = parallel_run(spec, device, make_mesh())
+        imgs = spec["batch"]["imgs"]
+        sign = np.random.default_rng(1).choice([-1.0, 1.0], size=imgs.shape)
+        moved = dict(spec, batch=dict(spec["batch"], imgs=(
+            imgs * (1 + sign * 2.0 ** -24)).astype(np.float32)))
+        nudged[spec["name"]] = parallel_run(moved, device, make_mesh())
+        if spec["name"] == "mvsnet" and spec["mesh"].get("view", 1) == 2:
+            control[spec["name"]] = view_split_control(spec, device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    layouts = [(str(device), f"gloo, {world} ranks sharing one card")] \
+        if shared else []
+    if device.type == "cuda" and torch.cuda.device_count() >= world:
+        layouts.append((None, "nccl, a card a rank"))
+    results = {}
+    for named, label in layouts:
+        path = work / f"parallel_{world}_{named or 'nccl'}.pt"
+        torch.save(dict(device=named, runs=specs), path)
+        t0 = time.perf_counter()
+        env = dict(os.environ, OMP_NUM_THREADS=str(
+            max(1, (os.cpu_count() or world) // world)))
+        ranks = launch_local([sys.executable, str(Path(__file__).resolve()),
+                              "--rank-worker", str(path)], world, 300.0,
+                             cwd=Path(__file__).resolve().parent, env=env)
+        seconds = time.perf_counter() - t0
+        for r, (rc, out) in enumerate(ranks):
+            if rc != 0:
+                fail(f"13b rank {r} ({label}) exited {rc}:\n{out[-3000:]}")
+            backend = "gloo" if named else "nccl"
+            if not out.startswith(f"rank {r}/{world}: torch.distributed "
+                                  f"backend {backend}"):
+                fail(f"13b rank {r}: first line {out.splitlines()[0]!r}")
+        got = [torch.load(f"{path}.rank{r}.pt", weights_only=False)
+               for r in range(world)]
+        log(f"  {label}: all {world} ranks done in {seconds:.1f} s (start-up "
+            f"included)")
+        for spec in specs:
+            name = spec["name"]
+            check_ranks(spec, [g[name] for g in got], single[name],
+                        nudged[name], label)
+            if name in control:
+                check_view_bf16([g[name] for g in got], single[name],
+                                nudged[name], control[name],
+                                single["mvsnet_f32"], nudged["mvsnet_f32"])
+        results[label] = got
+    return dict(single=single, ranks=results[layouts[0][1]],
+                seconds=seconds)
+
+
+def check_ranks(spec, ranks, want, nudged, label) -> None:
+    """13b's limits for one configuration's ranks against one process (and
+    the one process on nudged images); the update-norm ratio of the bf16
+    MVSNet view=2 run is held by check_view_bf16 instead."""
+    name, a = spec["name"], ranks[0]
+    ratio = a["norm"] / want["norm"]
+    nudged_ratio = nudged["norm"] / want["norm"]
+    rel = [abs(x / y - 1) for x, y in zip(a["losses"], want["losses"])]
+    moved = [abs(x / y - 1) for x, y in zip(nudged["losses"],
+                                            want["losses"])]
+    limits = [max(PARALLEL_LOSS_RTOL, 3 * m) for m in moved]
+    same = all(torch.equal(a["params"][k], b["params"][k])
+               for b in ranks[1:] for k in a["params"])
+    # The ranks of a view group take their BatchNorm moments from the same
+    # rows, each in its own process, whose forwards need not round alike:
+    # their statistics may part in the last bits (the data ranks' moments
+    # are all-reduced, so theirs agree).
+    stats = max(float(((a["stats"][k] - b["stats"][k]).abs()
+                       / b["stats"][k].abs().clamp(min=1e-6)).max())
+                for b in ranks[1:] for k in a["stats"]
+                if k.endswith(("mean", "var")))
+    multi = label.startswith("nccl")
+    split_bf16 = name == "mvsnet" and spec["mesh"].get("view", 1) == 2
+    log(f"  {name} mesh {spec['mesh']} ({label}): losses "
+        + " ".join(f"{x:.6f}" for x in a["losses"]) + " vs one process "
+        + " ".join(f"{x:.6f}" for x in want["losses"])
+        + " (relative differences " + " ".join(f"{x:.2e}" for x in rel)
+        + "; one f32 rounding of the images moves them "
+        + " ".join(f"{x:.2e}" for x in moved) + "; limits "
+        + " ".join(f"{x:.2e}" for x in limits)
+        + f"); global update-norm ratio {ratio:.5f} ("
+        + ("limits below" if split_bf16 else f"limit 1 +- "
+           f"{PARALLEL_NORM_RTOL}")
+        + f"; one f32 rounding of the images: {nudged_ratio:.5f}); ranks' "
+        f"parameters {'identical' if same else 'DIFFER'}, their BatchNorm "
+        f"statistics apart by {stats:.1e} relative at most; ms per step "
+        f"(host clock, one step): ranks "
+        + " / ".join(f"{r['ms']:.1f}" for r in ranks)
+        + (f" ({label})" if multi else
+           f" ({label}: not a multi-card rate)")
+        + f", one process {want['ms']:.1f}"
+        + (f", {TRAIN_BATCH * 1e3 / max(r['ms'] for r in ranks):.3f} "
+           f"samples/s of the global batch against "
+           f"{TRAIN_BATCH * 1e3 / want['ms']:.3f}" if multi else "")
+        + "; peak GiB ranks " + " / ".join(f"{r['peak']:.2f}" for r in ranks)
+        + f", one process {want['peak']:.2f}; launches per step, rank 0 "
+        f"{json.dumps(a['counts'])}")
+    if any(x > lim for x, lim in zip(rel, limits)):
+        fail(f"13b {name}: losses differ by {rel}, limits {limits}")
+    if not split_bf16 and abs(ratio - 1) > PARALLEL_NORM_RTOL:
+        fail(f"13b {name}: update-norm ratio {ratio}")
+    if not same or (spec["mesh"].get("view", 1) == 1 and stats):
+        fail(f"13b {name}: the ranks' parameters or all-reduced statistics "
+             f"differ")
+    keys = ("warp_variance", "warp_variance_grad") if \
+        spec["mesh"].get("view", 1) == 1 else (
+            "warp_variance_partials", "warp_variance_partials_grad")
+    for r in ranks:
+        check_launched(f"13b {name}", r["counts"], keys)
+
+
+def check_view_bf16(ranks, want, nudged, control, f32, f32_nudged) -> None:
+    """The update-norm limits of the bf16 MVSNet view=2 run (PARALLEL_*
+    above): against view_split_control within PARALLEL_CONTROL_RTOL, and
+    against one f32 process within PARALLEL_NORM_RTOL or 3x the farthest of
+    one bf16 process (on the images and on the nudged images) from it."""
+    a = ranks[0]
+    to_control = a["norm"] / control["norm"]
+    to_f32 = a["norm"] / f32["norm"]
+    bf16_f32 = [x["norm"] / f32["norm"] for x in (want, nudged)]
+    f32_moved = f32_nudged["norm"] / f32["norm"]
+    limit = max(PARALLEL_NORM_RTOL, *(3 * abs(x - 1) for x in bf16_f32))
+    fa, fb, fsum = control["features"]
+    log(f"  mvsnet bf16 view=2 update norms: ranks / one bf16 process "
+        f"{a['norm'] / want['norm']:.5f}; the one-process control of the "
+        f"two view groups' arithmetic / one bf16 process "
+        f"{control['norm'] / want['norm']:.5f} (its loss "
+        f"{control['loss']:.6f}; its split forward with one backward "
+        f"through both groups {control['forward_split_norm'] / want['norm']:.5f}"
+        f"); ranks / control {to_control:.6f} (limit "
+        f"1 +- {PARALLEL_CONTROL_RTOL}); against one f32 process: ranks "
+        f"{to_f32:.5f}, one bf16 process {bf16_f32[0]:.5f}, on the nudged "
+        f"images {bf16_f32[1]:.5f} (limit 1 +- {limit:.5f}; one f32 process "
+        f"on the nudged images {f32_moved:.5f}); the feature net's gradient "
+        f"norms in the control: view group 0 {fa:.6e}, group 1 {fb:.6e}, "
+        f"their sum {fsum:.6e}")
+    if abs(to_control - 1) > PARALLEL_CONTROL_RTOL:
+        fail(f"13b mvsnet bf16: ranks / control update norm {to_control}")
+    if abs(to_f32 - 1) > limit:
+        fail(f"13b mvsnet bf16: ranks / f32 update norm {to_f32}, limit "
+             f"1 +- {limit}")
+
+
+def phase_torchrun(work: Path, device) -> None:
+    """13c: `torchrun --standalone --nproc_per_node=1 -m mvs_tpu_torch.cli
+    train` on a synthetic DTU training layout: NCCL at world size 1 on the
+    card, 2 steps and a checkpoint, then --resume for 2 more (on the CPU,
+    with --device cpu: gloo)."""
+    log("phase 13c: torchrun --nproc_per_node=1 -m mvs_tpu_torch.cli train "
+        "(NCCL, world size 1), checkpoint, --resume")
+    root = generate(work / "tdtu", num_scans=2, num_views=VIEWS,
+                    height=TRAIN_H // 2, width=TRAIN_W // 2, num_depth=LADDER,
+                    num_lights=1, tilt=SCAN_TILT)
+    base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node=1", "-m", "mvs_tpu_torch.cli", "train",
+            "--config", str(MVS_TRAIN_CONFIG),
+            f"data.root={root}", f"data.train_list={root}/lists/train.txt",
+            f"data.val_list={root}/lists/val.txt", "data.batch_size=2",
+            "train.summary_every_steps=1", "train.mesh_data=1",
+            f"train.log_dir={work / 'trun'}"]
+    if device.type != "cuda":
+        base.insert(base.index("--config"), "--device=cpu")
+    backend = ("torch.distributed backend nccl on cuda:0"
+               if device.type == "cuda" else "backend gloo on cpu")
+    for extra, want in ((["train.epochs=1"], "epoch 0 step 2/2"),
+                        (["train.epochs=2", "--resume"],
+                         "resumed at step 2 (epoch 1)")):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra, capture_output=True, text=True,
+                              timeout=300, cwd=Path(__file__).resolve().parent)
+        out = proc.stdout + proc.stderr
+        if proc.returncode != 0 or want not in out or backend not in out:
+            fail(f"13c torchrun {extra}: exit {proc.returncode}\n"
+                 f"{out[-3000:]}")
+        log(f"  {' '.join(extra)}: {time.perf_counter() - t0:.1f} s; "
+            + "; ".join(ln for ln in proc.stdout.splitlines()
+                        if "backend" in ln or "step" in ln))
+    ckpt = sorted(p.name for p in (work / "trun" / "ckpt").glob("*.pt"))
+    log(f"  checkpoints {ckpt}")
+    if ckpt != ["step_00000002.pt", "step_00000004.pt"]:
+        fail(f"13c checkpoints {ckpt}")
+
+
+def phase_fuse_scans(work: Path, cards) -> None:
+    """13d: fuse_scans over `cards` (the visible ones), and as two streams
+    on the first, against one stream: the same clouds."""
+    log(f"phase 13d: fuse_scans over {len(cards)} visible card(s) and as "
+        f"two streams on {cards[0]}, against one stream")
+    jobs = []
+    for s in range(3):
+        scene = make_plane_scene(num_views=SCAN_VIEWS, height=216, width=288,
+                                 z0=10.0, seed=s, tilt=SCAN_TILT)
+        rng = np.random.default_rng(s)
+        scan = work / "fuse" / f"scan{s + 1}"
+        for v in range(SCAN_VIEWS):
+            write_pfm(scan / "depth_est" / f"{v:08d}.pfm", (scene.depths[v] * (
+                1 + rng.normal(0, 0.002, scene.depths[v].shape))).astype(
+                    np.float32))
+            write_pfm(scan / "confidence" / f"{v:08d}.pfm",
+                      rng.uniform(0.5, 1, scene.depths[v].shape).astype(
+                          np.float32))
+            write_cam_file(scan / "cams" / f"{v:08d}_cam.txt", CameraParams(
+                scene.intrinsics[v], scene.extrinsics[v], 7.2, 0.03))
+        write_pair_file(scan / "pair.txt", [
+            (r, [(u, 1.0) for u in srcs])
+            for r, srcs in scan_pairs(SCAN_VIEWS)])
+        jobs.append((scan, scan / "pair.txt"))
+    fcfg = FusionConfig(0.6, 3, 1.0, 0.01)
+    clouds = {}
+    for label, devices in (("serial", cards[0]), ("visible", cards),
+                           ("two streams", [cards[0]] * 2)):
+        t0 = time.perf_counter()
+        paths = cli_fuse.fuse_scans(jobs, fcfg, devices)
+        clouds[label] = [read_ply(p)["xyz"] for p in paths]
+        log(f"  {label}: {time.perf_counter() - t0:.2f} s, points "
+            + " / ".join(str(len(x)) for x in clouds[label]))
+    for label in ("visible", "two streams"):
+        if not all(np.array_equal(a, b) for a, b in zip(clouds[label],
+                                                       clouds["serial"])):
+            fail(f"13d {label}: clouds differ from the serial path's")
+    if min(len(x) for x in clouds["serial"]) < 1000:
+        fail("13d: too few fused points")
+
+
+def phase_parallel(device, work: Path) -> dict:
+    t0 = time.perf_counter()
+    rows = phase_partials(device)
+    steps = phase_parallel_steps(device, work)
+    if device.type == "cuda" and torch.cuda.device_count() >= 4:
+        # A host of four cards: the global batch over four, and the data x
+        # view mesh, a card a rank over NCCL.
+        phase_parallel_steps(
+            device, work, names=("cas_mvsnet", "mvsnet_f32"), world=4,
+            shared=False, meshes={"cas_mvsnet": dict(data=4),
+                                  "mvsnet_f32": dict(data=2, view=2)})
+    phase_torchrun(work, device)
+    phase_fuse_scans(work, cli_fuse.visible_cards() if device.type == "cuda"
+                     else [device])
+    log(f"  phase 13 {time.perf_counter() - t0:.1f} s")
+    return dict(rows=rows, **steps)
+
+
 def ab_group_levels(device) -> dict:
     """The group-correlation forward at each AACVP level (8a's inputs), f32
     and bf16: device ms per launch."""
@@ -4153,6 +4860,30 @@ def kernel_entry(name, source, replaces, rows, launches, cli_launches,
     }
 
 
+def partial_entry(name, mvs_rows, rows, key, launches, **extra):
+    """The kernels line's entry of a partial-moment kernel (`key` "" the
+    forward, "grad_" the backward): kernel_entry over view rank 0's bf16
+    launch at MVSNet view=2's shape, beside view rank 1's, both ranks' in
+    f32 and the CasMVSNet stages' sums (13a)."""
+    def row(r):
+        return dict(err=r["err"], ms=r[f"{key}ms"],
+                    plain_ms=r[f"{key}plain_ms"],
+                    bytes_ms=r[f"{key}bytes_ms"], ops_ms=r[f"{key}ops_ms"])
+
+    def labelled(prefix, picked):
+        got = kernel_entry(name, "", "", picked, 0, None, library=False)
+        return {f"{prefix}{k}": got[k] for k in (
+            "ms", "plain_ms", "bound_ms", "max_abs_err")}
+
+    return kernel_entry(
+        name, "mvs_tpu_torch/csrc/warp_variance.cu", PARTIAL_REPLACES,
+        [row(mvs_rows[torch.bfloat16, 0])], launches, None, library=False,
+        **labelled("view_rank1_", [row(mvs_rows[torch.bfloat16, 1])]),
+        **labelled("f32_view_rank0_", [row(mvs_rows[torch.float32, 0])]),
+        **labelled("f32_view_rank1_", [row(mvs_rows[torch.float32, 1])]),
+        **labelled("cas_train_", [row(r) for r in rows["cas"]]), **extra)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4199,6 +4930,10 @@ def main() -> int:
         timed(12, phase_matrix(device, work))
     timed("12b", phase_eval_scale(oracle))
     del oracle
+    with tempfile.TemporaryDirectory() as tmp:
+        par = timed(13, phase_parallel(device, Path(tmp)))
+    view_counts = par["ranks"][0]["mvsnet"]["counts"]
+    mvs_partials = par["rows"]["mvsnet"]
 
     cvp, aacvp = cvp_full["cvp_mvsnet"][0], cvp_full["aacvp_mvsnet"][0]
     mvs_map = mvs["full"][torch.bfloat16][0]
@@ -4381,6 +5116,24 @@ def main() -> int:
                      aacvp_train_depth_launches=pyr["train"]["aacvp_mvsnet"][
                          "group_correlation_grad.depth"],
                      **at_point("group_correlation_grad")),
+        # The warp's partial-moment variant (13a): times, bound and error
+        # of one launch at 13b's MVSNet view=2 inputs on view rank 0 (bf16,
+        # batch 4, D = 192, 160x128, C = 32, one source view and the
+        # reference), view_rank1_* the same without the reference, f32_*
+        # both ranks in f32, cas_* over one view rank's three launches of a
+        # bf16 CasMVSNet train step (640x512, batch 4, 2 of the 4 sources
+        # and the reference); launches: per train step of view rank 0 of
+        # 13b's bf16 MVSNet view=2 run (counts zeroed just before its
+        # second step).
+        partial_entry("warp_variance_partials", mvs_partials, par["rows"],
+                      "", view_counts["warp_variance_partials"],
+                      vector_launches=view_counts[
+                          "warp_variance_partials.vector"]),
+        partial_entry("warp_variance_partials_grad", mvs_partials,
+                      par["rows"], "grad_",
+                      view_counts["warp_variance_partials_grad"],
+                      depth_launches=view_counts[
+                          "warp_variance_partials_grad.depth"]),
     ]
     log(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))
@@ -4391,4 +5144,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

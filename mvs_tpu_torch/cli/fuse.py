@@ -10,7 +10,11 @@ and the scan's pair.txt, runs the photometric + geometric consistency fuser
 
 Scans are streamed: one scan is on the card at a time, while one host
 thread first writes the previous scan's cloud (compaction + PLY) and then
-loads the next scan, so at most two scans are held on the host.
+loads the next scan, so at most two scans are held on the host per card.
+Without --device every visible card fuses (fuse_scans: scan i on card
+i mod n, one such stream per card; the counterpart of mvs_tpu's
+scan-parallel fuse_scans_parallel over jax.devices(), which loads every scan
+first); with one card it is the single stream.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from mvs_tpu_torch.fusion import FusionConfig, compact_points, fuse_scene
 from mvs_tpu_torch.io.cams import read_cam_file
@@ -31,7 +36,7 @@ from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.platform import resolve_device
 
 __all__ = ["main", "fuse_scan_dir", "fuse_scans", "load_scan_arrays",
-           "write_scan_cloud"]
+           "write_scan_cloud", "visible_cards"]
 
 
 def _load_image(scan_dir: Path, vid: int):
@@ -105,12 +110,12 @@ def fuse_scan_dir(scan_dir: Path, pair_path: Path, fusion_cfg: FusionConfig,
     return write_scan_cloud(scan, *_fuse(scan, fusion_cfg, device), out_path)
 
 
-def fuse_scans(jobs, fcfg: FusionConfig, device=None) -> list[Path]:
-    """Fuse many scans, jobs = [(scan_dir, pair_path), ...], streaming: the
-    card fuses scan i while one host thread writes scan i-1's cloud and
-    then loads scan i+1."""
-    device = resolve_device(device)
+def _stream(jobs, fcfg: FusionConfig, device) -> list[Path]:
+    """Fuse `jobs` in order on one device: the device fuses scan i while one
+    host thread writes scan i-1's cloud and then loads scan i+1."""
     writes = []
+    if not jobs:
+        return writes
     with ThreadPoolExecutor(max_workers=1) as pool:
         pending = pool.submit(load_scan_arrays, *jobs[0])
         for i in range(len(jobs)):
@@ -124,6 +129,35 @@ def fuse_scans(jobs, fcfg: FusionConfig, device=None) -> list[Path]:
         return [w.result() for w in writes]
 
 
+def visible_cards() -> list:
+    """Every visible CUDA card (raises when there is none)."""
+    resolve_device(None)
+    return [torch.device(f"cuda:{i}")
+            for i in range(torch.cuda.device_count())]
+
+
+def fuse_scans(jobs, fcfg: FusionConfig, devices=None) -> list[Path]:
+    """Fuse many scans, jobs = [(scan_dir, pair_path), ...], scan-parallel:
+    scan i goes to devices[i mod n] (default: every visible card; one
+    device or a list), and each device runs its own stream of scans
+    (_stream), on a thread of its own. Returns the PLY paths in job order."""
+    if devices is None:
+        devices = visible_cards()
+    elif isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devices = [resolve_device(d) for d in devices]
+    n = len(devices)
+    if n == 1:
+        return _stream(jobs, fcfg, devices[0])
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        parts = [pool.submit(_stream, jobs[k::n], fcfg, devices[k])
+                 for k in range(n)]
+        paths = [None] * len(jobs)
+        for k, part in enumerate(parts):
+            paths[k::n] = part.result()
+    return paths
+
+
 def main(argv=None) -> list[Path]:
     """Run the CLI; returns the PLY paths written."""
     p = argparse.ArgumentParser(prog="mvs_tpu_torch fuse")
@@ -132,11 +166,11 @@ def main(argv=None) -> list[Path]:
     p.add_argument("--scan", default=None)
     p.add_argument("--pair", default=None, help="pair.txt (defaults per scan)")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the first CUDA card)")
+                   help="torch device (default: every visible CUDA card)")
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
-    device = resolve_device(args.device)
+    devices = visible_cards() if args.device is None else [args.device]
     fcfg = FusionConfig(
         conf_thresh=cfg.fusion.conf_thresh,
         num_consistent=cfg.fusion.num_consistent,
@@ -160,7 +194,7 @@ def main(argv=None) -> list[Path]:
         raise FileNotFoundError(f"no pair.txt found for {scan}")
 
     return fuse_scans([(out_root / s, pair_for(s)) for s in scans], fcfg,
-                      device)
+                      devices)
 
 
 if __name__ == "__main__":

@@ -26,8 +26,26 @@ over ``data.val_list`` (lights (3,), as the JAX CLI), and every
 validation abs_depth_error (train.checkpoint). ``--resume`` restores the
 latest checkpoint. The run is on the card unless --device names another;
 the model starts from the Flax modules' initial state drawn from
-``train.seed``. Mesh fields above 1 wait for data-parallel training
-(ROADMAP.md queue 1, item 9).
+``train.seed``.
+
+Several cards (or CPU processes) train one global batch of
+``data.batch_size`` samples per step, as mvs_tpu does on its mesh:
+
+    torchrun --nproc_per_node=N -m mvs_tpu_torch.cli train \
+        --config configs/cas_train_dtu.yaml train.mesh_data=N ...
+
+Each process initialises torch.distributed from torchrun's variables
+(parallel.distributed: its card is cuda:LOCAL_RANK, NCCL; with --device
+naming one card for every rank, or the CPU, gloo) and takes its point of
+the mesh data x view (train.mesh_data = 0: the world size over the other
+axes; train.mesh_depth and train.mesh_space above 1 raise). A data rank
+loads its rows of each global batch (io.pipeline), and the train step is
+the global batch's (train.state.make_train_step: global BatchNorm moments,
+global masked losses and metrics, gradients summed over the ranks). With
+train.mesh_view > 1, MVSNet and CasMVSNet split their source views over
+the 'view' ranks (parallel.make_view_variance); the other families compute
+the same rows on every rank of a view group. Rank 0 writes the
+checkpoints, their index and the scalars; every rank restores.
 """
 
 from __future__ import annotations
@@ -43,6 +61,10 @@ from mvs_tpu_torch.io.dtu import (DTUTrainDataset, collate_cascade,
 from mvs_tpu_torch.io.pipeline import DataLoader
 from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.nn.blocks import BatchStats
+from mvs_tpu_torch.parallel import (make_mesh, make_view_variance,
+                                    maybe_initialize_distributed, replicate,
+                                    shutdown, use_mesh)
+from mvs_tpu_torch.parallel.mesh import mesh_shape_from_config
 from mvs_tpu_torch.train.checkpoint import CheckpointManager
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.train.schedule import build_schedule
@@ -51,7 +73,7 @@ from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask, PointTask,
                                       PyramidTask, batch_to_device)
 from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.meters import DictAverageMeter, ScalarLogger
-from mvs_tpu_torch.utils.platform import full_f32, resolve_device
+from mvs_tpu_torch.utils.platform import full_f32
 
 __all__ = ["main", "build_optimizer", "build_task", "read_scan_list",
            "recalibrate_bn"]
@@ -74,7 +96,9 @@ def recalibrate_bn(task, batches, device) -> int:
     """Replace every BatchNorm's statistics by the equal-weight mean of the
     batch moments of train-mode forwards over `batches`, under the current
     parameters; count becomes 1 (the JAX CLI's recalibration from zero
-    statistics). Returns the number of batches used."""
+    statistics). Under a current data-parallel mesh (parallel.use_mesh)
+    each batch's moments are the global batch's. Returns the number of
+    batches used."""
     norms = [m for m in task.model.modules() if isinstance(m, BatchStats)]
     sums = [[torch.zeros_like(m.mean), torch.zeros_like(m.var)]
             for m in norms]
@@ -111,15 +135,6 @@ def build_task(cfg, model):
     return CascadeTask(model), collate_cascade
 
 
-def _check_supported(cfg) -> None:
-    """Raise on what the port cannot train yet: more than one card."""
-    t = cfg.train
-    if max(t.mesh_data, t.mesh_view, t.mesh_depth, t.mesh_space) > 1:
-        raise NotImplementedError(
-            "train.mesh_* > 1: data-parallel and view-sharded training are "
-            "not ported yet (ROADMAP.md queue 1, item 9)")
-
-
 def main(argv=None) -> dict:
     """Run the CLI. Returns {"step", "losses" (every step's loss, host
     floats), "val" (the last validation metrics or None), "ckpt_dir",
@@ -129,13 +144,23 @@ def main(argv=None) -> dict:
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest checkpoint")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the first CUDA card)")
+                   help="torch device (default: the first CUDA card; under "
+                        "torchrun cuda:LOCAL_RANK)")
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
-    _check_supported(cfg)
-    device = resolve_device(args.device)
+    started = not torch.distributed.is_initialized()
+    proc = maybe_initialize_distributed(args.device)
+    try:
+        return _train(cfg, args, proc)
+    finally:
+        if started:
+            shutdown()
 
+
+def _train(cfg, args, proc) -> dict:
+    device, lead = proc.device, proc.rank == 0
+    mesh = make_mesh(**mesh_shape_from_config(cfg.train, proc.world_size))
     d = cfg.data
     train_ds = DTUTrainDataset(d.root, read_scan_list(d.train_list),
                                num_views=d.num_views, num_depth=d.num_depth,
@@ -146,9 +171,13 @@ def main(argv=None) -> dict:
         lights=(3,)) if d.val_list else None
     model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed),
                         trained=False).to(device)
+    if mesh.size("view") > 1 and cfg.model.name in ("mvsnet", "cas_mvsnet"):
+        model.view_variance = make_view_variance(mesh)
     task, collate = build_task(cfg, model)
+    shard = (mesh.coord("data"), mesh.size("data"))
     loader = DataLoader(train_ds, d.batch_size, collate,
-                        num_threads=d.num_threads, seed=cfg.train.seed)
+                        num_threads=d.num_threads, seed=cfg.train.seed,
+                        shard=shard)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise ValueError(f"{len(train_ds)} training samples make no batch of "
@@ -157,8 +186,15 @@ def main(argv=None) -> dict:
     optimizer = build_optimizer(cfg, model.parameters(), steps_per_epoch)
     ckpt = CheckpointManager(
         f"{cfg.train.log_dir}/ckpt",
-        best_metric="abs_depth_error" if val_ds is not None else None)
-    logger = ScalarLogger(cfg.train.log_dir)
+        best_metric="abs_depth_error" if val_ds is not None else None,
+        writer=lead)
+    logger = ScalarLogger(cfg.train.log_dir, enabled=lead)
+    say = print if lead else (lambda *a, **k: None)
+    if mesh.world_size > 1:
+        say(f"mesh {mesh.shape}: "
+            + ("the source views split over the 'view' ranks"
+               if getattr(model, "view_variance", None) is not None else
+               "every source view on every rank"))
 
     start_epoch = 0
     if args.resume:
@@ -167,10 +203,11 @@ def main(argv=None) -> dict:
             model.load_state_dict(restored["model"])
             optimizer.load_state_dict(restored["optimizer"])
             start_epoch = optimizer.count // steps_per_epoch
-            print(f"resumed at step {optimizer.count} (epoch {start_epoch})")
+            say(f"resumed at step {optimizer.count} (epoch {start_epoch})")
+    replicate(model, optimizer)
 
-    step_fn = make_train_step(task, optimizer)
-    eval_fn = make_eval_step(task)
+    step_fn = make_train_step(task, optimizer, mesh=mesh)
+    eval_fn = make_eval_step(task, mesh=mesh)
     losses, val_metrics, seconds = [], None, 0.0
     for epoch in range(start_epoch, cfg.train.epochs):
         meter = DictAverageMeter()
@@ -183,26 +220,29 @@ def main(argv=None) -> dict:
                 meter.update(host)
                 rate = (i + 1) * d.batch_size / (time.perf_counter() - t0)
                 logger.log(optimizer.count, host, prefix="train/")
-                print(f"epoch {epoch} step {i + 1}/{steps_per_epoch} loss "
-                      f"{host['loss']:.4f} ({rate:.2f} samples/s)")
+                say(f"epoch {epoch} step {i + 1}/{steps_per_epoch} loss "
+                    f"{host['loss']:.4f} ({rate:.2f} samples/s, global batch "
+                    f"{d.batch_size} over {proc.world_size} process(es))")
         seconds += time.perf_counter() - t0
         logger.log(optimizer.count, meter.mean(), prefix="train_epoch/")
 
         if cfg.train.bn_recal_batches > 0:
             batches = (b for i, b in zip(range(cfg.train.bn_recal_batches),
                                          loader))
-            recalibrate_bn(task, batches, device)
+            with use_mesh(mesh):
+                recalibrate_bn(task, batches, device)
 
         val_metrics = None
         if val_ds is not None:
             vmeter = DictAverageMeter()
             for batch in DataLoader(val_ds, d.batch_size, collate,
-                                    shuffle=False, num_threads=d.num_threads):
+                                    shuffle=False, num_threads=d.num_threads,
+                                    shard=shard):
                 vmeter.update({k: float(v) for k, v in eval_fn(
                     batch_to_device(batch, device)).items()})
             val_metrics = vmeter.mean()
             logger.log(optimizer.count, val_metrics, prefix="val/")
-            print(f"epoch {epoch} val: {val_metrics}")
+            say(f"epoch {epoch} val: {val_metrics}")
 
         if (epoch + 1) % cfg.train.ckpt_every_epochs == 0:
             ckpt.save(optimizer.count, {"model": model.state_dict(),

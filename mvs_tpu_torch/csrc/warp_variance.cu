@@ -90,6 +90,16 @@
 // are read twice, the second time mostly from L2), the records (recomputed
 // per slice) and the window's adds (a quarter of the time).
 //
+// The partial-moment variant (kPartial, both kernels) serves a cost volume
+// whose source views are split over processes (mvs_tpu_torch.parallel): the
+// variance is not additive over views, so each process writes the f32 sums
+// sum(f) and sum(f^2) over its own source views, the reference view a term
+// on one process only (with_ref), and one all-reduce of the sums precedes
+// the variance. Its backward takes g1 = dL/dsum(f) and g2 = dL/dsum(f^2),
+// f32: each term f has cotangent g1 + 2 f g2, so no mean over the views is
+// needed and each sample is blended once; dref = sum_d (g1 + 2 ref g2) when
+// the reference is a term; dsrc goes through the same window.
+//
 // C interface (loaded with ctypes, see mvs_tpu_torch/ops/warp_variance.py):
 // every pointer is a device pointer to contiguous memory,
 //   ref  (B, H, W, C)      T
@@ -104,6 +114,11 @@
 //   dref (B, H, W, C)      T    written
 //   dsrc (B, V, H, W, C)   f32  zero-filled by the caller, accumulated
 //   ddepth (B, D, H, W)    f32  written, or null for no depth gradient
+// The partial entries write (mvs_warp_partials) or read
+// (mvs_warp_partials_grad, as g1 and g2)
+//   sum_f, sum_sq (B, D, H, W, C)  f32
+// in place of out and grad, add the reference view where with_ref != 0, and
+// take dref null when it is 0.
 // Each launches on `stream` and returns cudaGetLastError().
 
 #include "mvs_common.cuh"
@@ -147,13 +162,16 @@ __device__ __forceinline__ void store8(T* p, int nc, const float* v) {
   }
 }
 
-template <typename T, bool kVec>
+// kPartial: write the f32 sums sum(f) to `out` and sum(f^2) to `out_sq`
+// instead of the variance, the reference view a term only when with_ref.
+template <typename T, bool kVec, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
 warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
                      const float* __restrict__ geom,
-                     const float* __restrict__ hyp, T* __restrict__ out,
-                     int V, int D, int H, int W, int C, int dgroup,
-                     int ngroups) {
+                     const float* __restrict__ hyp,
+                     std::conditional_t<kPartial, float, T>* __restrict__ out,
+                     float* __restrict__ out_sq, int V, int D, int H, int W,
+                     int C, int dgroup, int ngroups, int with_ref) {
   // Per warp: [V][32] sample records (corner offset, wx, wy, corner
   // validity bits), [V][3][32] rotated pixels; then the batch's (V, 12)
   // geometry.
@@ -218,7 +236,7 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
       const int p = y * W + x;
       const int nc = min(8, C - c0);
       float sf[8], sq[8];
-      load8<kVec>(refb + p * C + c0, true, nc, sf);
+      load8<kVec>(refb + p * C + c0, !kPartial || with_ref, nc, sf);
 #pragma unroll
       for (int k = 0; k < 8; ++k) sq[k] = sf[k] * sf[k];
 #pragma unroll 4
@@ -241,27 +259,38 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
           sq[k] += f * f;
         }
       }
-      float o[8];
+      const int64_t at = plane * C + p * C + c0;
+      if constexpr (kPartial) {
+        store8<kVec>(out + at, nc, sf);
+        store8<kVec>(out_sq + at, nc, sq);
+      } else {
+        float o[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float mean = sf[k] * rn;
-        o[k] = sq[k] * rn - mean * mean;
+        for (int k = 0; k < 8; ++k) {
+          const float mean = sf[k] * rn;
+          o[k] = sq[k] * rn - mean * mean;
+        }
+        store8<kVec>(out + at, nc, o);
       }
-      store8<kVec>(out + plane * C + p * C + c0, nc, o);
     }
     __syncwarp();  // records are rewritten for the next depth
   }
 }
 
-template <typename T, bool kVec, bool kDepth>
+// kPartial: the gradient of the partial sums, given gsum = dL/dsum(f) and
+// gsq = dL/dsum(f^2) (f32) in place of `grad`; dref only when with_ref.
+template <typename T, bool kVec, bool kDepth, bool kPartial>
 __global__ void __launch_bounds__(mvs::kWinThreads, mvs::kGradBlocksPerSm)
 warp_variance_grad_kernel(const T* __restrict__ ref,
                           const T* __restrict__ src,
                           const float* __restrict__ geom,
                           const float* __restrict__ hyp,
-                          const T* __restrict__ grad, T* __restrict__ dref,
+                          const T* __restrict__ grad,
+                          const float* __restrict__ gsum,
+                          const float* __restrict__ gsq, T* __restrict__ dref,
                           float* __restrict__ dsrc, float* __restrict__ ddep,
-                          int V, int D, int H, int W, int C, int slots) {
+                          int V, int D, int H, int W, int C, int slots,
+                          int with_ref) {
   extern __shared__ int4 smem[];
   const mvs::GradSmem sm = mvs::carve_grad_smem(smem, V, slots, kDepth);
   const int tid = threadIdx.x;
@@ -289,11 +318,12 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
   const float g2 = 2.f * rn;  // dvar/df_i = (2 / N) (f_i - m)
   int4* rec = sm.rec + tid;
   float2* jac = sm.jac + tid;
+  const bool has_ref = ok && (!kPartial || with_ref);
 
   for (int c0 = c_begin; c0 < c_end; c0 += 8) {
     const int nc = min(8, C - c0);
     float r[8], dr[8];
-    load8<kVec>(refp + c0, ok, nc, r);
+    load8<kVec>(refp + c0, has_ref, nc, r);
 #pragma unroll
     for (int k = 0; k < 8; ++k) dr[k] = 0.f;
     for (int d0 = 0, want = D; d0 < D;) {
@@ -310,6 +340,41 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
               mvs::grad_record(sm, v, dep, ok, W, H, C);
           if constexpr (kDepth)
             jac[v * mvs::kWinThreads] = mvs::grad_jacobian(sm, v, dep);
+        }
+        if constexpr (kPartial) {
+          // Each term f of the sums has cotangent gsum + 2 f gsq: the
+          // reference's (when a term) goes to dref, each sample's to its
+          // corners and, with kDepth, along its coordinates.
+          float g[8], q[8];
+          load8<kVec>(gsum + at * C + c0, ok, nc, g);
+          load8<kVec>(gsq + at * C + c0, ok, nc, q);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) dr[k] += g[k] + 2.f * r[k] * q[k];
+          float dd = 0.f;
+          for (int v = 0; v < V; ++v) {
+            const int4 rv = rec[v * mvs::kWinThreads];
+            const T* sv = srcb + (int64_t)v * vstride + c0;
+            float f[8];
+            if constexpr (kDepth) {
+              float fx[8], fy[8];
+              blend_diff<kVec>(sv, rv, nc, C, rowc, f, fx, fy);
+              const float2 j = jac[v * mvs::kWinThreads];
+#pragma unroll
+              for (int k = 0; k < 8; ++k) {
+                f[k] = g[k] + 2.f * f[k] * q[k];
+                dd += f[k] * (fx[k] * j.x + fy[k] * j.y);
+              }
+            } else {
+              blend<kVec>(sv, rv, nc, C, rowc, f);
+#pragma unroll
+              for (int k = 0; k < 8; ++k) f[k] = g[k] + 2.f * f[k] * q[k];
+            }
+            mvs::scatter_sample<kVec>(sm, v,
+                                      dsrcb + (int64_t)v * vstride + c0, rv,
+                                      nc, C, rowc, f);
+          }
+          if (kDepth && ok) ddep[at] = c0 == 0 ? dd : ddep[at] + dd;
+          continue;
         }
         float g[8], m[8];
         load8<kVec>(grad + at * C + c0, ok, nc, g);
@@ -361,20 +426,22 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
       want = 2 * L;
     }
     // dref, rounded once to T.
-    if (ok) store8<kVec>(dref + (int64_t)b * vstride + pix * C + c0, nc, dr);
+    if (has_ref)
+      store8<kVec>(dref + (int64_t)b * vstride + pix * C + c0, nc, dr);
   }
   mvs::bulk_wait_all();
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kPartial>
 int launch(const void* ref, const void* src, const void* geom,
-           const void* hyp, void* out, int B, int V, int D, int H, int W,
-           int C, cudaStream_t stream) {
+           const void* hyp, void* out, void* out_sq, int B, int V, int D,
+           int H, int W, int C, int with_ref, cudaStream_t stream) {
   const int64_t hw = (int64_t)H * W;
   if (B == 0 || V == 0 || D == 0 || hw == 0 || C == 0) return cudaSuccess;
   if (!mvs::offsets_fit(hw, W, C)) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)V * (kWarps * 32 * 16 + kWarps * 96 * 4 + 48);
-  const int err = mvs::reserve_smem(warp_variance_kernel<T, kVec>, smem);
+  auto* kernel = warp_variance_kernel<T, kVec, kPartial>;
+  const int err = mvs::reserve_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   static int sms = 0;
   if (sms == 0) {
@@ -393,32 +460,53 @@ int launch(const void* ref, const void* src, const void* geom,
   if (tx > INT32_MAX || ty * groups > 65535 || B > 65535)
     return (int)cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)tx, (unsigned)(ty * groups), (unsigned)B);
-  warp_variance_kernel<T, kVec><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(ref), static_cast<const T*>(src),
       static_cast<const float*>(geom), static_cast<const float*>(hyp),
-      static_cast<T*>(out), V, D, H, W, C, dgroup, (int)groups);
+      static_cast<std::conditional_t<kPartial, float, T>*>(out),
+      static_cast<float*>(out_sq), V, D, H, W, C, dgroup, (int)groups,
+      with_ref);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kPartial>
 int launch_t(const void* ref, const void* src, const void* geom,
-             const void* hyp, void* out, int B, int V, int D, int H, int W,
-             int C, int vec, cudaStream_t stream) {
+             const void* hyp, void* out, void* out_sq, int B, int V, int D,
+             int H, int W, int C, int with_ref, int vec,
+             cudaStream_t stream) {
   if (vec)
-    return launch<T, true>(ref, src, geom, hyp, out, B, V, D, H, W, C,
-                           stream);
-  return launch<T, false>(ref, src, geom, hyp, out, B, V, D, H, W, C, stream);
+    return launch<T, true, kPartial>(ref, src, geom, hyp, out, out_sq, B, V,
+                                     D, H, W, C, with_ref, stream);
+  return launch<T, false, kPartial>(ref, src, geom, hyp, out, out_sq, B, V, D,
+                                    H, W, C, with_ref, stream);
 }
 
-template <typename T, bool kVec, bool kDepth>
+template <bool kPartial>
+int launch_dtype(const void* ref, const void* src, const void* geom,
+                 const void* hyp, void* out, void* out_sq, int B, int V,
+                 int D, int H, int W, int C, int with_ref, int dtype, int vec,
+                 cudaStream_t stream) {
+  if (vec && C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_t<float, kPartial>(ref, src, geom, hyp, out, out_sq, B, V,
+                                     D, H, W, C, with_ref, vec, stream);
+  if (dtype == 1)
+    return launch_t<__nv_bfloat16, kPartial>(ref, src, geom, hyp, out, out_sq,
+                                             B, V, D, H, W, C, with_ref, vec,
+                                             stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool kVec, bool kDepth, bool kPartial>
 int launch_grad(const void* ref, const void* src, const void* geom,
-                const void* hyp, const void* grad, void* dref, void* dsrc,
-                void* ddep, int B, int V, int D, int H, int W, int C,
+                const void* hyp, const void* grad, const void* g1,
+                const void* g2, void* dref, void* dsrc, void* ddep, int B,
+                int V, int D, int H, int W, int C, int with_ref,
                 cudaStream_t stream) {
   const int64_t hw = (int64_t)H * W;
   if (B == 0 || V == 0 || D == 0 || hw == 0 || C == 0) return cudaSuccess;
   if (!mvs::offsets_fit(hw, W, C)) return (int)cudaErrorInvalidValue;
-  auto* kernel = warp_variance_grad_kernel<T, kVec, kDepth>;
+  auto* kernel = warp_variance_grad_kernel<T, kVec, kDepth, kPartial>;
   dim3 grid;
   size_t smem;
   int slots;
@@ -429,9 +517,10 @@ int launch_grad(const void* ref, const void* src, const void* geom,
   kernel<<<grid, mvs::kWinThreads, smem, stream>>>(
       static_cast<const T*>(ref), static_cast<const T*>(src),
       static_cast<const float*>(geom), static_cast<const float*>(hyp),
-      static_cast<const T*>(grad), static_cast<T*>(dref),
+      static_cast<const T*>(grad), static_cast<const float*>(g1),
+      static_cast<const float*>(g2), static_cast<T*>(dref),
       static_cast<float*>(dsrc), static_cast<float*>(ddep), V, D, H, W, C,
-      slots);
+      slots, with_ref);
   return (int)cudaGetLastError();
 }
 
@@ -441,15 +530,19 @@ extern "C" int mvs_warp_variance(const void* ref, const void* src,
                                  const void* geom, const void* hyp, void* out,
                                  int B, int V, int D, int H, int W, int C,
                                  int dtype, int vec, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec && C % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_t<float>(ref, src, geom, hyp, out, B, V, D, H, W, C, vec,
-                           s);
-  if (dtype == 1)
-    return launch_t<__nv_bfloat16>(ref, src, geom, hyp, out, B, V, D, H, W, C,
-                                   vec, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype<false>(ref, src, geom, hyp, out, nullptr, B, V, D, H, W,
+                             C, 1, dtype, vec,
+                             static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mvs_warp_partials(const void* ref, const void* src,
+                                 const void* geom, const void* hyp,
+                                 void* sum_f, void* sum_sq, int B, int V,
+                                 int D, int H, int W, int C, int with_ref,
+                                 int dtype, int vec, void* stream) {
+  return launch_dtype<true>(ref, src, geom, hyp, sum_f, sum_sq, B, V, D, H, W,
+                            C, with_ref, dtype, vec,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mvs_warp_variance_grad(const void* ref, const void* src,
@@ -461,8 +554,24 @@ extern "C" int mvs_warp_variance_grad(const void* ref, const void* src,
   return mvs::dispatch_grad(
       dtype, vec, ddepth != nullptr, C, [&](auto type, auto kvec, auto kdep) {
         return launch_grad<typename decltype(type)::type, decltype(kvec)::value,
-                           decltype(kdep)::value>(
-            ref, src, geom, hyp, grad, dref, dsrc, ddepth, B, V, D, H, W, C,
-            static_cast<cudaStream_t>(stream));
+                           decltype(kdep)::value, false>(
+            ref, src, geom, hyp, grad, nullptr, nullptr, dref, dsrc, ddepth, B,
+            V, D, H, W, C, 1, static_cast<cudaStream_t>(stream));
+      });
+}
+
+extern "C" int mvs_warp_partials_grad(const void* ref, const void* src,
+                                      const void* geom, const void* hyp,
+                                      const void* g1, const void* g2,
+                                      void* dref, void* dsrc, void* ddepth,
+                                      int B, int V, int D, int H, int W,
+                                      int C, int with_ref, int dtype, int vec,
+                                      void* stream) {
+  return mvs::dispatch_grad(
+      dtype, vec, ddepth != nullptr, C, [&](auto type, auto kvec, auto kdep) {
+        return launch_grad<typename decltype(type)::type, decltype(kvec)::value,
+                           decltype(kdep)::value, true>(
+            ref, src, geom, hyp, nullptr, g1, g2, dref, dsrc, ddepth, B, V, D,
+            H, W, C, with_ref, static_cast<cudaStream_t>(stream));
       });
 }

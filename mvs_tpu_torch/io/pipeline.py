@@ -6,8 +6,14 @@ in order; the caller moves them to the card (train.tasks.batch_to_device).
 Epoch e visits the samples in np.random.default_rng(seed + e).permutation
 order, drops a ragged last batch, and replaces a sample that fails to load
 by a random other one, at most MAX_SAMPLE_RETRIES times.
-Sharding samples over hosts waits for the port's data-parallel training
-(ROADMAP.md queue 1, item 9).
+
+``batch_size`` is the global batch. With ``shard=(r, n)`` (data rank r of
+n, parallel.mesh) every rank draws the same permutation and loads only
+its rows of each global batch (parallel.sharding.row_slice: [r B / n,
+(r + 1) B / n)), so the n ranks' batches concatenated are the single
+process's; a batch that does not split evenly raises. (mvs_tpu's multi-host loader gives each process a
+contiguous slice of the permutation instead, which makes other batches:
+a deliberate delta, ROADMAP.md section 3.)
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from collections.abc import Callable, Iterator
 
 import numpy as np
 
+from mvs_tpu_torch.parallel.sharding import row_slice
+
 __all__ = ["DataLoader"]
 
 _PREFETCH = 2  # collated batches held ready ahead of the consumer
@@ -26,9 +34,11 @@ MAX_SAMPLE_RETRIES = 3
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, collate_fn: Callable,
-                 shuffle: bool = True, seed: int = 0, num_threads: int = 2):
+                 shuffle: bool = True, seed: int = 0, num_threads: int = 2,
+                 shard: tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = row_slice(batch_size, shard)
         self.collate_fn = collate_fn
         self.shuffle = shuffle
         self.seed = seed
@@ -61,7 +71,7 @@ class DataLoader:
         in_q: queue.Queue = queue.Queue()
         for bi in range(nb):
             in_q.put((bi, indices[bi * self.batch_size:
-                                  (bi + 1) * self.batch_size]))
+                                  (bi + 1) * self.batch_size][self.rows]))
         out_q: queue.Queue = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
 

@@ -54,6 +54,11 @@ class CasMVSNet(nn.Module):
             stage_channels = base_channels * 4 // 2 ** i
             setattr(self, f"cost_reg_stage{i + 1}",
                     UNetCostRegNet(stage_channels, base_channels))
+        # Optional function that builds each stage's variance volume in
+        # place of the fused kernel, same arguments
+        # (parallel.collectives.make_view_variance: the source views split
+        # over the mesh 'view' axis, one all-reduce of the partial sums).
+        self.view_variance = None
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_random_(self, generator, trained)
@@ -89,7 +94,7 @@ class CasMVSNet(nn.Module):
             interval = self.depth_interval_ratios[i] * depth_interval
             hyp = cascade_depth_samples(cur_depth, ndepth, interval, sh,
                                         sw).contiguous()
-            volume = fused_variance_volume(
+            volume = (self.view_variance or fused_variance_volume)(
                 f[:, 0].contiguous(), f[:, 1:].contiguous(),
                 rel_projs.contiguous(), hyp)
             score = getattr(self, f"cost_reg_{stage}")(volume)

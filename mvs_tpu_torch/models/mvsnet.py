@@ -72,6 +72,10 @@ class MVSNet(nn.Module):
         self.MVSNetFeatureNet_0 = MVSNetFeatureNet(base_channels)
         self.UNetCostRegNet_0 = UNetCostRegNet(4 * base_channels)
         self.RefineNet_0 = RefineNet() if refine else None
+        # Optional function that builds the variance volume in place of
+        # the fused kernel, same arguments
+        # (parallel.collectives.make_view_variance).
+        self.view_variance = None
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_random_(self, generator, trained)
@@ -101,9 +105,9 @@ class MVSNet(nn.Module):
                      ).contiguous()
         ladder = depth_values.float()
         hyp = ladder[:, :, None, None].expand(-1, -1, fh, fw).contiguous()
-        volume = fused_variance_volume(feats[:, 0].contiguous(),
-                                       feats[:, 1:].contiguous(), rel_projs,
-                                       hyp)
+        volume = (self.view_variance or fused_variance_volume)(
+            feats[:, 0].contiguous(), feats[:, 1:].contiguous(), rel_projs,
+            hyp)
         score = self.UNetCostRegNet_0(volume)
         depth, conf, prob = regress_depth_and_confidence(score.float(),
                                                          ladder)

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvs_tpu_torch.ops.conv3d import conv3d_affine
+from mvs_tpu_torch.parallel.collectives import global_moments
 
 __all__ = ["BatchStats", "Norm", "Conv", "ConvTranspose", "ConvBlock",
            "ConvTransposeBlock", "FusedConvBlock3D", "Dense", "init_random_"]
@@ -101,11 +102,14 @@ class BatchStats(nn.Module):
     @staticmethod
     def batch_moments(y: torch.Tensor):
         """(mean, var) of channels-last `y` over every axis but the last, in
-        f32: the biased var = max(E[y^2] - E[y]^2, 0)."""
+        f32: the biased var = max(E[y^2] - E[y]^2, 0). Under a current mesh
+        with more than one data rank (parallel.use_mesh) E[y] and E[y^2]
+        are the global batch's: one differentiable all-reduce over the
+        'data' group."""
         yf = y.float()
         dims = tuple(range(yf.ndim - 1))
-        mean = yf.mean(dims)
-        return mean, torch.clamp((yf * yf).mean(dims) - mean * mean, min=0.0)
+        mean, mean_sq = global_moments(yf.mean(dims), (yf * yf).mean(dims))
+        return mean, torch.clamp(mean_sq - mean * mean, min=0.0)
 
     @torch.no_grad()
     def record(self, mean: torch.Tensor, var: torch.Tensor) -> None:

@@ -2,8 +2,8 @@
 mvs_tpu.ops.cost_volume with sampler='gather', batch written out).
 
 These are the plain PyTorch forms of the fused kernels: the variance over
-ref + V views (ops.warp_variance) and AACVP's group-wise correlation
-(ops.group_correlation). Each materializes one warped volume per source
+ref + V views and its additive partial sums (ops.warp_variance), and
+AACVP's group-wise correlation (ops.group_correlation). Each materializes one warped volume per source
 view. Sums are taken in f32 whatever the input dtype, as the kernels (and
 the TPU kernel) do; the JAX gather path sums in the input dtype, which only
 differs in bf16.
@@ -15,8 +15,8 @@ import torch
 
 from mvs_tpu_torch.geometry.homography import warp_src_feature
 
-__all__ = ["variance_cost_volume", "variance_from_partials",
-           "group_correlation_cost_volume"]
+__all__ = ["variance_cost_volume", "variance_partials",
+           "variance_from_partials", "group_correlation_cost_volume"]
 
 
 def variance_cost_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
@@ -39,6 +39,28 @@ def variance_cost_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
         sum_f = sum_f + warped
         sum_sq = sum_sq + warped * warped
     return variance_from_partials(sum_f, sum_sq, num_views).to(ref_feat.dtype)
+
+
+def variance_partials(ref_feat: torch.Tensor, src_feats: torch.Tensor,
+                      rel_projs: torch.Tensor, depth_values: torch.Tensor,
+                      with_ref: bool = True):
+    """(sum_f, sum_sq), each (B, D, H, W, C) f32: the sums of the warped
+    source views' features and of their squares, with the reference view a
+    term when `with_ref`; inputs as variance_cost_volume. The sums are
+    additive over views, so a view shard's partials are summed over the
+    shards before variance_from_partials (parallel.collectives)."""
+    b, h, w, c = ref_feat.shape
+    d = depth_values.shape[1]
+    sum_f = ref_feat.new_zeros((b, d, h, w, c), dtype=torch.float32)
+    if with_ref:
+        sum_f = sum_f + ref_feat.float()[:, None]
+    sum_sq = sum_f * sum_f
+    for v in range(src_feats.shape[1]):
+        warped = warp_src_feature(src_feats[:, v].float(), rel_projs[:, v],
+                                  depth_values)
+        sum_f = sum_f + warped
+        sum_sq = sum_sq + warped * warped
+    return sum_f, sum_sq
 
 
 def variance_from_partials(sum_f: torch.Tensor, sum_sq: torch.Tensor,

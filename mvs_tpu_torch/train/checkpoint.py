@@ -14,6 +14,11 @@ latest step. A step is ranked when it was saved with
 `best_step` returns None while nothing is ranked. Unlike the JAX manager,
 retention never deletes the latest checkpoint (ADVICE.md), so --resume
 never rewinds past a val plateau.
+
+In a multi-process run every rank calls ``save``: each waits at a barrier
+(the ranks have finished the step being saved), then only the manager made
+with ``writer=True`` (rank 0) writes, and the ranks wait again so that none
+reads the directory before the checkpoint is there. Every rank restores.
 """
 
 from __future__ import annotations
@@ -24,15 +29,19 @@ from pathlib import Path
 
 import torch
 
+from mvs_tpu_torch.parallel.distributed import barrier
+
 __all__ = ["CheckpointManager", "MAX_TO_KEEP"]
 
 MAX_TO_KEEP = 5
 
 
 class CheckpointManager:
-    def __init__(self, directory, best_metric: str | None = None):
+    def __init__(self, directory, best_metric: str | None = None,
+                 writer: bool = True):
         self.dir = Path(directory).absolute()
         self.best_metric = best_metric
+        self.writer = writer
 
     def _path(self, step: int) -> Path:
         return self.dir / f"step_{step:08d}.pt"
@@ -72,7 +81,14 @@ class CheckpointManager:
 
     def save(self, step: int, state: dict, metrics: dict | None = None):
         """Write `state` (tensors anywhere; saved as they are) with
-        `metrics` (floats) as step `step`, then apply retention."""
+        `metrics` (floats) as step `step`, then apply retention; between
+        two barriers, and on the writer only."""
+        barrier()
+        if self.writer:
+            self._save(step, state, metrics)
+        barrier()
+
+    def _save(self, step: int, state: dict, metrics: dict | None):
         self.dir.mkdir(parents=True, exist_ok=True)
         metrics = None if metrics is None else {
             k: float(v) for k, v in metrics.items()}

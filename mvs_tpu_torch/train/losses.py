@@ -5,6 +5,14 @@ point_mvsnet_loss).
 
 Pure functions of tensors with a {0, 1} float mask, safe under an
 all-masked batch (0 / 0 guarded).
+
+Under a current mesh with more than one data rank (parallel.use_mesh) each
+rank holds some rows of the global batch, and a masked mean returns this
+rank's share of the global batch's: its own masked sum over the mask count
+all-reduced over the 'data' group, as mvs_tpu divides a global masked sum
+by a global count under GSPMD. The shares of the data ranks sum to the
+global loss (the train step sums them, parallel.psum_metrics), and each
+rank differentiates its own. OHEM ranks the whole global batch.
 """
 
 from __future__ import annotations
@@ -12,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from mvs_tpu_torch.geometry.resize import resize_nearest
+from mvs_tpu_torch.parallel.collectives import gather_slots, global_count
 
 __all__ = ["smooth_l1", "masked_smooth_l1", "ohem_smooth_l1",
            "cascade_loss", "pyramid_loss", "masked_mae", "point_mvsnet_loss"]
@@ -25,9 +34,11 @@ def smooth_l1(err: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
 
 
 def masked_mean(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Mean of `values` where `valid` (bool), 0 when nothing is valid."""
+    """Mean of `values` where `valid` (bool), 0 when nothing is valid;
+    under a data-parallel mesh this rank's share of the global mean."""
     mask = valid.to(values.dtype)
-    return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(values * mask) / torch.clamp(
+        global_count(torch.sum(mask)), min=1.0)
 
 
 def masked_smooth_l1(depth_est, depth_gt, mask, beta: float = 1.0):
@@ -40,17 +51,24 @@ def ohem_smooth_l1(depth_est, depth_gt, mask, topk_frac: float = 0.6):
     pixels. k depends on the data, so the errors are sorted in descending
     order with the masked-out pixels at -inf (past every valid one) and the
     finite entries of rank < k are averaged, on the device. The gradient
-    reaches the selected pixels only. 0 for an all-masked batch."""
+    reaches the selected pixels only. 0 for an all-masked batch.
+
+    Under a data-parallel mesh k comes from the global n_valid and the
+    ranking is the global batch's: every data rank sorts all ranks' errors
+    (gathered into a buffer of rank-ordered slots, parallel.gather_slots)
+    with a stable sort, so that all agree on which pixels are taken, and
+    returns the sum of its own taken errors over the global count taken."""
     err = smooth_l1(depth_est - depth_gt).reshape(-1)
-    valid = (mask > 0.5).reshape(-1)
-    ranked = torch.sort(torch.where(valid, err, -torch.inf),
-                        descending=True).values
-    n_valid = valid.sum(dtype=torch.float32)
-    k = torch.clamp(torch.floor(topk_frac * n_valid), min=1.0)
-    ranks = torch.arange(ranked.shape[0], dtype=torch.float32,
-                         device=ranked.device)
-    take = (ranks < k) & torch.isfinite(ranked)
-    return (torch.sum(torch.where(take, ranked, 0.0))
+    keyed = torch.where((mask > 0.5).reshape(-1), err, -torch.inf)
+    everyone, offset = gather_slots(keyed)
+    order = torch.sort(everyone, descending=True, stable=True).indices
+    k = torch.clamp(torch.floor(topk_frac * torch.isfinite(everyone).sum(
+        dtype=torch.float32)), min=1.0)
+    ranks = torch.arange(order.shape[0], device=order.device)
+    take = torch.zeros_like(everyone, dtype=torch.bool)
+    take[order] = (ranks < k) & torch.isfinite(everyone[order])
+    mine = take[offset:offset + err.shape[0]]
+    return (torch.sum(torch.where(mine, err, 0.0))
             / torch.clamp(take.sum(dtype=torch.float32), min=1.0))
 
 

@@ -1,7 +1,8 @@
 """Depth-map quality metrics (counterpart of mvs_tpu.train.metrics): the
 masked absolute depth error, the outlier rates at 2 / 4 / 8 mm, and
 Point-MVSNet's shares of pixels within 1x / 3x the hypothesis interval.
-Metrics take no gradient.
+Metrics take no gradient. Each is a masked mean (train.losses.masked_mean):
+under a data-parallel mesh, this rank's share of the global batch's.
 """
 
 from __future__ import annotations

@@ -5,6 +5,28 @@ the optimizer chain, with the schedule read at the update count.
 The model and the chain's state live on one explicit device; the step runs
 there. float32 convolutions and matrix products run at float32 precision
 (utils.platform.full_f32), as on the CPU.
+
+Under a mesh (parallel.make_mesh) the step is one step of the global batch,
+as mvs_tpu's is under GSPMD: each rank holds its data rank's rows of the
+batch, BatchNorm takes the global batch's moments, the masked losses and
+metrics divide by global counts and OHEM ranks the global batch
+(train.losses). The gradient rule:
+  * each rank differentiates its share of the global loss (its masked sums
+    over the global counts), divided by the size of its 'view' group: the
+    ranks of a view group hold the same rows and compute the same share,
+    and the all-reduce of the view shards' partial sums in the forward sums
+    their cotangents in the backward;
+  * every collective in the forward is autograd-aware
+    (parallel.collectives.all_reduce);
+  * the parameter gradients are then summed over all ranks, once, in one
+    flat bucket (parallel.collectives.sum_gradients), before the optimizer
+    step, so that every rank applies the same update.
+It has three wrong forms, each held up by tests/test_torch_parallel_train.py:
+averaged gradients (DDP's rule: 1 / world of the gradient), a loss without
+the 1 / |view| (|view| times the gradient, the V-fold error mvs_tpu hit,
+mvs_tpu/models/cas_mvsnet.py:57-65), and a mean of the ranks' own means (a
+different loss wherever the ranks' mask counts differ). torch.autograd.grad
+keeps DDP's averaging reducer out of the way.
 """
 
 from __future__ import annotations
@@ -13,6 +35,8 @@ from collections.abc import Callable
 
 import torch
 
+from mvs_tpu_torch.parallel.collectives import psum_metrics, sum_gradients
+from mvs_tpu_torch.parallel.mesh import Mesh, use_mesh
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.utils.platform import full_f32
 
@@ -20,44 +44,52 @@ __all__ = ["make_train_step", "make_eval_step"]
 
 
 def make_train_step(task, optimizer: OptaxChain,
-                    mark: Callable[[str], None] | None = None
-                    ) -> Callable[[dict], dict]:
+                    mark: Callable[[str], None] | None = None,
+                    mesh: Mesh | None = None) -> Callable[[dict], dict]:
     """step(batch) -> metrics (0-d tensors on the device: the loss and the
     task's metrics), after one update of task.model's parameters and
-    BatchNorm statistics.
+    BatchNorm statistics. With `mesh`, `batch` is this rank's rows of the
+    global batch and the metrics are the global batch's.
 
     `mark`, when given, is called with "start", "forward", "backward" and
     "optimizer" as the step reaches the end of each part on the host (a
     caller records CUDA events there to split the step's device time)."""
     params = optimizer.params
     mark = mark or (lambda name: None)
+    views = 1 if mesh is None else mesh.size("view")
 
     def step(batch: dict) -> dict:
         task.model.train()
         mark("start")
-        with full_f32():
+        with full_f32(), use_mesh(mesh):
             loss, metrics = task.loss_and_metrics(batch)
             mark("forward")
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = torch.autograd.grad(loss / views if views > 1 else loss,
+                                        params, allow_unused=True)
+        if mesh is not None and mesh.world_size > 1:
+            grads = sum_gradients(grads, params)
         mark("backward")
         optimizer.step(grads)
         mark("optimizer")
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()
-        return metrics
+        return metrics if mesh is None else psum_metrics(metrics,
+                                                         mesh.group("data"))
 
     return step
 
 
-def make_eval_step(task) -> Callable[[dict], dict]:
+def make_eval_step(task, mesh: Mesh | None = None
+                   ) -> Callable[[dict], dict]:
     """step(batch) -> metrics with 'loss', in eval mode without autograd
-    (the validation pass)."""
+    (the validation pass); with `mesh`, the global batch's."""
     def step(batch: dict) -> dict:
         task.model.eval()
-        with torch.no_grad(), full_f32():
+        with torch.no_grad(), full_f32(), use_mesh(mesh):
             loss, metrics = task.loss_and_metrics(batch)
         metrics = dict(metrics)
         metrics["loss"] = loss
-        return metrics
+        return metrics if mesh is None else psum_metrics(metrics,
+                                                         mesh.group("data"))
 
     return step

@@ -4,6 +4,7 @@ mvs_tpu.utils.meters).
 DictAverageMeter averages dicts of scalars over updates; ScalarLogger
 appends one JSON line per log call to <log_dir>/scalars.jsonl and, when
 torch.utils.tensorboard imports, writes the same scalars to TensorBoard.
+In a multi-process run only rank 0's logger writes (``enabled``).
 Image summaries wait for utils/vis.py (ROADMAP.md queue 1, item 13).
 """
 
@@ -31,8 +32,12 @@ class DictAverageMeter:
 
 
 class ScalarLogger:
-    def __init__(self, log_dir, use_tensorboard: bool = True):
+    def __init__(self, log_dir, use_tensorboard: bool = True,
+                 enabled: bool = True):
         self.dir = Path(log_dir)
+        self.enabled = enabled
+        if not enabled:
+            return
         self.dir.mkdir(parents=True, exist_ok=True)
         self._jsonl = open(self.dir / "scalars.jsonl", "a")
         self._tb = None
@@ -45,6 +50,8 @@ class ScalarLogger:
                 self._tb = None
 
     def log(self, step: int, values: dict, prefix: str = ""):
+        if not self.enabled:
+            return
         rec = {"step": step, "time": time.time()}
         for k, v in values.items():
             key = f"{prefix}{k}"
@@ -55,6 +62,8 @@ class ScalarLogger:
         self._jsonl.flush()
 
     def close(self):
+        if not self.enabled:
+            return
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

@@ -1,0 +1,148 @@
+"""One rank of the port's CPU process-group tests (tests/test_torch_parallel*.py).
+
+    python tests/_torch_dist_worker.py <inputs.pt> <out_dir>
+
+Started by mvs_tpu_torch.parallel.launch_local with torchrun's variables;
+initialises torch.distributed on the CPU (gloo), runs every case named in
+inputs["cases"] and saves {case: result} to <out_dir>/rank<r>.pt. Imports
+no JAX: the test process holds the results against mvs_tpu.
+"""
+
+import contextlib
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet  # noqa: E402
+from mvs_tpu_torch.models.mvsnet import MVSNet  # noqa: E402
+from mvs_tpu_torch.nn.blocks import BatchStats  # noqa: E402
+from mvs_tpu_torch.parallel import (collectives, make_mesh,  # noqa: E402
+                                    make_view_variance,
+                                    maybe_initialize_distributed, replicate,
+                                    shard_batch, use_mesh)
+from mvs_tpu_torch.train import losses, state  # noqa: E402
+from mvs_tpu_torch.train.optim import OptaxChain  # noqa: E402
+from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask,  # noqa: E402
+                                      batch_to_device)
+
+
+def primitives(inp, mesh):
+    """BatchNorm's moments, a masked loss and OHEM on this rank's rows:
+    values under the mesh and the gradients of the rank's own rows."""
+    out = {}
+    y = shard_batch(inp["bn_y"], mesh).clone().requires_grad_(True)
+    with use_mesh(mesh):
+        mean, var = BatchStats.batch_moments(y)
+    # Every rank holds the same function of the global moments: its share
+    # of it is 1 / |data|.
+    (grad,) = torch.autograd.grad(((mean * inp["bn_w"][0]).sum()
+                                   + (var * inp["bn_w"][1]).sum())
+                                  / mesh.size("data"), y)
+    out["bn"] = dict(mean=mean.detach(), var=var.detach(), grad=grad)
+    est, gt, mask = (shard_batch(inp[k], mesh) for k in ("est", "gt", "mask"))
+    for name, fn in (("masked", losses.masked_smooth_l1),
+                     ("ohem", lambda e, g, m: losses.ohem_smooth_l1(
+                         e, g, m, inp["topk"]))):
+        e = est.clone().requires_grad_(True)
+        with use_mesh(mesh):
+            share = fn(e, gt, mask)
+        (grad,) = torch.autograd.grad(share, e)
+        total = collectives.psum_metrics({"v": share}, mesh.group("data"))
+        out[name] = dict(share=share.detach(), total=total["v"], grad=grad)
+    # The wrong form: each rank's own mean, averaged over the ranks.
+    own = losses.masked_smooth_l1(est, gt, mask)
+    out["mean_of_means"] = collectives.psum_metrics(
+        {"v": own}, mesh.group("data"))["v"] / mesh.size("data")
+    return out
+
+
+def _cast(x, dtype):
+    if isinstance(x, dict):
+        return {k: _cast(v, dtype) for k, v in x.items()}
+    return x.to(dtype)
+
+
+def train(inp, mesh, mode="right", steps=1, dtype="float32",
+          model_name="mvsnet"):
+    """`steps` train steps of the global batch (SGD) in `dtype` of MVSNet
+    from inp["state"] on inp["batch"], or of CasMVSNet (8 hypotheses a
+    stage) from inp["cas_state"] on inp["cas_batch"]; mode 'avg':
+    gradients averaged over the ranks; 'no_view_div': the loss share
+    without the 1 / |view|; 'mean_of_means': each rank's masked means over
+    its own counts, the ranks' shares averaged."""
+    dtype = getattr(torch, dtype)
+    if model_name == "mvsnet":
+        model = MVSNet(refine=False, compute_dtype=dtype).to(dtype)
+        model.load_state_dict(inp["state"])
+        task, batch = MVSNetTask(model, loss_name=inp["loss"]), inp["batch"]
+    else:
+        model = CasMVSNet(ndepths=(8, 8, 8), compute_dtype=dtype).to(dtype)
+        model.load_state_dict(inp["cas_state"])
+        task, batch = CascadeTask(model), inp["cas_batch"]
+    if mesh.size("view") > 1:
+        model.view_variance = make_view_variance(mesh)
+    if mode == "no_view_div":
+        right = task.loss_and_metrics
+        task.loss_and_metrics = lambda b: (
+            lambda lm: (lm[0] * mesh.size("view"), lm[1]))(right(b))
+    saved = state.sum_gradients, losses.global_count
+    if mode == "avg":
+        state.sum_gradients = lambda g, p: [
+            x / mesh.world_size for x in saved[0](g, p)]
+    if mode == "mean_of_means":
+        losses.global_count = lambda c: c * mesh.size("data")
+    try:
+        opt = OptaxChain(model.parameters(), "sgd", lambda count: 1e-2)
+        replicate(model, opt)
+        step = state.make_train_step(task, opt, mesh=mesh)
+        batch = _cast(batch_to_device(shard_batch(batch, mesh), "cpu"),
+                      dtype)
+        with float64_kept(dtype):
+            for _ in range(steps):
+                metrics = step(batch)
+    finally:
+        state.sum_gradients, losses.global_count = saved
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                state={k: v.clone() for k, v in model.state_dict().items()})
+
+
+@contextlib.contextmanager
+def float64_kept(dtype):
+    """In a float64 run, keep .float() from rounding to f32 (the port's
+    f32 sums and moments, as the float64 tests read them)."""
+    saved = torch.Tensor.float
+    if dtype == torch.float64:
+        torch.Tensor.float = lambda t: t if t.dtype == torch.float64 \
+            else t.to(torch.float32)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = saved
+
+
+def main(inputs, out_dir):
+    proc = maybe_initialize_distributed("cpu")
+    torch.set_num_threads(1)
+    inp = torch.load(inputs, weights_only=False)
+    results = {}
+    meshes = {}
+    for case in inp["cases"]:
+        kind, shape, *rest = case
+        if shape not in meshes:  # every rank creates the groups in order
+            meshes[shape] = make_mesh(**dict(shape))
+        mesh = meshes[shape]
+        if kind == "primitives":
+            results[case] = primitives(inp, mesh)
+        else:
+            results[case] = train(inp, mesh, *rest)
+        results[case]["coords"] = mesh.coords
+    out = Path(out_dir)
+    torch.save(results, out / f"rank{proc.rank}.pt")
+    print(f"rank {proc.rank} done", flush=True)
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:3])

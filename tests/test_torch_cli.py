@@ -194,7 +194,7 @@ def test_fuse_streams_scans_in_order(run, tmp_path):
     scan = fuse.load_scan_arrays(*jobs[0])
     assert scan["images"].shape == (5, 32, 64, 3)
     assert scan["pairs"][0] == (0, [1, 2, 3, 4])
-    paths = fuse.fuse_scans(jobs, fcfg, device="cpu")
+    paths = fuse.fuse_scans(jobs, fcfg, devices="cpu")
     assert [p.parent.name for p in paths] == ["scan2", "scan1", "scan2"]
     single = fuse.fuse_scan_dir(*jobs[1], fcfg, tmp_path / "one.ply",
                                 device="cpu")

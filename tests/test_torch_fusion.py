@@ -261,3 +261,70 @@ def test_fuse_scene_default_device_is_the_card(scene, monkeypatch):
     sc, depths, confs = scene
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fuse_scene(depths, confs, sc.intrinsics, sc.extrinsics, PAIRS)
+
+
+def _scan_layout(root, seeds):
+    """cli.infer's layout (depth_est/, confidence/, cams/, pair.txt) for
+    one noisy plane scan per seed, no images."""
+    from mvs_tpu_torch.io.cams import CameraParams, write_cam_file
+    from mvs_tpu_torch.io.pairs import write_pair_file
+    from mvs_tpu_torch.io.pfm import write_pfm
+
+    jobs = []
+    for i, seed in enumerate(seeds):
+        sc = make_plane_scene(num_views=4, height=32, width=40, z0=10.0,
+                              seed=seed, tilt=(0.05, 0.02))
+        rng = np.random.default_rng(seed)
+        scan = root / f"scan{i + 1}"
+        for v in range(4):
+            noisy = sc.depths[v] * (1 + rng.normal(0, 0.004, (32, 40)))
+            write_pfm(scan / "depth_est" / f"{v:08d}.pfm",
+                      noisy.astype(np.float32))
+            write_pfm(scan / "confidence" / f"{v:08d}.pfm",
+                      rng.uniform(0.3, 1, (32, 40)).astype(np.float32))
+            write_cam_file(scan / "cams" / f"{v:08d}_cam.txt", CameraParams(
+                sc.intrinsics[v], sc.extrinsics[v], 8.0, 0.1))
+        write_pair_file(scan / "pair.txt",
+                        [(r, [(s, 1.0) for s in range(4) if s != r])
+                         for r in range(4)])
+        jobs.append((scan, scan / "pair.txt"))
+    return jobs
+
+
+def test_fuse_scans_over_two_devices_equals_serial(tmp_path, monkeypatch):
+    """Scan-parallel fusion (scan i on device i mod 2, a stream per device)
+    writes the serial path's clouds, and a device loads a scan only when
+    its stream reaches it: at most two scans per device are loaded and not
+    yet written."""
+    from mvs_tpu_torch.cli import fuse as cli_fuse
+    from mvs_tpu_torch.io.ply import read_ply
+
+    jobs = _scan_layout(tmp_path, [0, 1, 2, 3, 4])
+    fcfg = FusionConfig(0.5, 2, 1.0, 0.01)
+    serial = [read_ply(p)["xyz"] for p in cli_fuse.fuse_scans(
+        jobs, fcfg, devices="cpu")]
+    for (scan, _), xyz in zip(jobs, serial):
+        (scan / "fused.ply").rename(scan / "serial.ply")
+        assert len(xyz) > 100
+
+    load, write = cli_fuse.load_scan_arrays, cli_fuse.write_scan_cloud
+    held, most = set(), [0]
+
+    def counted_load(*a):
+        scan = load(*a)
+        held.add(scan["name"])
+        most[0] = max(most[0], len(held))
+        return scan
+
+    def counted_write(scan, *a):
+        out = write(scan, *a)
+        held.discard(scan["name"])
+        return out
+
+    monkeypatch.setattr(cli_fuse, "load_scan_arrays", counted_load)
+    monkeypatch.setattr(cli_fuse, "write_scan_cloud", counted_write)
+    paths = cli_fuse.fuse_scans(jobs, fcfg, devices=["cpu", "cpu"])
+    assert [p.parent for p in paths] == [scan for scan, _ in jobs]
+    for p, xyz in zip(paths, serial):
+        np.testing.assert_array_equal(read_ply(p)["xyz"], xyz)
+    assert 2 <= most[0] <= 4, most[0]

@@ -79,7 +79,9 @@ def test_every_module_imports_without_pil_cv2_or_yaml():
 def test_every_module_imports_without_cuda():
     names = [m.name for m in pkgutil.walk_packages(mvs_tpu_torch.__path__,
                                                    "mvs_tpu_torch.")]
-    assert {"mvs_tpu_torch.ops.warp_variance", "mvs_tpu_torch.native"} <= set(names)
+    assert {"mvs_tpu_torch.ops.warp_variance", "mvs_tpu_torch.native",
+            "mvs_tpu_torch.parallel.collectives",
+            "mvs_tpu_torch.parallel.distributed"} <= set(names)
     for name in names:
         importlib.import_module(name)
 
