@@ -146,7 +146,7 @@ Phases, in order; any failure exits non-zero:
          launches per step (exact: CVP 2 warp forward, 2 backward of which
          1 with the hypotheses' gradient; AACVP the same of the group
          correlation; 0 conv3d), ms per step, samples/s, peak memory,
-         device ms by layer and kernel family, 30 falling losses;
+         device ms by layer and kernel family, 20 falling losses;
      (d) `train --config configs/cvp_train_dtu.yaml` for each family on a
          synthetic training layout (2 steps, a val split, a checkpoint),
          launches exact, then `infer --config configs/cvp_eval_dtu.yaml
@@ -184,7 +184,7 @@ Phases, in order; any failure exits non-zero:
          plane, away from the masked MAE's kink), then training at full width, batch 4:
          launches per step (exact: 7 warp forward, 7 backward of which 6
          with the hypotheses' gradient, 0 conv3d), ms per step,
-         samples/s, peak memory, 30 falling losses;
+         samples/s, peak memory, 20 falling losses;
      (f) `train model.name=point_mvsnet` on a synthetic training layout (2
          steps, a val split, a checkpoint), launches exact, then `infer`
          from its checkpoint;
@@ -229,6 +229,33 @@ Phases, in order; any failure exits non-zero:
          train` (NCCL, world size 1): 2 steps and a checkpoint, --resume;
      (d) cli.fuse.fuse_scans over the visible cards and as two streams on
          one card: the serial path's clouds;
+ 14. a user's own scene, the model variants and cli profile:
+     (a) a make_objects_scene scan rendered at Tanks and Temples' 1920x1080,
+         7 views, PNG images, written as a COLMAP text and binary model
+         (surface points under every 24th pixel, each point's track the
+         views where it passes the depth test), both converted by `python
+         -m mvs_tpu_torch.io.colmap` (identical outputs; cams the scene's
+         within 1e-5; each view's ladder holds 95% of its visible GT depths);
+         `infer --config configs/cas_eval_tnt.yaml` over it (seeded bf16
+         weights, batch 2, 48/32/8, served at 1856x1056: the loader's fit
+         of 1920x1080 into 1920x1056 at align 32), launches exact (3 warp,
+         15 bf16 conv a batch), maps finite and inside their ladders; ms per
+         map of one batch (3 synchronised runs), maps/s from disk, peak
+         memory; one batch card against CPU at a 256x480 crop (phase 3's
+         limits); `fuse` with the config's thresholds writes a PLY whose
+         header parses;
+     (b) each variant's seeded model card against CPU at 128x160, f32 and
+         bf16 (Point-MVSNet f32): CasMVSNet with unet features, share_cr,
+         normalization none and group; MVSNet, CVP-MVSNet, AACVP-MVSNet and
+         Point-MVSNet under group and none (scores of every regularizer
+         call, depth, confidence; phase 8b's bf16 yardstick; Point-MVSNet
+         on the CPU's kNN graphs); a bf16 CasMVSNet map at 1152x864 with
+         share_cr + unet + none (ms, launches exact: 3 warp, 15 conv with a
+         unit affine); 3 `train` steps of CasMVSNet under group norm with
+         MVS_TPU_DEBUG_NANS=1 (finite losses, the val panel PNG written);
+     (c) `cli profile` and `cli profile --train` on the card: the trace is
+         written and its table names the warp-variance and conv3d kernels
+         (the warp's backward in the train step);
 then one JSON line listing the kernels (the 3xTF32 conv,
 conv3d_affine.tf32x3, as an entry of its own: times over 8a's 10 AACVP f32
 launches, launches per AACVP bf16 map, 8c; elsewhere launches: per map,
@@ -262,7 +289,12 @@ launch at 13b's bf16 MVSNet view=2 inputs on view rank 0, 13a, beside
 view rank 1's (view_rank1_*), both in f32 (f32_view_rank*_) and the sums
 over one view rank's three launches of a bf16 CasMVSNet train step
 (cas_train_*), launches per train step of view rank 0 of 13b's bf16
-MVSNet view=2 run), and last
+MVSNet view=2 run; on the warp and conv3d tnt_launches per T&T batch of
+2 and tnt_cli_launches through 14a's `infer`, share_cr_unet_none_launches
+per map of 14b's 1152x864 run, group_cli_train_launches through its
+group-norm `train` run (also on the backward), none_bf16_launches of the
+conv per bf16 map of CasMVSNet under none), a line with the script's
+seconds, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -286,6 +318,7 @@ import torch.nn.functional as F
 from mvs_tpu_torch.cli import evaluate as cli_evaluate
 from mvs_tpu_torch.cli import fuse as cli_fuse
 from mvs_tpu_torch.cli import infer as cli_infer
+from mvs_tpu_torch.cli import profile as cli_profile
 from mvs_tpu_torch.cli import train as cli_train
 from mvs_tpu_torch.cli.infer import (make_apply_fn, run_batched_inference,
                                      stack_model_inputs, write_depth_outputs)
@@ -295,7 +328,8 @@ from mvs_tpu_torch.fusion import FusionConfig, fuse_scene
 from mvs_tpu_torch.geometry.homography import plane_sweep_coords
 from mvs_tpu_torch.io import png as png_codec
 from mvs_tpu_torch.io import read_pfm, read_ply, write_pfm, write_ply
-from mvs_tpu_torch.io.cams import CameraParams, write_cam_file
+from mvs_tpu_torch.io.cams import CameraParams, read_cam_file, write_cam_file
+from mvs_tpu_torch.io.colmap import write_colmap_model
 from mvs_tpu_torch.io.pairs import write_pair_file
 from mvs_tpu_torch.io.dtu import (DTUEvalDataset, collate_cascade,
                                   collate_mvsnet, collate_point,
@@ -1334,7 +1368,7 @@ def phase_user_path(device, apply_ms: float):
 # Phase 7. The JAX training envelope (bench.py --train): 640x512, 5 views,
 # 48/32/8 hypotheses over the 192-hypothesis ladder, bf16, batch 4, Adam.
 TRAIN_H, TRAIN_W, TRAIN_BATCH = 512, 640, 4
-TRAIN_STEPS, CURVE_STEPS = 8, 30
+TRAIN_STEPS, CURVE_STEPS = 8, 20
 TRAIN_LAUNCHES = {"warp_variance": 3, "warp_variance.vector": 3,
                   "warp_variance_grad": 3, "warp_variance_grad.depth": 0,
                   "conv3d_affine": 0, "conv3d_affine.mma": 0,
@@ -2142,9 +2176,10 @@ def cvp_vs_cpu(name, scene, dtype, device):
 
 def check_scores(what, s_cpu, s_card, dtype, moved=None):
     """Pre-softmax scores card against CPU, as fractions of the CPU's
-    spread: within SCORE_TOL, or where `moved` (what one bf16 rounding of
-    the images moves the CPU's own scores, the same fraction) is given,
-    within 4x its largest and 6x its mean if those are larger."""
+    spread: within SCORE_TOL, or where `moved` (what one rounding of the
+    images moves the CPU's own scores, the same fraction) is given, within
+    4x its largest and 6x its mean if those are larger (f32 has no mean
+    limit)."""
     max_tol, mean_tol = SCORE_TOL[dtype]
     spread = (s_cpu.max() - s_cpu.min()).item()
     diff = (s_card - s_cpu).abs()
@@ -2152,8 +2187,9 @@ def check_scores(what, s_cpu, s_card, dtype, moved=None):
     note = ""
     if moved is not None:
         max_tol = max(max_tol, 4 * moved.max().item())
-        mean_tol = max(mean_tol, 6 * moved.mean().item())
-        note = (f"; one bf16 rounding of the images moves the CPU's by "
+        if mean_tol is not None:
+            mean_tol = max(mean_tol, 6 * moved.mean().item())
+        note = (f"; one rounding of the images moves the CPU's by "
                 f"max {moved.max().item():.3e}, mean "
                 f"{moved.mean().item():.3e}")
     log(f"  {what} score {tuple(s_cpu.shape)}: |card-cpu| max {err:.3e}, "
@@ -3071,7 +3107,7 @@ def phase_cvp_train_full_width(device) -> dict:
     """10c: each family trained at 640x512, 3 views, bf16, batch 4 through
     cli.train.build_task (train_full_width: exact launches per step, ms
     per step, samples/s, peak memory, device ms by layer and kernel
-    family, 30 falling losses). Returns {name: (launches, ms, peak)}."""
+    family, 20 falling losses). Returns {name: (launches, ms, peak)}."""
     out = {}
     for name in CVP_NAMES:
         # Each family starts from an empty allocator cache, as in a process
@@ -4835,6 +4871,515 @@ def ab_point_f32_map(device) -> dict:
                                                                   args)}
 
 
+# Phase 14. A user's own COLMAP scene through the Tanks-and-Temples config,
+# the model variants of normalization / arch_mode / share_cr, cli profile.
+TNT_CONFIG = CVP_CONFIG.parent / "cas_eval_tnt.yaml"
+TNT_H, TNT_W, TNT_VIEWS = 1080, 1920, 7  # a T&T frame; 7 views of a scan
+# The loader's fit of 1920x1080 into max 1056x1920 at align 32 (mvs_tpu's and
+# the reference's rule, one scale for both sides, then each side floored to
+# a multiple of 32): 1080 * 1056/1080 = 1056, 1920 * 1056/1080 = 1877 -> 1856.
+TNT_SERVED = (1056, 1856)
+TNT_FOCAL = 100.0 * TNT_W / 96  # phase 12's focal rule at this width
+TNT_STRIDE = 24  # surface points: every 24th pixel of each view's depth
+TNT_CROP = (256, 480)
+TNT_BATCH = 2
+# The variants of 14b: (label, model.name, overrides); card against CPU at
+# 128x160 in f32 and bf16 (Point-MVSNet: f32, as mvs_tpu has no other).
+VARIANTS = (
+    ("CasMVSNet unet", "cas_mvsnet", ["model.arch_mode=unet"]),
+    ("CasMVSNet share_cr", "cas_mvsnet", ["model.share_cr=true"]),
+    ("CasMVSNet none", "cas_mvsnet", ["model.normalization=none"]),
+    ("CasMVSNet group", "cas_mvsnet", ["model.normalization=group"]),
+    *((f"{label} {norm}", name, [f"model.normalization={norm}"])
+      for label, name in (("MVSNet", "mvsnet"), ("CVP-MVSNet", "cvp_mvsnet"),
+                          ("AACVP-MVSNet", "aacvp_mvsnet"),
+                          ("Point-MVSNet", "point_mvsnet"))
+      for norm in ("group", "none")),
+)
+
+
+def tnt_colmap_scene(work: Path):
+    """A make_objects_scene scan at T&T's 1920x1080, 7 views, as a COLMAP
+    workspace: PNG images and a text and a binary sparse model whose points
+    are the surface under every 24th pixel of each view, each point's track
+    the views where it passes the depth test (projected inside the frame
+    with a depth within 0.5% of that view's). Returns (scene, {form: dense
+    folder})."""
+    t0 = time.perf_counter()
+    scene = make_objects_scene(num_views=TNT_VIEWS, height=TNT_H, width=TNT_W,
+                               focal=TNT_FOCAL, seed=3)
+    points = []
+    for v in range(TNT_VIEWS):
+        ys, xs = np.mgrid[0:TNT_H:TNT_STRIDE, 0:TNT_W:TNT_STRIDE]
+        d = scene.depths[v][ys, xs].astype(np.float64)
+        ok = d > 0
+        pix = np.stack([xs[ok], ys[ok], np.ones(ok.sum())]).astype(np.float64)
+        cam = np.linalg.inv(scene.intrinsics[v].astype(np.float64)) @ pix \
+            * d[ok]
+        e = scene.extrinsics[v].astype(np.float64)
+        points.append((e[:3, :3].T @ (cam - e[:3, 3:4])).T)
+    points = np.concatenate(points)
+    seen = []
+    for v in range(TNT_VIEWS):
+        e = scene.extrinsics[v].astype(np.float64)
+        cam = e[:3, :3] @ points.T + e[:3, 3:4]
+        uv = scene.intrinsics[v].astype(np.float64) @ cam
+        x, y = np.rint(uv[0] / uv[2]).astype(int), \
+            np.rint(uv[1] / uv[2]).astype(int)
+        inside = (cam[2] > 0) & (x >= 0) & (x < TNT_W) & (y >= 0) & \
+            (y < TNT_H)
+        depth = np.zeros(len(points))
+        depth[inside] = scene.depths[v][y[inside], x[inside]]
+        seen.append(inside & (np.abs(depth - cam[2]) < 5e-3 * cam[2]))
+    seen = np.stack(seen, axis=1)
+    keep = seen.sum(1) >= 2
+    points, tracks = points[keep], [np.nonzero(s)[0].tolist()
+                                    for s in seen[keep]]
+    names = [f"frame_{v:04d}.png" for v in range(TNT_VIEWS)]
+    dense = {}
+    for form in ("text", "binary"):
+        dense[form] = work / f"colmap_{form}"
+        write_colmap_model(dense[form] / "sparse", scene.intrinsics,
+                           scene.extrinsics, (TNT_H, TNT_W), points, tracks,
+                           names, binary=form == "binary")
+    (dense["text"] / "images").mkdir(parents=True)
+    for v, name in enumerate(names):
+        png_codec.write_png(dense["text"] / "images" / name,
+                            (scene.images[v] * 255).astype(np.uint8))
+    (dense["binary"] / "images").symlink_to(dense["text"] / "images")
+    log(f"  {TNT_VIEWS} views at {TNT_W}x{TNT_H} (focal {TNT_FOCAL:.1f}), "
+        f"{len(points)} surface points, tracks of "
+        f"{np.mean([len(t) for t in tracks]):.2f} views on average, written "
+        f"as COLMAP text and binary models in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return scene, dense
+
+
+def tnt_convert(scene, dense: dict, work: Path) -> Path:
+    """`python -m mvs_tpu_torch.io.colmap` on both models; the outputs are
+    identical, the cams are the scene's, each view's range covers its
+    visible GT depths. Returns the eval root (scan 'tnt')."""
+    roots = {}
+    for form, folder in dense.items():
+        roots[form] = work / f"eval_{form}"
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "mvs_tpu_torch.io.colmap",
+             "--dense_folder", str(folder), "--save_folder",
+             str(roots[form] / "tnt")], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            fail(f"io.colmap on the {form} model: {out.stderr[-2000:]}")
+        log(f"  io.colmap ({form} model): {time.perf_counter() - t0:.2f} s "
+            f"in its own process")
+    files = {form: {p.relative_to(root): p.read_bytes()
+                    for p in root.rglob("*") if p.is_file()}
+             for form, root in roots.items()}
+    if files["text"] != files["binary"]:
+        fail("the text and binary models convert to different files")
+    root = roots["text"] / "tnt"
+    worst, covered = 0.0, []
+    d_served = TNT_SERVED
+    for v in range(TNT_VIEWS):
+        cam = read_cam_file(root / "cams" / f"{v:08d}_cam.txt")
+        for got, want in ((cam.intrinsics, scene.intrinsics[v]),
+                          (cam.extrinsics, scene.extrinsics[v])):
+            worst = max(worst, float(np.abs(got - want).max()
+                                     / np.abs(want).max()))
+        gt = scene.depths[v][scene.depths[v] > 0]
+        top = cam.depth_min + (LADDER - 1) * cam.depth_interval * 1.06
+        covered.append(float(((gt >= cam.depth_min) & (gt <= top)).mean()))
+    log(f"  cams against the scene's: largest relative difference "
+        f"{worst:.3e} (limit 1e-5); visible GT depths inside each view's "
+        f"{LADDER}-hypothesis ladder (interval x 1.06, the config's scale): "
+        + ", ".join(f"{c:.4f}" for c in covered)
+        + f"; images {sorted(p.name for p in (root / 'images').iterdir())[:2]}"
+        f"...; text and binary outputs identical ({len(files['text'])} "
+        f"files); served at {d_served[1]}x{d_served[0]}")
+    if worst > 1e-5:
+        fail("converted cams differ from the scene's")
+    # The range is the mean of the nearest 1% and of the farthest 10% of
+    # the view's track depths (mvs_tpu's rule), so the farthest few percent
+    # of the surface lie beyond it.
+    if min(covered) < 0.95:
+        fail("a view's depth range misses over 5% of its visible GT depths")
+    return roots["text"]
+
+
+def tnt_infer(root: Path, work: Path, device) -> dict:
+    """`cli infer --config configs/cas_eval_tnt.yaml` over the converted
+    scan (seeded bf16 weights, batch 2), then ms per map of one batch
+    through make_apply_fn (3 synchronised runs) and its peak memory."""
+    ckpt = work / "tnt_bf16.pt"
+    cfg = load_config(str(TNT_CONFIG), [])
+    model = build_model(cfg, torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), ckpt)
+    (work / "tnt.txt").write_text("tnt\n")
+    overrides = [f"data.eval_root={root}",
+                 f"data.eval_list={work / 'tnt.txt'}"]
+    out = work / "tnt_out"
+    reset_counts()
+    result = cli_infer.main(["--config", str(TNT_CONFIG), "--ckpt", str(ckpt),
+                             "--out", str(out), "--device", str(device),
+                             *overrides])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    batches = -(-TNT_VIEWS // TNT_BATCH)
+    want = {"warp_variance": 3 * batches, "warp_variance.vector": 3 * batches,
+            "warp_variance_grad": 0, "warp_variance_grad.depth": 0,
+            "conv3d_affine": 15 * batches, "conv3d_affine.mma": 15 * batches,
+            "conv3d_affine.tf32x3": 0, "conv3d_affine.tf32x3_cin64": 0,
+            **NO_GROUP}
+    log(f"  cli infer: {result['maps']} maps in {result['seconds']:.4f} s "
+        f"from disk ({result['maps'] / result['seconds']:.4f} maps/s; the "
+        f"first batch's warm-up included), launches {json.dumps(counts)} "
+        f"over {batches} batches of {TNT_BATCH}")
+    if counts != want:
+        fail(f"T&T cli infer launches {counts}, want {want}")
+    if result["maps"] != TNT_VIEWS:
+        fail(f"T&T cli infer wrote {result['maps']} maps")
+    check_files(out / "tnt", TNT_VIEWS, *TNT_SERVED)
+    lo = hi = None
+    for v in range(TNT_VIEWS):
+        depth, _ = read_pfm(out / "tnt" / "depth_est" / f"{v:08d}.pfm")
+        cam = read_cam_file(out / "tnt" / "cams" / f"{v:08d}_cam.txt")
+        top = cam.depth_min + (LADDER - 1) * cam.depth_interval
+        if not (np.isfinite(depth).all() and depth.min() >= cam.depth_min
+                - 1e-3 and depth.max() <= top + 1e-3):
+            fail(f"T&T map {v} not finite or outside its ladder "
+                 f"[{cam.depth_min}, {top}]")
+        lo = depth.min() if lo is None else min(lo, depth.min())
+        hi = depth.max() if hi is None else max(hi, depth.max())
+    ds = DTUEvalDataset(root, ["tnt"], num_views=cfg.data.num_views,
+                        num_depth=cfg.data.num_depth,
+                        interval_scale=cfg.data.interval_scale,
+                        max_h=cfg.data.max_h, max_w=cfg.data.max_w,
+                        align=cfg.data.align)
+    samples = [ds[0], ds[1]]
+    if samples[0]["imgs"].shape[1:3] != TNT_SERVED:
+        fail(f"served at {samples[0]['imgs'].shape[1:3]}, want {TNT_SERVED}")
+    apply_fn = make_apply_fn(model, device)
+    args = stack_model_inputs(samples, device)
+    torch.cuda.reset_peak_memory_stats()
+    apply_fn(*args)
+    reset_counts()
+    ms = map_ms(apply_fn, args) / TNT_BATCH
+    per_batch = {k: v // 3 for k, v in read_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  bf16 batch {TNT_BATCH} at {TNT_SERVED[1]}x{TNT_SERVED[0]}, "
+        f"{cfg.data.num_views} views, {'/'.join(map(str, cfg.model.ndepths))}"
+        f" hypotheses: {ms:.2f} ms per map (3 synchronised runs), peak "
+        f"{peak:.3f} GiB, launches per batch {json.dumps(per_batch)}; maps "
+        f"in [{lo:.4f}, {hi:.4f}], finite, inside their ladders")
+    return dict(cli_counts=counts, per_batch=per_batch, ms=ms, peak=peak,
+                maps_per_s=result["maps"] / result["seconds"], out=out,
+                samples=samples, model=model, overrides=overrides)
+
+
+def tnt_crop_vs_cpu(tnt: dict, device) -> None:
+    """One batch of the T&T model, bf16, at a 256x480 crop of the served
+    scene (principal points moved with it): card (kernels) against CPU
+    (plain versions), phase 3's limits on each stage's scores, the depth
+    (in stage-3 intervals) and the confidence."""
+    h, w = TNT_CROP
+    y0, x0 = (TNT_SERVED[0] - h) // 2, (TNT_SERVED[1] - w) // 2
+    crops = []
+    for s in tnt["samples"]:
+        c = dict(s)
+        c["imgs"] = np.ascontiguousarray(s["imgs"][:, y0:y0 + h, x0:x0 + w])
+        c["intrinsics"] = s["intrinsics"].copy()
+        c["intrinsics"][:, 0, 2] -= x0
+        c["intrinsics"][:, 1, 2] -= y0
+        crops.append(c)
+    model = tnt["model"]
+    scores = []
+    hooks = [getattr(model, f"cost_reg_stage{i + 1}").register_forward_hook(
+        lambda m, a, out: scores.append(out.float().cpu()))
+        for i in range(len(NDEPTHS))]
+    t0 = time.perf_counter()
+    cpu = [t.float() for t in make_apply_fn(model, "cpu")(
+        *stack_model_inputs(crops, "cpu"))]
+    cpu_s = time.perf_counter() - t0
+    card = [t.float().cpu() for t in make_apply_fn(model, device)(
+        *stack_model_inputs(crops, device))]
+    model.to(device)
+    for hk in hooks:
+        hk.remove()
+    log(f"  {w}x{h} crop at ({x0}, {y0}), batch {TNT_BATCH}, bf16, card vs "
+        f"CPU (CPU {cpu_s:.1f} s)")
+    for i in range(3):
+        check_scores(f"T&T crop stage{i + 1}", scores[i], scores[3 + i],
+                     torch.bfloat16)
+    interval = float(crops[0]["depth_values"][1] - crops[0]["depth_values"][0])
+    check_depth("T&T crop depth", cpu[0], card[0], interval, torch.bfloat16)
+    check_confidence("T&T crop", cpu[1], card[1])
+
+
+def tnt_fuse(tnt: dict, root: Path, device) -> None:
+    t0 = time.perf_counter()
+    ply = cli_fuse.main(["--config", str(TNT_CONFIG), "--out",
+                         str(tnt["out"]), "--device", str(device),
+                         *tnt["overrides"]])[0]
+    with open(ply, "rb") as f:
+        header = f.read(4096).split(b"end_header")[0].decode("ascii")
+    if not header.startswith("ply") or "element vertex" not in header:
+        fail(f"{ply}: no PLY header")
+    fuse_s = time.perf_counter() - t0
+    log(f"  cli fuse (the config's T&T thresholds) {fuse_s:.2f} s: "
+        f"{check_cloud(ply)}; header "
+        + " | ".join(ln for ln in header.splitlines() if ln.startswith(
+            ("format", "element"))))
+
+
+def phase_tnt(device, work: Path) -> dict:
+    log(f"phase 14a: a COLMAP scene through configs/cas_eval_tnt.yaml "
+        f"({TNT_W}x{TNT_H}, {TNT_VIEWS} views)")
+    scene, dense = tnt_colmap_scene(work)
+    root = tnt_convert(scene, dense, work)
+    del scene
+    tnt = tnt_infer(root, work, device)
+    tnt_crop_vs_cpu(tnt, device)
+    tnt_fuse(tnt, root, device)
+    return tnt
+
+
+def variant_sample(name):
+    """The 128x160, 5-view plane scene of phase 3 (3 views for
+    Point-MVSNet, as phase 11b) as the family's stacked inputs."""
+    point = name == "point_mvsnet"
+    scene = make_plane_scene(num_views=3 if point else VIEWS, height=128,
+                             width=160, z0=10.0, tilt=(0.05, 0.02))
+    if point:
+        return (lambda dev: point_inputs(scene, dev, interval=4.0 / 15),
+                4.0 / 15)
+    sample = dict(imgs=scene.images, intrinsics=scene.intrinsics,
+                  extrinsics=scene.extrinsics,
+                  depth_values=np.linspace(8.0, 12.0, 16 if name == "mvsnet"
+                                           else LADDER, dtype=np.float32),
+                  depth_min=CVP_RANGE[0], depth_max=CVP_RANGE[1])
+    family = {"mvsnet": "single", "cas_mvsnet": "cascade"}.get(name,
+                                                               "pyramid")
+    unit = {"mvsnet": 4.0 / 15, "cas_mvsnet": 4.0 / LADDER}.get(
+        name, (CVP_RANGE[1] - CVP_RANGE[0]) / 15)
+    return (lambda dev: stack_model_inputs([sample], dev, family), unit)
+
+
+def variant_config(name, dtype, overrides):
+    base = {"cas_mvsnet": ["model.ndepths=48,32,8"],
+            "mvsnet": [], "point_mvsnet": ["model.num_depth_coarse=16"]}.get(
+        name, ["model.num_levels=3", "model.coarse_depths=16"])
+    return load_config(None, [f"model.name={name}",
+                              f"model.compute_dtype={str(dtype)[6:]}",
+                              *base, *overrides])
+
+
+def variant_vs_cpu(label, name, overrides, dtype, device) -> dict:
+    """One seeded model of a variant, card (kernels) against CPU (plain
+    versions): every cost regularizer's scores, the depth and the
+    confidence (Point-MVSNet: its coarse and flow depths and
+    probabilities, the card on the CPU's kNN graphs). bf16 limits also
+    allow the multiples of phase 3 of what one bf16 rounding of the images
+    moves the CPU's own outputs (logged), as phase 8b does, and f32 limits
+    the same multiples of what one f32 rounding of the images (the larger
+    of two sign patterns) moves them: under group norm the finest CVP level
+    carries such a rounding to 1e-4-2e-4 of its scores' spread. Without
+    normalization the seeded kernels are scaled by sqrt(2) (He's variance
+    2 / fan_in), so that the activations keep their scale through the
+    ReLUs and the scores have a spread to compare against (at 1 / fan_in
+    they shrink to 1e-4 of it). Returns the card run's launches."""
+    model = build_model(variant_config(name, dtype, overrides),
+                        torch.Generator().manual_seed(7))
+    if "model.normalization=none" in overrides:
+        with torch.no_grad():
+            for key, p in model.named_parameters():
+                if key.endswith("kernel"):
+                    p.mul_(2.0 ** 0.5)
+    make_inputs, unit = variant_sample(name)
+    regs = [m for m in model.modules()
+            if type(m).__name__ in ("UNetCostRegNet", "PyramidCostRegNet",
+                                    "VolumeConv")]
+    scores = []
+    hooks = [m.register_forward_hook(
+        lambda m, a, out: scores.append(out.float().cpu())) for m in regs]
+    if name == "point_mvsnet":
+        tape = GraphTape()
+        with tape.record():
+            cpu = point_outputs(model, make_inputs("cpu"), "cpu")
+        n = len(scores)
+        reset_counts()
+        with tape.replay():
+            card = point_outputs(model, make_inputs(device), device)
+        counts = read_counts()
+        for h in hooks:
+            h.remove()
+        log(f"phase 14b: {label}, f32, card vs CPU (kNN graphs agree at "
+            + ", ".join(f"{x:.4f}" for x in tape.shares) + ")")
+        for a, b in zip(scores[:n], scores[n:]):
+            check_scores(f"{label} coarse", a, b, dtype)
+        check_depth(f"{label} coarse depth", cpu["coarse_depth"],
+                    card["coarse_depth"], unit, dtype)
+        for it, (_, inter) in enumerate(POINT_FLOW):
+            key = f"flow{it + 1}"
+            check_depth(f"{label} {key}", cpu[key], card[key], inter * unit,
+                        dtype)
+            check_probs(f"{label} {key} probabilities", cpu[f"{key}_prob"],
+                        card[f"{key}_prob"])
+        return counts
+    inputs = make_inputs("cpu")
+    cpu = [t.float() for t in make_apply_fn(model, "cpu")(*inputs)]
+    n = len(scores)
+    # One rounding of the images in the compute dtype, with one sign
+    # pattern in bf16 (phase 8b) and the larger move of two in f32.
+    step, patterns = ((2.0 ** -8, 1) if dtype is torch.bfloat16
+                      else (2.0 ** -24, 2))
+    moved = None
+    for seed in range(patterns):
+        sign = torch.from_numpy(np.random.default_rng(seed).choice(
+            [-1.0, 1.0], size=tuple(inputs[0].shape)).astype(np.float32))
+        nudged = [t.float() for t in make_apply_fn(model, "cpu")(
+            inputs[0] * (1 + sign * step), *inputs[1:])]
+        got = dict(score=[(b - a).abs() / (a.max() - a.min())
+                          for a, b in zip(scores[:n], scores[n:])],
+                   depth=(nudged[0] - cpu[0]).abs(),
+                   conf=(nudged[1] - cpu[1]).abs())
+        moved = got if moved is None else {
+            k: ([torch.maximum(a, b) for a, b in zip(moved[k], v)]
+                if k == "score" else torch.maximum(moved[k], v))
+            for k, v in got.items()}
+        del scores[n:]
+    reset_counts()
+    card = [t.float().cpu() for t in make_apply_fn(model, device)(
+        *make_inputs(device))]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for h in hooks:
+        h.remove()
+    log(f"phase 14b: {label}, {str(dtype)[6:]}, card vs CPU, launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for i, (a, b) in enumerate(zip(scores[:n], scores[n:])):
+        check_scores(f"{label} regularizer call {i}", a, b, dtype,
+                     moved["score"][i])
+    check_depth(f"{label} depth", cpu[0], card[0], unit, dtype,
+                moved["depth"])
+    check_confidence(label, cpu[1], card[1], moved["conf"])
+    return counts
+
+
+def variant_full_width(device) -> dict:
+    """One bf16 CasMVSNet map at configs/cas_eval_dtu.yaml's widths
+    (1152x864, 5 views, 48/32/8) with share_cr, unet features and no
+    normalization: ms per map, launches (3 warp; the shared U-Net's 15
+    convs on the kernel with a unit affine)."""
+    cfg = load_config(str(MVS_CONFIG), [
+        "model.share_cr=true", "model.arch_mode=unet",
+        "model.normalization=none"])
+    model = build_model(cfg, torch.Generator().manual_seed(0))
+    scene = make_plane_scene(num_views=VIEWS, height=HEIGHT, width=WIDTH,
+                             z0=10.0)
+    apply_fn = make_apply_fn(model, device)
+    args = model_inputs(scene, 1, device)
+    apply_fn(*args)
+    reset_counts()
+    ms = map_ms(apply_fn, args)
+    counts = {k: v // 3 for k, v in read_counts().items()}
+    want = {"warp_variance": 3, "warp_variance.vector": 3,
+            "warp_variance_grad": 0, "warp_variance_grad.depth": 0,
+            "conv3d_affine": 15, "conv3d_affine.mma": 15,
+            "conv3d_affine.tf32x3": 0, "conv3d_affine.tf32x3_cin64": 0,
+            **NO_GROUP}
+    depth = apply_fn(*args)[0]
+    log(f"phase 14b: CasMVSNet share_cr + unet + none, bf16, {WIDTH}x"
+        f"{HEIGHT}: {ms:.2f} ms per map, launches {json.dumps(counts)}; "
+        f"depth finite {bool(torch.isfinite(depth).all())}")
+    if counts != want:
+        fail(f"share_cr + unet + none launches {counts}, want {want}")
+    if not torch.isfinite(depth).all():
+        fail("share_cr + unet + none map not finite")
+    return dict(ms=ms, counts=counts)
+
+
+def variant_cli_train(device, work: Path) -> dict:
+    """3 `cli train` steps of CasMVSNet under group norm with
+    MVS_TPU_DEBUG_NANS=1: finite losses, and the val panel PNG written."""
+    root = generate(work / "gn_dtu", num_scans=2, num_views=3, height=128,
+                    width=160, num_depth=LADDER, num_lights=1,
+                    tilt=SCAN_TILT)
+    saved = os.environ.get("MVS_TPU_DEBUG_NANS")
+    os.environ["MVS_TPU_DEBUG_NANS"] = "1"
+    reset_counts()
+    try:
+        result = cli_train.main([
+            "--device", str(device), "model.normalization=group",
+            "model.ndepths=48,32,8", "data.num_views=3",
+            f"data.num_depth={LADDER}", f"data.root={root}",
+            f"data.train_list={root}/lists/train.txt",
+            f"data.val_list={root}/lists/val.txt", "data.batch_size=1",
+            "train.epochs=1", "train.summary_every_steps=1",
+            f"train.log_dir={work / 'gn_run'}"])
+    finally:
+        if saved is None:
+            del os.environ["MVS_TPU_DEBUG_NANS"]
+        else:
+            os.environ["MVS_TPU_DEBUG_NANS"] = saved
+    torch.cuda.synchronize()
+    counts = read_counts()
+    panels = sorted((work / "gn_run" / "images").glob("val_depth_*.png"))
+    log(f"phase 14b: cli train, CasMVSNet group norm, MVS_TPU_DEBUG_NANS=1: "
+        f"{result['step']} steps, losses "
+        + " ".join(f"{x:.4f}" for x in result["losses"])
+        + f", val {json.dumps(result['val'])}, panel "
+        f"{[p.name for p in panels]} "
+        f"{png_codec.read_png(panels[0]).shape if panels else None}, "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    if result["step"] != 3 or not np.isfinite(result["losses"]).all():
+        fail("group-norm cli train did not take 3 finite steps")
+    if not panels:
+        fail("cli train wrote no val panel")
+    if torch.is_anomaly_enabled():
+        fail("anomaly detection left on after cli train")
+    return counts
+
+
+def phase_variants(device, work: Path) -> dict:
+    counts = {}
+    for label, name, overrides in VARIANTS:
+        dtypes = (torch.float32,) if name == "point_mvsnet" else (
+            torch.float32, torch.bfloat16)
+        for dtype in dtypes:
+            counts[label, dtype] = variant_vs_cpu(label, name, overrides,
+                                                  dtype, device)
+    for label in ("CasMVSNet none", "CasMVSNet share_cr"):
+        got = counts[label, torch.bfloat16]
+        if got["conv3d_affine.mma"] != 15 or got["warp_variance"] != 3:
+            fail(f"{label} bf16 launches {got}: want 15 tensor-core convs "
+                 f"and 3 warps")
+    full = variant_full_width(device)
+    cli = variant_cli_train(device, work)
+    return dict(counts=counts, full=full, cli=cli)
+
+
+def phase_profile(device, work: Path) -> dict:
+    """`cli profile` forward and --train on the card: the trace is written
+    and the table names the warp-variance and conv3d kernels (the forward)
+    and the warp's backward (the train step)."""
+    out = {}
+    for train in (False, True):
+        logdir = work / f"profile_{'train' if train else 'forward'}"
+        log(f"phase 14c: cli profile{' --train' if train else ''}")
+        result = cli_profile.main(["--device", str(device), "--steps", "5",
+                                   "--warmup", "3", "--logdir", str(logdir)]
+                                  + (["--train"] if train else []))
+        table = "\n".join(result["table"])
+        want = ("warp_variance_grad",) if train else ("warp_variance",
+                                                      "conv3d")
+        if not Path(result["trace"]).stat().st_size:
+            fail("cli profile wrote an empty trace")
+        if not all(k in table for k in want):
+            fail(f"cli profile's table names none of {want}")
+        out[train] = result["ms_per_step"]
+    return out
+
+
 def kernel_entry(name, source, replaces, rows, launches, cli_launches,
                  library, **extra):
     """Times and bounds are sums over one bf16 map's launches (phase 2; 7a
@@ -4889,6 +5434,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     device = resolve_device()
+    t_script = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -4932,6 +5478,12 @@ def main() -> int:
     del oracle
     with tempfile.TemporaryDirectory() as tmp:
         par = timed(13, phase_parallel(device, Path(tmp)))
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        tnt = timed("14a", phase_tnt(device, work))
+        var = timed("14b", phase_variants(device, work))
+        timed("14c", phase_profile(device, work))
+    del tnt["model"], tnt["samples"]
     view_counts = par["ranks"][0]["mvsnet"]["counts"]
     mvs_partials = par["rows"]["mvsnet"]
 
@@ -4987,6 +5539,16 @@ def main() -> int:
     cin64 = "conv3d_affine.tf32x3_cin64"
     cin64_rows = point["rows"]["cin64"]
 
+    def at_tnt(key):
+        """The kernel's launches per T&T batch of 2 (14a, make_apply_fn),
+        through 14a's cli infer (4 batches), per bf16 map of CasMVSNet
+        share_cr + unet + none at 1152x864 and through 14b's group-norm
+        cli train run (3 steps, 3 val batches)."""
+        return dict(tnt_launches=tnt["per_batch"][key],
+                    tnt_cli_launches=tnt["cli_counts"][key],
+                    share_cr_unet_none_launches=var["full"]["counts"][key],
+                    group_cli_train_launches=var["cli"][key])
+
     kernels = [
         kernel_entry("warp_variance", "mvs_tpu_torch/csrc/warp_variance.cu",
                      "mvs_tpu/ops/warp_pallas.py:288", warp_rows,
@@ -4999,7 +5561,7 @@ def main() -> int:
                      mvsnet_cli_launches=mvs["cli"]["warp_variance"],
                      **at_mvsnet(mvs["rows"]["warp"]),
                      **pyramid_training("warp_variance"),
-                     **at_point("warp_variance"),
+                     **at_point("warp_variance"), **at_tnt("warp_variance"),
                      # One f32 Point-MVSNet map's 7 launches (11a).
                      **row_sums(point["rows"]["warp"], "point")),
         kernel_entry("conv3d_affine", "mvs_tpu_torch/csrc/conv3d_affine.cu",
@@ -5012,7 +5574,9 @@ def main() -> int:
                      mvsnet_launches=mvs_map["conv3d_affine"],
                      mvsnet_cli_launches=mvs["cli"]["conv3d_affine"],
                      **pyramid_training("conv3d_affine"),
-                     **at_point("conv3d_affine")),
+                     **at_point("conv3d_affine"), **at_tnt("conv3d_affine"),
+                     none_bf16_launches=var["counts"][
+                         "CasMVSNet none", torch.bfloat16]["conv3d_affine"]),
         # The f32 variant of the same implicit GEMM (3xTF32): times over
         # AACVP's 10 f32 launches of a bf16 map (8a), library cuDNN f32 with
         # TF32 off; bound_ms is the larger of the bytes' time and the three
@@ -5086,6 +5650,7 @@ def main() -> int:
                                             for r in step_rows),
                      cvp_train_max_abs_err=max(r["err"] for r in step_rows),
                      **at_point("warp_variance_grad"),
+                     group_cli_train_launches=var["cli"]["warp_variance_grad"],
                      point_train_depth_launches=point["train"][
                          "warp_variance_grad.depth"],
                      # One f32 Point-MVSNet train step's 7 launches, the
@@ -5135,6 +5700,8 @@ def main() -> int:
                       depth_launches=view_counts[
                           "warp_variance_partials_grad.depth"]),
     ]
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the card "
+        f"check to the kernels line")
     log(smi.stdout.strip())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,12 @@
-"""CLI dispatcher: python -m mvs_tpu_torch.cli <train|infer|fuse|evaluate> ...
-
-The JAX package's `profile` command is not ported yet; it raises and names
-the ROADMAP.md item (queue 1) that ports it.
-"""
+"""CLI dispatcher: python -m mvs_tpu_torch.cli
+<train|infer|fuse|evaluate|profile> ..."""
 
 from __future__ import annotations
 
 import importlib
 import sys
 
-_COMMANDS = ("train", "infer", "fuse", "evaluate")
-_NOT_PORTED = {"profile": "item 13, the torch.profiler table"}
+_COMMANDS = ("train", "infer", "fuse", "evaluate", "profile")
 
 
 def main(argv=None):
@@ -20,9 +16,6 @@ def main(argv=None):
               f"{{{'|'.join(_COMMANDS)}}} [args...]")
         raise SystemExit(0 if argv else 1)
     cmd, rest = argv[0], argv[1:]
-    if cmd in _NOT_PORTED:
-        raise NotImplementedError(f"{cmd!r} is not ported yet (ROADMAP.md "
-                                  f"queue 1, {_NOT_PORTED[cmd]})")
     if cmd not in _COMMANDS:
         raise SystemExit(f"unknown command {cmd!r}; options: {_COMMANDS}")
     importlib.import_module(f"mvs_tpu_torch.cli.{cmd}").main(rest)

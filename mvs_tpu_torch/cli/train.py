@@ -23,10 +23,14 @@ epoch: optional BatchNorm
 recalibration (``train.bn_recal_batches``), a validation pass in eval mode
 over ``data.val_list`` (lights (3,), as the JAX CLI), and every
 ``train.ckpt_every_epochs`` a checkpoint under <log_dir>/ckpt ranked by the
-validation abs_depth_error (train.checkpoint). ``--resume`` restores the
-latest checkpoint. The run is on the card unless --device names another;
-the model starts from the Flax modules' initial state drawn from
-``train.seed``.
+validation abs_depth_error (train.checkpoint). The est | gt | error panel
+of sample 0 of the first validation batch, taken from that batch's
+forward, goes to <log_dir>/images/ (utils.vis; never fatal). ``--resume`` restores the latest checkpoint.
+The run is on the card unless --device names another; the model starts
+from the Flax modules' initial state drawn from ``train.seed``. With
+MVS_TPU_DEBUG_NANS=1 in the environment, autograd's anomaly detection is
+on for the run, and a non-finite loss at a summary, or a backward that
+yields NaN, raises FloatingPointError naming the step.
 
 Several cards (or CPU processes) train one global batch of
 ``data.batch_size`` samples per step, as mvs_tpu does on its mesh:
@@ -51,7 +55,11 @@ checkpoints, their index and the scalars; every rank restores.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
+
+import numpy as np
 
 import torch
 
@@ -64,6 +72,7 @@ from mvs_tpu_torch.nn.blocks import BatchStats
 from mvs_tpu_torch.parallel import (make_mesh, make_view_variance,
                                     maybe_initialize_distributed, replicate,
                                     shutdown, use_mesh)
+from mvs_tpu_torch.geometry.resize import resize_nearest
 from mvs_tpu_torch.parallel.mesh import mesh_shape_from_config
 from mvs_tpu_torch.train.checkpoint import CheckpointManager
 from mvs_tpu_torch.train.optim import OptaxChain
@@ -74,6 +83,7 @@ from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask, PointTask,
 from mvs_tpu_torch.utils.config import load_config
 from mvs_tpu_torch.utils.meters import DictAverageMeter, ScalarLogger
 from mvs_tpu_torch.utils.platform import full_f32
+from mvs_tpu_torch.utils.vis import depth_image_summary
 
 __all__ = ["main", "build_optimizer", "build_task", "read_scan_list",
            "recalibrate_bn"]
@@ -152,13 +162,60 @@ def main(argv=None) -> dict:
     started = not torch.distributed.is_initialized()
     proc = maybe_initialize_distributed(args.device)
     try:
-        return _train(cfg, args, proc)
+        with _numerics_guard() as debug_nans:
+            return _train(cfg, args, proc, debug_nans)
     finally:
         if started:
             shutdown()
 
 
-def _train(cfg, args, proc) -> dict:
+@contextlib.contextmanager
+def _numerics_guard():
+    """MVS_TPU_DEBUG_NANS=1: autograd's anomaly detection for the run (in
+    place of jax_debug_nans; the reference pins np.seterr(all='raise')).
+    Yields whether it is on."""
+    on = os.environ.get("MVS_TPU_DEBUG_NANS", "0") == "1"
+    if not on:
+        yield False
+        return
+    with torch.autograd.detect_anomaly(check_nan=True):
+        yield True
+
+
+def _summary_triplet(task, out: dict, batch: dict):
+    """(depth_est, depth_gt, mask) of sample 0 at the estimate's
+    resolution, as mvs_tpu's _summary_triplet picks them."""
+    depth = out["depth"]
+    if isinstance(task, MVSNetTask):
+        return depth[0], batch["depth_gt"][0], batch["mask"][0]
+    if isinstance(task, CascadeTask):
+        last = f"stage{len(task.stage_weights)}"
+        return depth[0], batch["depth_gt"][last][0], batch["mask"][last][0]
+    if isinstance(task, PyramidTask):
+        return (depth[0], batch["depth_gt_levels"][0][0],
+                batch["mask_levels"][0][0])
+    if isinstance(task, PointTask):
+        gt = resize_nearest(batch["depth_gt"], *depth.shape[1:])
+        return depth[0], gt[0], (gt[0] > 0).to(depth.dtype)
+    raise TypeError(type(task))
+
+
+def _log_val_images(task, out: dict, batch: dict, logger, step: int):
+    """The est | gt | error panel of sample 0 of a validation batch, from
+    the outputs of its eval-mode forward (rank 0's logger writes). Never
+    fatal."""
+    try:
+        est, gt, mask = (np.asarray(x.float().cpu(), np.float32)
+                         for x in _summary_triplet(task, out, batch))
+        if (mask > 0.5).sum() == 0:
+            return
+        logger.log_image(step, "val/depth",
+                         depth_image_summary(est, gt, mask))
+    except Exception as e:  # noqa: BLE001 - a summary must not end a run
+        print(f"val image summary skipped: {e}")
+
+
+def _train(cfg, args, proc, debug_nans: bool = False) -> dict:
     device, lead = proc.device, proc.rank == 0
     mesh = make_mesh(**mesh_shape_from_config(cfg.train, proc.world_size))
     d = cfg.data
@@ -213,10 +270,21 @@ def _train(cfg, args, proc) -> dict:
         meter = DictAverageMeter()
         t0 = time.perf_counter()
         for i, batch in enumerate(loader):
-            metrics = step_fn(batch_to_device(batch, device))
+            try:
+                metrics = step_fn(batch_to_device(batch, device))
+            except RuntimeError as e:
+                if debug_nans and "nan" in str(e).lower():
+                    raise FloatingPointError(
+                        f"NaN in the backward of step {optimizer.count + 1} "
+                        f"(MVS_TPU_DEBUG_NANS=1): {e}") from e
+                raise
             losses.append(metrics["loss"])
             if (i + 1) % cfg.train.summary_every_steps == 0:
                 host = {k: float(v) for k, v in metrics.items()}
+                if debug_nans and not np.isfinite(host["loss"]):
+                    raise FloatingPointError(
+                        f"non-finite loss {host['loss']} at step "
+                        f"{optimizer.count} (MVS_TPU_DEBUG_NANS=1)")
                 meter.update(host)
                 rate = (i + 1) * d.batch_size / (time.perf_counter() - t0)
                 logger.log(optimizer.count, host, prefix="train/")
@@ -235,11 +303,22 @@ def _train(cfg, args, proc) -> dict:
         val_metrics = None
         if val_ds is not None:
             vmeter = DictAverageMeter()
-            for batch in DataLoader(val_ds, d.batch_size, collate,
-                                    shuffle=False, num_threads=d.num_threads,
-                                    shard=shard):
-                vmeter.update({k: float(v) for k, v in eval_fn(
-                    batch_to_device(batch, device)).items()})
+            for bi, batch in enumerate(DataLoader(
+                    val_ds, d.batch_size, collate, shuffle=False,
+                    num_threads=d.num_threads, shard=shard)):
+                batch = batch_to_device(batch, device)
+                outs = []
+                hook = task.model.register_forward_hook(
+                    lambda m, a, out: outs.append(out)) if bi == 0 else None
+                try:
+                    metrics = eval_fn(batch)
+                finally:
+                    if hook is not None:
+                        hook.remove()
+                vmeter.update({k: float(v) for k, v in metrics.items()})
+                if outs:
+                    _log_val_images(task, outs[0], batch, logger,
+                                    optimizer.count)
             val_metrics = vmeter.mean()
             logger.log(optimizer.count, val_metrics, prefix="val/")
             say(f"epoch {epoch} val: {val_metrics}")

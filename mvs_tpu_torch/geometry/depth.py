@@ -1,7 +1,7 @@
 """Depth hypotheses (counterpart of mvs_tpu.geometry.depth, with the batch
-written out): the cascade's per-pixel windows, the pyramid's uniform coarse
-ladder and residual refinement hypotheses, and the test-time epipolar
-interval of CVP-MVSNet."""
+written out): the inverse-depth ladder, the cascade's per-pixel windows,
+the pyramid's uniform coarse ladder and residual refinement hypotheses,
+and the test-time epipolar interval of CVP-MVSNet."""
 
 from __future__ import annotations
 
@@ -10,8 +10,23 @@ import torch
 from mvs_tpu_torch.geometry.homography import pixel_grid
 from mvs_tpu_torch.geometry.projection import compose_projection
 
-__all__ = ["cascade_depth_samples", "uniform_depth_values",
+__all__ = ["inverse_depth_values", "cascade_depth_samples",
+           "uniform_depth_values",
            "residual_depth_hypotheses", "epipolar_depth_interval"]
+
+
+def inverse_depth_values(depth_min, depth_max, num_depth: int,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(..., D) ladders uniform in 1 / depth, nearest first: the reversed
+    reciprocals of D even steps from 1 / depth_max to 1 / depth_min.
+    depth_min and depth_max are numbers or tensors of one shape (...)."""
+    lo = 1.0 / torch.as_tensor(depth_max, dtype=dtype)
+    hi = 1.0 / torch.as_tensor(depth_min, dtype=dtype)
+    steps = torch.linspace(0.0, 1.0, num_depth, dtype=dtype,
+                           device=lo.device)
+    inv = lo[..., None] + (hi - lo)[..., None] * steps
+    inv[..., -1] = hi  # the last step is 1 / depth_min exactly
+    return (1.0 / inv).flip(-1)
 
 
 def cascade_depth_samples(cur_depth: torch.Tensor, ndepth: int,

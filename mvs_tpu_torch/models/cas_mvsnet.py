@@ -1,6 +1,9 @@
 """CasMVSNet: a 3-stage cascade of narrowing plane sweeps (counterpart of
-mvs_tpu.models.cas_mvsnet.CasMVSNet with FPN features, one cost regularizer
-per stage and grad_method 'detach').
+mvs_tpu.models.cas_mvsnet.CasMVSNet with grad_method 'detach'): FPN or
+U-Net features (arch_mode), one cost regularizer per stage or, with
+share_cr, a 1x1x1 projection per stage (cr_inproj_stageK, to 4 * base
+channels, a plain conv) into one shared U-Net (cost_reg_shared), and
+mvs_tpu's normalization (batch, group or none).
 
 Stage 1 sweeps the global range at 1/4 resolution; stages 2 and 3 sweep
 per-pixel windows (+-D/2 * ratio * base interval) centred on the bilinearly
@@ -22,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvs_tpu_torch.geometry.depth import cascade_depth_samples
-from mvs_tpu_torch.nn.blocks import init_random_
+from mvs_tpu_torch.nn.blocks import Conv, init_random_
 from mvs_tpu_torch.nn.cost_reg import UNetCostRegNet
 from mvs_tpu_torch.nn.feature_nets import CascadeFeatureNet
 from mvs_tpu_torch.ops.regression import regress_depth_and_confidence
@@ -38,6 +41,8 @@ class CasMVSNet(nn.Module):
     def __init__(self, base_channels: int = 8,
                  ndepths: Sequence[int] = (48, 32, 8),
                  depth_interval_ratios: Sequence[float] = (4.0, 2.0, 1.0),
+                 arch_mode: str = "fpn", share_cr: bool = False,
+                 normalization: str = "batch",
                  compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None,
                  trained: bool = True):
@@ -48,12 +53,23 @@ class CasMVSNet(nn.Module):
         self.ndepths = tuple(ndepths)
         self.depth_interval_ratios = tuple(depth_interval_ratios)
         self.compute_dtype = compute_dtype
+        self.share_cr = share_cr
         num_stages = len(self.ndepths)
-        self.CascadeFeatureNet_0 = CascadeFeatureNet(base_channels, num_stages)
+        dt = dict(normalization=normalization, dtype=compute_dtype)
+        self.CascadeFeatureNet_0 = CascadeFeatureNet(base_channels, num_stages,
+                                                     arch_mode, **dt)
         for i in range(num_stages):
             stage_channels = base_channels * 4 // 2 ** i
-            setattr(self, f"cost_reg_stage{i + 1}",
-                    UNetCostRegNet(stage_channels, base_channels))
+            if share_cr:
+                setattr(self, f"cr_inproj_stage{i + 1}",
+                        Conv(stage_channels, 4 * base_channels, (1, 1, 1),
+                             use_bias=False, dtype=compute_dtype))
+            else:
+                setattr(self, f"cost_reg_stage{i + 1}",
+                        UNetCostRegNet(stage_channels, base_channels, **dt))
+        if share_cr:
+            self.cost_reg_shared = UNetCostRegNet(4 * base_channels,
+                                                  base_channels, **dt)
         # Optional function that builds each stage's variance volume in
         # place of the fused kernel, same arguments
         # (parallel.collectives.make_view_variance: the source views split
@@ -97,7 +113,11 @@ class CasMVSNet(nn.Module):
             volume = (self.view_variance or fused_variance_volume)(
                 f[:, 0].contiguous(), f[:, 1:].contiguous(),
                 rel_projs.contiguous(), hyp)
-            score = getattr(self, f"cost_reg_{stage}")(volume)
+            if self.share_cr:
+                score = self.cost_reg_shared(
+                    getattr(self, f"cr_inproj_{stage}")(volume))
+            else:
+                score = getattr(self, f"cost_reg_{stage}")(volume)
             depth, conf, prob = regress_depth_and_confidence(score.float(),
                                                              hyp)
             outputs[stage] = {"depth": depth, "photometric_confidence": conf,

@@ -62,6 +62,7 @@ class CVPMVSNet(nn.Module):
                  num_groups: int = 4, attention: bool = False,
                  num_heads: int = 1, use_epipolar_interval: bool = False,
                  reg_base_channels: int = 16,
+                 normalization: str = "batch",
                  compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None,
                  trained: bool = True):
@@ -79,12 +80,13 @@ class CVPMVSNet(nn.Module):
         self.num_groups = num_groups
         self.use_epipolar_interval = use_epipolar_interval
         self.compute_dtype = compute_dtype
-        self.PyramidFeatureNet_0 = PyramidFeatureNet(feature_channels,
-                                                     attention, num_heads)
+        dt = dict(normalization=normalization, dtype=compute_dtype)
+        self.PyramidFeatureNet_0 = PyramidFeatureNet(
+            feature_channels, attention, num_heads, **dt)
         volume_channels = (num_groups if cost_mode == "group_correlation"
                            else feature_channels)
         self.PyramidCostRegNet_0 = PyramidCostRegNet(
-            volume_channels, reg_base_channels, dtype=compute_dtype)
+            volume_channels, reg_base_channels, **dt)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_random_(self, generator, trained)

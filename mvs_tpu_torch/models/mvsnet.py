@@ -41,12 +41,12 @@ class RefineNet(nn.Module):
     the JAX module does, so the residual is never negative.
     """
 
-    def __init__(self):
+    def __init__(self, normalization: str = "batch"):
         super().__init__()
-        self.ConvBlock_0 = ConvBlock(4, 32, (3, 3))
-        self.ConvBlock_1 = ConvBlock(32, 32, (3, 3))
-        self.ConvBlock_2 = ConvBlock(32, 32, (3, 3))
-        self.ConvBlock_3 = ConvBlock(32, 1, (3, 3))
+        for i, (cin, cout) in enumerate(((4, 32), (32, 32), (32, 32),
+                                         (32, 1))):
+            setattr(self, f"ConvBlock_{i}",
+                    ConvBlock(cin, cout, (3, 3), normalization=normalization))
 
     def forward(self, img: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
         h, w = depth.shape[1:]
@@ -61,6 +61,7 @@ class MVSNet(nn.Module):
     family = "single"
 
     def __init__(self, base_channels: int = 8, refine: bool = False,
+                 normalization: str = "batch",
                  compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None,
                  trained: bool = True):
@@ -69,9 +70,10 @@ class MVSNet(nn.Module):
         train from); load converted weights to replace them."""
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.MVSNetFeatureNet_0 = MVSNetFeatureNet(base_channels)
-        self.UNetCostRegNet_0 = UNetCostRegNet(4 * base_channels)
-        self.RefineNet_0 = RefineNet() if refine else None
+        dt = dict(normalization=normalization, dtype=compute_dtype)
+        self.MVSNetFeatureNet_0 = MVSNetFeatureNet(base_channels, **dt)
+        self.UNetCostRegNet_0 = UNetCostRegNet(4 * base_channels, **dt)
+        self.RefineNet_0 = RefineNet(normalization) if refine else None
         # Optional function that builds the variance volume in place of
         # the fused kernel, same arguments
         # (parallel.collectives.make_view_variance).

@@ -75,6 +75,7 @@ class PointMVSNet(nn.Module):
     def __init__(self, img_base_channels: int = 8,
                  flow_scales=(0.25, 0.5), inter_scales=(0.75, 0.375),
                  flow_sub_stride: int = 1, num_depth: int = 48,
+                 normalization: str = "batch",
                  generator: torch.Generator | None = None,
                  trained: bool = True):
         """Parameters are drawn from `generator` (seed 0 when None) by
@@ -87,15 +88,16 @@ class PointMVSNet(nn.Module):
         self.flow_sub_stride = flow_sub_stride
         self.num_depth = num_depth
         b = img_base_channels
-        self.coarse_img_conv = ImageConv(b)
-        self.coarse_vol_conv = VolumeConv(8 * b, _VOL_BASE)
-        self.flow_img_conv = ImageConv(b)
+        n = normalization
+        self.coarse_img_conv = ImageConv(b, n)
+        self.coarse_vol_conv = VolumeConv(8 * b, _VOL_BASE, n)
+        self.flow_img_conv = ImageConv(b, n)
         # conv1-conv3 variances and the xyz tiled x8.
         point_channels = (2 + 4 + 8) * b + 24
-        self.edge_conv0 = EdgeConv(point_channels, 32, concat_central=False)
-        self.edge_conv1 = EdgeConv(32, 32)
-        self.edge_conv2 = EdgeConv(64, 64)
-        self.flow_mlp = SharedMLP(32 + 64 + 128, _FLOW_CHANNELS[:-1])
+        self.edge_conv0 = EdgeConv(point_channels, 32, False, n)
+        self.edge_conv1 = EdgeConv(32, 32, normalization=n)
+        self.edge_conv2 = EdgeConv(64, 64, normalization=n)
+        self.flow_mlp = SharedMLP(32 + 64 + 128, _FLOW_CHANNELS[:-1], n)
         self.flow_head = Dense(_FLOW_CHANNELS[-2], _FLOW_CHANNELS[-1])
         if generator is None:
             generator = torch.Generator().manual_seed(0)

@@ -1,8 +1,9 @@
 """Model factory from config (counterpart of mvs_tpu.models.registry).
 
-The port has MVSNet, CasMVSNet (FPN features, one cost regularizer per
-stage), CVP-MVSNet, AACVP-MVSNet and Point-MVSNet, all with batch norm,
-for inference and training. Point-MVSNet is built as mvs_tpu builds it
+The port has MVSNet, CasMVSNet (FPN or U-Net features, one cost
+regularizer per stage or a shared one), CVP-MVSNet, AACVP-MVSNet and
+Point-MVSNet, each with model.normalization batch, group or none, for
+inference and training. Point-MVSNet is built as mvs_tpu builds it
 (image base channels from model.base_channels, its flow scales, interval
 factors and test-time sub-flow stride) with model.num_depth_coarse as its
 coarse ladder; mvs_tpu's Point-MVSNet has no compute dtype and runs in
@@ -18,6 +19,7 @@ from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
 from mvs_tpu_torch.models.cvp_mvsnet import CVPMVSNet
 from mvs_tpu_torch.models.mvsnet import MVSNet
 from mvs_tpu_torch.models.point_mvsnet import PointMVSNet
+from mvs_tpu_torch.nn.blocks import NORMALIZATIONS
 
 __all__ = ["build_model", "MODEL_NAMES"]
 
@@ -34,10 +36,9 @@ def build_model(cfg, generator: torch.Generator | None = None,
     m = cfg.model
     if m.name not in MODEL_NAMES:
         raise ValueError(f"unknown model {m.name!r}; options: {MODEL_NAMES}")
-    if m.normalization != "batch":
-        raise NotImplementedError(
-            f"the port has batch norm only; got normalization="
-            f"{m.normalization!r}")
+    if m.normalization not in NORMALIZATIONS:
+        raise ValueError(f"unknown normalization {m.normalization!r}; "
+                         f"options: {NORMALIZATIONS}")
     if m.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {m.compute_dtype!r}; options: "
                          f"{tuple(_DTYPES)}")
@@ -52,12 +53,13 @@ def build_model(cfg, generator: torch.Generator | None = None,
                            flow_scales=tuple(m.flow_scales),
                            inter_scales=tuple(m.inter_scales),
                            flow_sub_stride=m.flow_sub_stride,
-                           num_depth=m.num_depth_coarse, generator=generator,
+                           num_depth=m.num_depth_coarse,
+                           normalization=m.normalization, generator=generator,
                            trained=trained)
     if m.name == "mvsnet":
         return MVSNet(base_channels=m.base_channels, refine=m.refine,
-                      compute_dtype=dtype, generator=generator,
-                      trained=trained)
+                      normalization=m.normalization, compute_dtype=dtype,
+                      generator=generator, trained=trained)
     if m.name in ("cvp_mvsnet", "aacvp_mvsnet"):
         # As mvs_tpu's registry: AACVP is CVP with the attention feature
         # tail and the group-correlation cost.
@@ -69,12 +71,10 @@ def build_model(cfg, generator: torch.Generator | None = None,
             num_groups=m.num_groups, attention=aacvp or m.attention,
             num_heads=m.num_heads,
             use_epipolar_interval=m.use_epipolar_interval,
-            compute_dtype=dtype, generator=generator, trained=trained)
-    if (m.arch_mode, m.share_cr) != ("fpn", False):
-        raise NotImplementedError(
-            "the port's CasMVSNet has FPN features and one regularizer per "
-            f"stage; got arch_mode={m.arch_mode!r}, share_cr={m.share_cr}")
+            normalization=m.normalization, compute_dtype=dtype,
+            generator=generator, trained=trained)
     return CasMVSNet(base_channels=m.base_channels, ndepths=tuple(m.ndepths),
                      depth_interval_ratios=tuple(m.depth_interval_ratios),
-                     compute_dtype=dtype, generator=generator,
-                     trained=trained)
+                     arch_mode=m.arch_mode, share_cr=m.share_cr,
+                     normalization=m.normalization, compute_dtype=dtype,
+                     generator=generator, trained=trained)

@@ -13,6 +13,15 @@ differentiable torch conv, BatchNorm normalizes with the batch's moments in
 f32 and updates its running statistics, then ReLU, then a cast to the
 compute dtype.
 
+``normalization`` is mvs_tpu's: "batch" (the above), "none" (the bias-free
+conv and the ReLU; the stride-1 3x3x3 convs stay on the fused kernel with a
+unit affine) or "group" (flax.linen.GroupNorm, see GroupNorm: per sample,
+no running statistics, the same in both modes, after the conv and before
+the ReLU, so never in the conv's epilogue). A block's ``dtype``, when
+given, is the compute dtype its input is cast to, as the Flax blocks'
+``dtype`` casts; it matters where a group norm's f32 output enters a bf16
+block.
+
 Parameter and submodule names follow the Flax scopes (``Conv_0``,
 ``Norm_0``, ``kernel``, ``scale``, ``bias``, ``mean``, ``var``, ``count``)
 so that ``mvs_tpu_torch.convert`` maps a Flax tree onto a state_dict by
@@ -34,10 +43,16 @@ from torch import nn
 from mvs_tpu_torch.ops.conv3d import conv3d_affine
 from mvs_tpu_torch.parallel.collectives import global_moments
 
-__all__ = ["BatchStats", "Norm", "Conv", "ConvTranspose", "ConvBlock",
-           "ConvTransposeBlock", "FusedConvBlock3D", "Dense", "init_random_"]
+__all__ = ["BatchStats", "Norm", "GroupNorm", "make_norm", "Conv",
+           "ConvTranspose", "ConvBlock", "ConvTransposeBlock",
+           "FusedConvBlock3D", "FusedConvBlock3DNoNorm", "conv3_block",
+           "Dense", "init_random_", "NORMALIZATIONS"]
 
+NORMALIZATIONS = ("batch", "group", "none")
 _EPS = 1e-5
+# flax.linen.GroupNorm's epsilon and mvs_tpu's channels per group.
+_GN_EPS = 1e-6
+_GN_GROUP_SIZE = 8
 _MOMENTUM = 0.9
 # A state_dict written before the statistics had a count (the port's
 # inference-only .pt files) holds converged, debiased statistics: they load
@@ -146,25 +161,104 @@ class Norm(BatchStats):
         return self.normalize_batch(y).to(y.dtype)
 
 
+class _GroupNormAffine(nn.Module):
+    """The GroupNorm_0 scope: flax.linen.GroupNorm's scale and bias."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+
+class GroupNorm(nn.Module):
+    """mvs_tpu's Norm(normalization='group'): flax.linen.GroupNorm with
+    max(1, C // 8) groups, its parameters under ``GroupNorm_0``.
+
+    Per sample (axis 0), each group's mean and variance are taken over
+    every other axis and the group's channels: in a (B, D, H, W, C) volume
+    over D, H and W too. As flax computes them: in at least f32, the
+    variance E[x^2] - E[x]^2 clamped at 0, epsilon 1e-6, y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias. The output is the promotion of the
+    input's dtype with f32 (flax promotes with its f32 parameters), so a
+    bf16 block returns f32. No running statistics: train and eval mode are
+    the same, and no collective is needed under a data-parallel mesh.
+    """
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.groups = max(1, channels // _GN_GROUP_SIZE)
+        if channels % self.groups:
+            raise ValueError(f"{channels} channels do not split into "
+                             f"{self.groups} groups")
+        self.GroupNorm_0 = _GroupNormAffine(channels)
+
+    def moments(self, sums: torch.Tensor, sq_sums: torch.Tensor,
+                count: int):
+        """Each channel's group (mean, var), (B, C), from the per-sample
+        channel sums of x and x^2 over `count` elements a channel."""
+        b, c = sums.shape
+        n = count * (c // self.groups)
+        mean = sums.reshape(b, self.groups, -1).sum(-1) / n
+        mean_sq = sq_sums.reshape(b, self.groups, -1).sum(-1) / n
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        return (mean.repeat_interleave(c // self.groups, dim=1),
+                var.repeat_interleave(c // self.groups, dim=1))
+
+    def normalize(self, x: torch.Tensor, mean: torch.Tensor,
+                  var: torch.Tensor, channels: slice = slice(None)):
+        """x (B, ..., C') normalized by per-sample (mean, var) (B, C') of
+        the channels `channels` of this norm."""
+        shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (-1,)
+        p = self.GroupNorm_0
+        mul = torch.rsqrt(var + _GN_EPS) * p.scale[channels]
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + \
+            p.bias[channels]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = tuple(range(1, x.ndim - 1))
+        count = xf[0, ..., 0].numel()
+        mean, var = self.moments(xf.sum(dims), (xf * xf).sum(dims), count)
+        return self.normalize(xf, mean, var)
+
+
+def make_norm(normalization: str, channels: int) -> nn.Module | None:
+    """The Norm_N module of mvs_tpu's Norm(normalization): Norm (batch),
+    GroupNorm (group), or None (none: no parameters)."""
+    if normalization == "batch":
+        return Norm(channels)
+    if normalization == "group":
+        return GroupNorm(channels)
+    if normalization == "none":
+        return None
+    raise ValueError(f"unknown normalization {normalization!r}; options: "
+                     f"{NORMALIZATIONS}")
+
+
 class Conv(nn.Module):
     """SAME conv over (B, *S, C), S of rank 2 or 3, stride 1 or 2, odd kernel.
 
     forward(x, scale, shift, relu) applies relu?(scale * (conv + bias) +
-    shift) in f32 and returns x's dtype. In eval mode every 3x3x3 stride-1
-    conv runs on the fused conv3d kernel (ops.conv3d), which has no
-    gradient; in train mode, and for every other shape, torch's conv runs.
+    shift) in f32 and returns x's dtype (``dtype`` when given: x is cast to
+    it first). In eval mode every 3x3x3 stride-1 conv runs on the fused
+    conv3d kernel (ops.conv3d), which has no gradient; in train mode, and
+    for every other shape, torch's conv runs.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
-                 stride: int = 1, use_bias: bool = True):
+                 stride: int = 1, use_bias: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.stride = stride
+        self.dtype = dtype
         self.kernel = nn.Parameter(
             torch.zeros(out_channels, in_channels, *kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias \
             else None
 
     def forward(self, x, scale=None, shift=None, relu: bool = False):
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         if self.bias is not None:
             if scale is None:
                 scale = torch.ones_like(self.bias)
@@ -189,10 +283,11 @@ class Conv(nn.Module):
 
 
 class ConvTranspose(nn.Module):
-    """3D kernel-3 SAME transposed conv, flax geometry: stride 2 (out =
-    2 * in) or stride 1.
+    """Kernel-3 SAME transposed conv, flax geometry: 3D at stride 2 (out =
+    2 * in) or stride 1, or 2D at stride 2 (CascadeFeatureNet's unet
+    mode, flax's nn.ConvTranspose there).
 
-    ``kernel`` (I, O, 3, 3, 3) is the flax kernel flipped in space (the
+    ``kernel`` (I, O, 3, 3[, 3]) is the flax kernel flipped in space (the
     converter flips every ``ConvTranspose_*`` kernel), so that torch's
     conv_transpose cropped to 2x the input reproduces flax's unflipped
     kernel over the 2x-dilated input padded (2, 1). At stride 1 flax's
@@ -201,15 +296,25 @@ class ConvTranspose(nn.Module):
     eval mode it runs on the fused conv3d kernel with the flip undone.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int = 2):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 2,
+                 rank: int = 3, dtype: torch.dtype | None = None):
         super().__init__()
-        if stride not in (1, 2):
-            raise ValueError(f"stride must be 1 or 2, got {stride}")
+        if stride not in (1, 2) or (rank == 2 and stride != 2):
+            raise ValueError(f"stride must be 1 or 2 (2 in 2D), got {stride}")
         self.stride = stride
+        self.dtype = dtype
         self.kernel = nn.Parameter(
-            torch.zeros(in_channels, out_channels, 3, 3, 3))
+            torch.zeros(in_channels, out_channels, *(3,) * rank))
 
     def forward(self, x, scale=None, shift=None, relu: bool = False):
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        if self.kernel.ndim == 4:
+            y = F.conv_transpose2d(x.movedim(-1, 1), self.kernel.to(x.dtype),
+                                   stride=2)
+            _, h, w, _ = x.shape
+            return _epilogue(y[:, :, :2 * h, :2 * w], scale, shift, relu,
+                             x.dtype)
         if self.stride == 1:
             if not self.training:
                 w = self.kernel.flip(2, 3, 4).transpose(0, 1)
@@ -227,40 +332,60 @@ class ConvTranspose(nn.Module):
                          x.dtype)
 
 
+def _norm_relu_block(block, conv, x):
+    """conv + the block's normalization + ReLU (ConvBlock and
+    ConvTransposeBlock): batch folded into the conv's epilogue in eval
+    mode, group after the conv, none the conv and its ReLU alone."""
+    if block.dtype is not None:
+        x = x.to(block.dtype)
+    if block.normalization == "none":
+        return conv(x, relu=True)
+    if block.normalization == "group" or block.training:
+        return torch.relu(block.Norm_0(conv(x)))
+    scale, shift = block.Norm_0.affine()
+    return conv(x, scale, shift, relu=True)
+
+
 class ConvBlock(nn.Module):
-    """Conv (2D or 3D by kernel rank) + BatchNorm + ReLU."""
+    """Conv (2D or 3D by kernel rank) + normalization + ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
-                 stride: int = 1):
+                 stride: int = 1, normalization: str = "batch",
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.Norm_0 = Norm(out_channels)
+        self.normalization = normalization
+        self.dtype = dtype
+        norm = make_norm(normalization, out_channels)
+        if norm is not None:
+            self.Norm_0 = norm
         self.Conv_0 = Conv(in_channels, out_channels, kernel_size, stride,
                            use_bias=False)
 
     def forward(self, x):
-        if self.training:
-            return torch.relu(self.Norm_0(self.Conv_0(x)))
-        scale, shift = self.Norm_0.affine()
-        return self.Conv_0(x, scale, shift, relu=True)
+        return _norm_relu_block(self, self.Conv_0, x)
 
 
 class ConvTransposeBlock(nn.Module):
-    """3D kernel-3 transposed conv + BatchNorm + ReLU: a 2x upsample at
+    """3D kernel-3 transposed conv + normalization + ReLU: a 2x upsample at
     stride 2, or at stride 1 (PyramidCostRegNet's channel-halving block) a
     3x3x3 SAME conv, which in eval mode runs on the fused conv3d kernel with
-    the BatchNorm affine and the ReLU in its epilogue (ConvTranspose).
+    the BatchNorm affine (a unit one under "none") and the ReLU in its
+    epilogue (ConvTranspose).
     """
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int = 2):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 2,
+                 normalization: str = "batch",
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.Norm_0 = Norm(out_channels)
+        self.normalization = normalization
+        self.dtype = dtype
+        norm = make_norm(normalization, out_channels)
+        if norm is not None:
+            self.Norm_0 = norm
         self.ConvTranspose_0 = ConvTranspose(in_channels, out_channels, stride)
 
     def forward(self, x):
-        if self.training:
-            return torch.relu(self.Norm_0(self.ConvTranspose_0(x)))
-        scale, shift = self.Norm_0.affine()
-        return self.ConvTranspose_0(x, scale, shift, relu=True)
+        return _norm_relu_block(self, self.ConvTranspose_0, x)
 
 
 class _ConvToF32(torch.autograd.Function):
@@ -311,13 +436,59 @@ class FusedConvBlock3D(BatchStats):
             scale, shift = self.affine()
             return conv3d_affine(x.contiguous(), self.kernel, scale, shift,
                                  self.relu)
-        x5, w = x.movedim(-1, 1), self.kernel.to(x.dtype)
-        y = F.conv3d(x5, w, padding=1) if x.dtype == torch.float32 \
-            else _ConvToF32.apply(x5, w)
-        y = self.normalize_batch(y.movedim(1, -1))
+        y = self.normalize_batch(_conv3d_to_f32(x, self.kernel))
         if self.relu:
             y = torch.relu(y)
         return y.to(x.dtype)
+
+
+def _conv3d_to_f32(x, kernel):
+    """Train-mode 3x3x3 SAME conv of channels-last `x` with an f32 result
+    (_ConvToF32 for a low-precision input), channels-last."""
+    x5, w = x.movedim(-1, 1), kernel.to(x.dtype)
+    y = F.conv3d(x5, w, padding=1) if x.dtype == torch.float32 \
+        else _ConvToF32.apply(x5, w)
+    return y.movedim(1, -1)
+
+
+class FusedConvBlock3DNoNorm(nn.Module):
+    """mvs_tpu's FusedConvBlock3D with normalization='none': the 3x3x3
+    stride-1 conv (``kernel`` only) and its ReLU. Eval mode: one launch of
+    the fused conv3d kernel with a unit affine. Train mode: torch's conv to
+    f32, ReLU, a cast to the input dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 relu: bool = True):
+        super().__init__()
+        self.relu = relu
+        self.kernel = nn.Parameter(
+            torch.zeros(out_channels, in_channels, 3, 3, 3))
+
+    def forward(self, x):
+        if not self.training:
+            ones = torch.ones(self.kernel.shape[0], device=x.device)
+            return conv3d_affine(x.contiguous(), self.kernel, ones,
+                                 torch.zeros_like(ones), self.relu)
+        y = _conv3d_to_f32(x, self.kernel)
+        if self.relu:
+            y = torch.relu(y)
+        return y.to(x.dtype)
+
+
+def conv3_block(in_channels: int, out_channels: int, normalization: str,
+                dtype: torch.dtype | None = None) -> tuple[str, nn.Module]:
+    """mvs_tpu.nn.cost_reg._conv3: a U-Net's stride-1 3x3x3 block and the
+    Flax class name that names its scope. batch and none ride the fused
+    conv3d kernel (FusedConvBlock3D, following its input's dtype); group
+    is a 3D ConvBlock (conv, GroupNorm, ReLU) casting its input to
+    `dtype`."""
+    if normalization == "batch":
+        return "FusedConvBlock3D", FusedConvBlock3D(in_channels, out_channels)
+    if normalization == "none":
+        return "FusedConvBlock3D", FusedConvBlock3DNoNorm(in_channels,
+                                                          out_channels)
+    return "ConvBlock", ConvBlock(in_channels, out_channels, (3, 3, 3),
+                                  normalization=normalization, dtype=dtype)
 
 
 class Dense(nn.Module):
@@ -366,7 +537,8 @@ def init_random_(module: nn.Module, generator: torch.Generator,
         t.copy_(torch.rand(t.shape, generator=generator) * (hi - lo) + lo)
 
     for m in module.modules():
-        if isinstance(m, (Conv, FusedConvBlock3D, Dense)):
+        if isinstance(m, (Conv, FusedConvBlock3D, FusedConvBlock3DNoNorm,
+                          Dense)):
             lecun(m.kernel, m.kernel[0].numel())
         elif isinstance(m, ConvTranspose):
             lecun(m.kernel, m.kernel.shape[0] * m.kernel[0, 0].numel())
@@ -376,6 +548,9 @@ def init_random_(module: nn.Module, generator: torch.Generator,
             if isinstance(getattr(m, name, None), nn.Parameter):
                 normal(getattr(m, name), 1.0)
         if not trained:
+            if isinstance(m, _GroupNormAffine):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
             if isinstance(m, Conv) and m.bias is not None:
                 m.bias.zero_()
             if isinstance(m, BatchStats):
@@ -386,6 +561,9 @@ def init_random_(module: nn.Module, generator: torch.Generator,
                 m.count.zero_()
             continue
         if isinstance(m, Conv) and m.bias is not None:
+            normal(m.bias, 0.1)
+        if isinstance(m, _GroupNormAffine):
+            uniform(m.scale, 0.5, 1.5)
             normal(m.bias, 0.1)
         if isinstance(m, BatchStats):
             uniform(m.scale, 0.5, 1.5)

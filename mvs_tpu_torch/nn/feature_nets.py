@@ -3,12 +3,17 @@ and train mode, channels-last. Submodules carry the Flax auto-names.
 
 * MVSNetFeatureNet: (B, H, W, 3) -> (B, H/4, W/4, 4b), seven ConvBlocks and
   a plain 3x3 conv with bias (no norm, no ReLU);
-* CascadeFeatureNet, FPN mode (arch_mode='fpn'): (B, H, W, 3) ->
-  {'stage1': (B, H/4, W/4, 4b), 'stage2': (B, H/2, W/2, 2b),
-  'stage3': (B, H, W, b)};
+* CascadeFeatureNet: (B, H, W, 3) -> {'stage1': (B, H/4, W/4, 4b),
+  'stage2': (B, H/2, W/2, 2b), 'stage3': (B, H, W, b)}, the finer stages
+  by FPN (arch_mode='fpn': lateral 1x1 convs and nearest upsampling) or
+  by U-Net (arch_mode='unet': a stride-2 transposed conv, the skip
+  concatenated, a ConvBlock and a 1x1 conv);
 * PyramidFeatureNet: CVP-MVSNet's stride-1 extractor, shared by every level
   of the image pyramid, with AACVP-MVSNet's local self-attention
   (AttentionConv) as its last layer when asked.
+
+Every ConvBlock takes mvs_tpu's ``normalization``; ``dtype`` is the compute
+dtype that the Flax nets' convs cast their input to (see nn.blocks).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mvs_tpu_torch.nn.blocks import Conv, ConvBlock
+from mvs_tpu_torch.nn.blocks import Conv, ConvBlock, ConvTranspose
 
 __all__ = ["MVSNetFeatureNet", "CascadeFeatureNet", "AttentionConv",
            "PyramidFeatureNet"]
@@ -36,16 +41,19 @@ class _Trunk(nn.Module):
     stride-2 block and two 3x3 blocks at 1/2 (2b), a 5x5 stride-2 block and
     a 3x3 block at 1/4 (4b)."""
 
-    def __init__(self, base_channels: int):
+    def __init__(self, base_channels: int, normalization: str = "batch",
+                 dtype: torch.dtype | None = None):
         super().__init__()
         b = base_channels
-        self.ConvBlock_0 = ConvBlock(3, b, (3, 3))
-        self.ConvBlock_1 = ConvBlock(b, b, (3, 3))
-        self.ConvBlock_2 = ConvBlock(b, 2 * b, (5, 5), stride=2)
-        self.ConvBlock_3 = ConvBlock(2 * b, 2 * b, (3, 3))
-        self.ConvBlock_4 = ConvBlock(2 * b, 2 * b, (3, 3))
-        self.ConvBlock_5 = ConvBlock(2 * b, 4 * b, (5, 5), stride=2)
-        self.ConvBlock_6 = ConvBlock(4 * b, 4 * b, (3, 3))
+        self.kw = dict(normalization=normalization, dtype=dtype)
+        self.ConvBlock_0 = ConvBlock(3, b, (3, 3), **self.kw)
+        self.ConvBlock_1 = ConvBlock(b, b, (3, 3), **self.kw)
+        self.ConvBlock_2 = ConvBlock(b, 2 * b, (5, 5), stride=2, **self.kw)
+        self.ConvBlock_3 = ConvBlock(2 * b, 2 * b, (3, 3), **self.kw)
+        self.ConvBlock_4 = ConvBlock(2 * b, 2 * b, (3, 3), **self.kw)
+        self.ConvBlock_5 = ConvBlock(2 * b, 4 * b, (5, 5), stride=2,
+                                     **self.kw)
+        self.ConvBlock_6 = ConvBlock(4 * b, 4 * b, (3, 3), **self.kw)
 
     def trunk(self, x):
         """(full-resolution output of ConvBlock_1, half-resolution output of
@@ -59,34 +67,59 @@ class MVSNetFeatureNet(_Trunk):
     """(B, H, W, 3) -> (B, H/4, W/4, 4b): the trunk, then a plain 3x3 conv
     with bias, no norm and no ReLU (FoldedConv_0)."""
 
-    def __init__(self, base_channels: int = 8):
-        super().__init__(base_channels)
+    def __init__(self, base_channels: int = 8, normalization: str = "batch",
+                 dtype: torch.dtype | None = None):
+        super().__init__(base_channels, normalization, dtype)
         b = base_channels
-        self.FoldedConv_0 = Conv(4 * b, 4 * b, (3, 3))
+        self.FoldedConv_0 = Conv(4 * b, 4 * b, (3, 3), dtype=dtype)
 
     def forward(self, x):
         return self.FoldedConv_0(self.trunk(x)[2])
 
 
 class CascadeFeatureNet(_Trunk):
-    def __init__(self, base_channels: int = 8, num_stages: int = 3):
-        super().__init__(base_channels)
+    def __init__(self, base_channels: int = 8, num_stages: int = 3,
+                 arch_mode: str = "fpn", normalization: str = "batch",
+                 dtype: torch.dtype | None = None):
+        super().__init__(base_channels, normalization, dtype)
+        if arch_mode not in ("fpn", "unet"):
+            raise ValueError(f"arch_mode must be fpn|unet, got {arch_mode}")
         b = base_channels
         self.num_stages = num_stages
-        self.ConvBlock_7 = ConvBlock(4 * b, 4 * b, (3, 3))
-        self.FoldedConv_0 = Conv(4 * b, 4 * b, (1, 1), use_bias=False)
-        if num_stages >= 2:
-            self.FoldedConv_1 = Conv(2 * b, 4 * b, (1, 1))
-            self.FoldedConv_2 = Conv(4 * b, 2 * b, (3, 3), use_bias=False)
-        if num_stages == 3:
-            self.FoldedConv_3 = Conv(b, 4 * b, (1, 1))
-            self.FoldedConv_4 = Conv(4 * b, b, (3, 3), use_bias=False)
+        self.arch_mode = arch_mode
+        self.ConvBlock_7 = ConvBlock(4 * b, 4 * b, (3, 3), **self.kw)
+        self.FoldedConv_0 = Conv(4 * b, 4 * b, (1, 1), use_bias=False,
+                                 dtype=dtype)
+        widths = ((4 * b, 2 * b, 2 * b), (2 * b, b, b))[:num_stages - 1]
+        for i, (cin, cout, skip) in enumerate(widths):
+            if arch_mode == "unet":
+                # Flax names: ConvTranspose_i, ConvBlock_{8+i}, Conv_i.
+                setattr(self, f"ConvTranspose_{i}",
+                        ConvTranspose(cin, cout, rank=2, dtype=dtype))
+                setattr(self, f"ConvBlock_{8 + i}",
+                        ConvBlock(cout + skip, cout, (3, 3), **self.kw))
+                setattr(self, f"Conv_{i}", Conv(cout, cout, (1, 1),
+                                                use_bias=False, dtype=dtype))
+            else:
+                setattr(self, f"FoldedConv_{2 * i + 1}",
+                        Conv(skip, 4 * b, (1, 1), dtype=dtype))
+                setattr(self, f"FoldedConv_{2 * i + 2}",
+                        Conv(4 * b, cout, (3, 3), use_bias=False,
+                             dtype=dtype))
 
     def forward(self, x):
         conv0, conv1, conv2 = self.trunk(x)
         conv2 = self.ConvBlock_7(conv2)
         outputs = {"stage1": self.FoldedConv_0(conv2)}
         if self.num_stages == 1:
+            return outputs
+        if self.arch_mode == "unet":
+            intra = conv2
+            for i, skip in enumerate((conv1, conv0)[:self.num_stages - 1]):
+                up = getattr(self, f"ConvTranspose_{i}")(intra)
+                intra = getattr(self, f"ConvBlock_{8 + i}")(
+                    torch.cat([up, skip], dim=-1))
+                outputs[f"stage{i + 2}"] = getattr(self, f"Conv_{i}")(intra)
             return outputs
         intra = _upsample2x_nearest(conv2) + self.FoldedConv_1(conv1)
         outputs["stage2"] = self.FoldedConv_2(intra)
@@ -178,17 +211,19 @@ class PyramidFeatureNet(nn.Module):
     the image pyramid."""
 
     def __init__(self, out_channels: int = 16, attention: bool = False,
-                 num_heads: int = 1):
+                 num_heads: int = 1, normalization: str = "batch",
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        kw = dict(normalization=normalization, dtype=dtype)
         widths = (3, 64, 64, 64, 32, 32, 32, 16, 16)
         for i, (cin, cout) in enumerate(zip(widths, widths[1:])):
-            setattr(self, f"ConvBlock_{i}", ConvBlock(cin, cout, (3, 3)))
+            setattr(self, f"ConvBlock_{i}", ConvBlock(cin, cout, (3, 3), **kw))
         self.attention = attention
         if attention:
             self.AttentionConv_0 = AttentionConv(16, out_channels, 3,
                                                  num_heads)
         else:
-            self.ConvBlock_8 = ConvBlock(16, out_channels, (3, 3))
+            self.ConvBlock_8 = ConvBlock(16, out_channels, (3, 3), **kw)
 
     def forward(self, x):
         for i in range(8):

@@ -5,7 +5,8 @@ DictAverageMeter averages dicts of scalars over updates; ScalarLogger
 appends one JSON line per log call to <log_dir>/scalars.jsonl and, when
 torch.utils.tensorboard imports, writes the same scalars to TensorBoard.
 In a multi-process run only rank 0's logger writes (``enabled``).
-Image summaries wait for utils/vis.py (ROADMAP.md queue 1, item 13).
+log_image writes an (H, W, 3) uint8 image as <log_dir>/images/
+<tag>_<step>.png through io.png, and to TensorBoard when it is there.
 """
 
 from __future__ import annotations
@@ -13,6 +14,10 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
+
+import numpy as np
+
+from mvs_tpu_torch.io.png import write_png
 
 __all__ = ["DictAverageMeter", "ScalarLogger"]
 
@@ -60,6 +65,18 @@ class ScalarLogger:
                 self._tb.add_scalar(key, float(v), step)
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
+
+    def log_image(self, step: int, tag: str, image, save_png: bool = True):
+        """An (H, W, 3) uint8 image: TensorBoard when available, and a PNG
+        under <log_dir>/images/ ('/' in the tag becomes '_')."""
+        if not self.enabled:
+            return
+        image = np.asarray(image)
+        if self._tb is not None:
+            self._tb.add_image(tag, image, step, dataformats="HWC")
+        if save_png:
+            safe = tag.replace("/", "_")
+            write_png(self.dir / "images" / f"{safe}_{step:08d}.png", image)
 
     def close(self):
         if not self.enabled:

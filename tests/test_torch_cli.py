@@ -237,8 +237,13 @@ def test_registry_builds_cas_mvsnet_and_names_what_is_not_ported():
     with pytest.raises(ValueError, match="float32 only"):
         build_model(load_config(None, ["model.name=point_mvsnet",
                                        "model.compute_dtype=bfloat16"]))
-    with pytest.raises(NotImplementedError, match="share_cr"):
-        build_model(load_config(None, ["model.share_cr=true"]))
+    # The variants build as mvs_tpu's registry builds them.
+    model = build_model(load_config(None, ["model.share_cr=true",
+                                           "model.arch_mode=unet",
+                                           "model.normalization=none"]))
+    assert isinstance(model, CasMVSNet) and model.share_cr
+    with pytest.raises(ValueError, match="normalization"):
+        build_model(load_config(None, ["model.normalization=layer"]))
     with pytest.raises(ValueError, match="unknown model"):
         build_model(load_config(None, ["model.name=nope"]))
 
@@ -246,10 +251,11 @@ def test_registry_builds_cas_mvsnet_and_names_what_is_not_ported():
 def test_dispatcher(run, capsys):
     with pytest.raises(SystemExit) as exc:
         cli_main(["--help"])
-    assert exc.value.code == 0 and "train|infer|fuse|evaluate" in \
+    assert exc.value.code == 0 and "train|infer|fuse|evaluate|profile" in \
         capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cli_main(["profile"])
+    with pytest.raises(SystemExit) as exc:
+        cli_main(["profile", "--help"])
+    assert exc.value.code == 0 and "--train" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="unknown command"):
         cli_main(["serve"])
     cli_main(["evaluate", "--out", str(run["out"]), "--gt", str(run["root"])])
