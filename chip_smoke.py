@@ -256,6 +256,26 @@ Phases, in order; any failure exits non-zero:
      (c) `cli profile` and `cli profile --train` on the card: the trace is
          written and its table names the warp-variance and conv3d kernels
          (the warp's backward in the train step);
+ 15. the cost volumes split over depth slabs and row tiles
+     (mvs_tpu_torch.parallel.sharding, .halo):
+     (a) at CasMVSNet's 640x512 batch-4 train stages (bf16), the warp
+         forward and backward on one rank's row window and depth slab
+         against the whole volume's rows (bit for bit) and the plain
+         version on the slab; the fused conv3d on a halo-extended slab,
+         cropped, against the whole volume's rows; each timed beside the
+         whole volume's launch;
+     (b) 13b's configurations over depth=2, space=2 and depth=2 x space=2
+         ranks sharing the card over gloo (with as many cards, also NCCL),
+         held to 13b's one process by 13b's limits (the bf16 MVSNet runs
+         too: their ranks sum the features' cotangent before the feature
+         net's backward); every rank's warp launches a step equal to one
+         process's;
+         per-rank peak memory and ms per step;
+     (c) `cli train` (configs/cas_train_dtu.yaml) over depth=2 x space=2
+         ranks, 2 steps with validation (the conv3d kernel on halo-extended
+         slabs), each rank's launches exact, rank 0 naming each volume's
+         layout; (d) `cli profile --train` over 8 ranks (parallel.dryrun's
+         step), a trace a rank;
 then one JSON line listing the kernels (the 3xTF32 conv,
 conv3d_affine.tf32x3, as an entry of its own: times over 8a's 10 AACVP f32
 launches, launches per AACVP bf16 map, 8c; elsewhere launches: per map,
@@ -293,7 +313,11 @@ MVSNet view=2 run; on the warp and conv3d tnt_launches per T&T batch of
 2 and tnt_cli_launches through 14a's `infer`, share_cr_unet_none_launches
 per map of 14b's 1152x864 run, group_cli_train_launches through its
 group-norm `train` run (also on the backward), none_bf16_launches of the
-conv per bf16 map of CasMVSNet under none), a line with the script's
+conv per bf16 map of CasMVSNet under none; on the warp and conv3d
+{cas,mvsnet,mvsnet_f32}_<mesh>_train_launches per train step of rank 0 of
+each 15b mesh, volume_cli_launches a rank of 15c's run, and the sums of
+15a's launches: row_window_* on the warp, halo_slab_* on the conv, each
+with the whole volume's time and the bound), a line with the script's
 seconds, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -354,7 +378,8 @@ from mvs_tpu_torch.ops.warp_variance import (
 from mvs_tpu_torch.parallel import (launch_local, make_mesh,
                                     make_view_variance,
                                     maybe_initialize_distributed, shard_batch,
-                                    shutdown)
+                                    shutdown, volume_sharded_plan)
+from mvs_tpu_torch.parallel.sharding import slab_bounds
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.train.state import make_train_step
 from mvs_tpu_torch.ops.point_ops import lattice_knn, point_sweep_projections
@@ -4114,7 +4139,10 @@ PARALLEL_LR = 1e-2  # SGD: the update is -lr x the gradient
 # nudged images), the view ranks 2.2% (1.02166). So that run is held
 # to the control within PARALLEL_CONTROL_RTOL, and to one f32 process
 # within 2% or 3x the farthest of one bf16 process from it, read in the
-# same run (check_view_bf16).
+# same run (check_view_bf16). The ranks of a split volume (15b) sum the
+# features' cotangent over the volume's ranks before the feature net's
+# backward (parallel.collectives.shared) and are held to one bf16
+# process like every other run.
 PARALLEL_LOSS_RTOL, PARALLEL_NORM_RTOL = 1e-3, 0.02
 PARALLEL_CONTROL_RTOL = 1e-3
 PARALLEL_STEPS = 2
@@ -4371,14 +4399,15 @@ def view_split_control(spec, device) -> dict:
     model = model.to(device)
     gates = {"open": 0}
 
-    def split_variance(ref_feat, src_feats, rel_projs, depth_values):
+    def split_variance(ref_feat, src_feats, rel_projs, depth_values,
+                       row0=0):
         per = src_feats.shape[1] // 2
         sums = [fused_variance_partials(
             _Gate.apply(ref_feat, 0, gates),
             _Gate.apply(src_feats[:, g * per:(g + 1) * per].contiguous(), g,
                         gates),
             rel_projs[:, g * per:(g + 1) * per].contiguous(), depth_values,
-            with_ref=g == 0) for g in (0, 1)]
+            with_ref=g == 0, row0=row0) for g in (0, 1)]
         return variance_from_partials(
             sums[0][0] + sums[1][0], sums[0][1] + sums[1][1],
             2 * per + 1).to(ref_feat.dtype)
@@ -4431,6 +4460,8 @@ def parallel_run(spec, device, mesh) -> dict:
     model = model.to(device)
     if mesh.size("view") > 1:
         model.view_variance = make_view_variance(mesh)
+    if mesh.size("depth") * mesh.size("space") > 1:
+        model.volume_constraint = volume_sharded_plan(mesh).constrain_volume
     task, _ = cli_train.build_task(spec["cfg"], model)
     opt = OptaxChain(model.parameters(), "sgd", lambda count: PARALLEL_LR)
     step = make_train_step(task, opt, mesh=mesh)
@@ -4482,40 +4513,46 @@ def rank_worker(spec_path) -> int:
 
 def phase_parallel_steps(device, work: Path,
                          names=("cas_mvsnet", "mvsnet", "mvsnet_f32"),
-                         world=2, meshes=None, shared=True) -> dict:
+                         world=2, meshes=None, shared=True, reference=None,
+                         label="13b") -> dict:
     """13b: each configuration's steps as `world` ranks against one process
     on the same global batch and weights: sharing the card over gloo (the
     backend rule for a named card) unless not `shared`, and where the host
     has `world` cards, a card a rank over NCCL. `meshes` ({name: mesh})
-    replaces a configuration's mesh. The bf16 MVSNet view=2 run is also
-    held against view_split_control and mvsnet_f32's one process."""
+    replaces a configuration's mesh; `reference`, an earlier call's result,
+    gives the one-process runs. The bf16 MVSNet view=2 run is also held
+    against view_split_control and mvsnet_f32's one process."""
     specs = [parallel_spec(n) for n in names]
     for spec in specs:
         spec["mesh"] = (meshes or {}).get(spec["name"], spec["mesh"])
-    log(f"phase 13b: {world} ranks vs one process, {TRAIN_W}x{TRAIN_H}, "
+    log(f"phase {label}: {world} ranks vs one process, {TRAIN_W}x{TRAIN_H}, "
         f"global batch {TRAIN_BATCH}, SGD {PARALLEL_LR}: "
         + ", ".join(f"{s['name']} {s['mesh']}" for s in specs)
         + f" (CasMVSNet {VIEWS} views, bf16; MVSNet {MVS_TRAIN_VIEWS} views, "
         f"D={LADDER}, bf16 and f32)")
     single, nudged, control = {}, {}, {}
-    for spec in specs:
+    if reference is not None:
+        single, nudged = reference["single"], reference["nudged"]
+    for spec in (specs if reference is None else ()):
         single[spec["name"]] = parallel_run(spec, device, make_mesh())
         imgs = spec["batch"]["imgs"]
         sign = np.random.default_rng(1).choice([-1.0, 1.0], size=imgs.shape)
         moved = dict(spec, batch=dict(spec["batch"], imgs=(
             imgs * (1 + sign * 2.0 ** -24)).astype(np.float32)))
         nudged[spec["name"]] = parallel_run(moved, device, make_mesh())
-        if spec["name"] == "mvsnet" and spec["mesh"].get("view", 1) == 2:
+        if split_bf16(spec):
             control[spec["name"]] = view_split_control(spec, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    phase = label
     layouts = [(str(device), f"gloo, {world} ranks sharing one card")] \
         if shared else []
     if device.type == "cuda" and torch.cuda.device_count() >= world:
         layouts.append((None, "nccl, a card a rank"))
     results = {}
     for named, label in layouts:
-        path = work / f"parallel_{world}_{named or 'nccl'}.pt"
+        path = work / f"parallel_{world}_{named or 'nccl'}_" \
+            f"{'_'.join(f'{k}{v}' for k, v in specs[0]['mesh'].items())}.pt"
         torch.save(dict(device=named, runs=specs), path)
         t0 = time.perf_counter()
         env = dict(os.environ, OMP_NUM_THREADS=str(
@@ -4526,11 +4563,13 @@ def phase_parallel_steps(device, work: Path,
         seconds = time.perf_counter() - t0
         for r, (rc, out) in enumerate(ranks):
             if rc != 0:
-                fail(f"13b rank {r} ({label}) exited {rc}:\n{out[-3000:]}")
+                fail(f"{phase} rank {r} ({label}) exited {rc}:\n"
+                     f"{out[-3000:]}")
             backend = "gloo" if named else "nccl"
             if not out.startswith(f"rank {r}/{world}: torch.distributed "
                                   f"backend {backend}"):
-                fail(f"13b rank {r}: first line {out.splitlines()[0]!r}")
+                fail(f"{phase} rank {r}: first line "
+                     f"{out.splitlines()[0]!r}")
         got = [torch.load(f"{path}.rank{r}.pt", weights_only=False)
                for r in range(world)]
         log(f"  {label}: all {world} ranks done in {seconds:.1f} s (start-up "
@@ -4544,8 +4583,8 @@ def phase_parallel_steps(device, work: Path,
                                 nudged[name], control[name],
                                 single["mvsnet_f32"], nudged["mvsnet_f32"])
         results[label] = got
-    return dict(single=single, ranks=results[layouts[0][1]],
-                seconds=seconds)
+    return dict(single=single, nudged=nudged, ranks=results[layouts[0][1]],
+                layouts=results, seconds=seconds)
 
 
 def check_ranks(spec, ranks, want, nudged, label) -> None:
@@ -4570,7 +4609,7 @@ def check_ranks(spec, ranks, want, nudged, label) -> None:
                 for b in ranks[1:] for k in a["stats"]
                 if k.endswith(("mean", "var")))
     multi = label.startswith("nccl")
-    split_bf16 = name == "mvsnet" and spec["mesh"].get("view", 1) == 2
+    split = split_bf16(spec)
     log(f"  {name} mesh {spec['mesh']} ({label}): losses "
         + " ".join(f"{x:.6f}" for x in a["losses"]) + " vs one process "
         + " ".join(f"{x:.6f}" for x in want["losses"])
@@ -4579,7 +4618,7 @@ def check_ranks(spec, ranks, want, nudged, label) -> None:
         + " ".join(f"{x:.2e}" for x in moved) + "; limits "
         + " ".join(f"{x:.2e}" for x in limits)
         + f"); global update-norm ratio {ratio:.5f} ("
-        + ("limits below" if split_bf16 else f"limit 1 +- "
+        + ("limits below" if split else f"limit 1 +- "
            f"{PARALLEL_NORM_RTOL}")
         + f"; one f32 rounding of the images: {nudged_ratio:.5f}); ranks' "
         f"parameters {'identical' if same else 'DIFFER'}, their BatchNorm "
@@ -4597,7 +4636,7 @@ def check_ranks(spec, ranks, want, nudged, label) -> None:
         f"{json.dumps(a['counts'])}")
     if any(x > lim for x, lim in zip(rel, limits)):
         fail(f"13b {name}: losses differ by {rel}, limits {limits}")
-    if not split_bf16 and abs(ratio - 1) > PARALLEL_NORM_RTOL:
+    if not split and abs(ratio - 1) > PARALLEL_NORM_RTOL:
         fail(f"13b {name}: update-norm ratio {ratio}")
     if not same or (spec["mesh"].get("view", 1) == 1 and stats):
         fail(f"13b {name}: the ranks' parameters or all-reduced statistics "
@@ -4607,6 +4646,16 @@ def check_ranks(spec, ranks, want, nudged, label) -> None:
             "warp_variance_partials", "warp_variance_partials_grad")
     for r in ranks:
         check_launched(f"13b {name}", r["counts"], keys)
+
+
+def split_bf16(spec) -> bool:
+    """The bf16 MVSNet view=2 run, whose ranks each run the feature net's
+    backward on their own views' share of the features' gradient, rounded
+    in bf16 before the ranks' f32 sum: its update norm is held to
+    view_split_control and one f32 process (check_view_bf16). (The ranks
+    of a split volume sum the features' cotangent first,
+    parallel.collectives.shared, and are held to one bf16 process.)"""
+    return spec["name"] == "mvsnet" and spec["mesh"].get("view", 1) == 2
 
 
 def check_view_bf16(ranks, want, nudged, control, f32, f32_nudged) -> None:
@@ -5379,6 +5428,244 @@ def phase_profile(device, work: Path) -> dict:
         out[train] = result["ms_per_step"]
     return out
 
+# ---- phase 15: the cost volumes split over depth slabs and row tiles -------
+
+# The meshes of 15b, each the configurations' only model axes: the ranks
+# share the card over gloo (and with as many cards, a card a rank, NCCL).
+VOLUME_MESHES = (dict(depth=2), dict(space=2), dict(depth=2, space=2))
+VOLUME_NAMES = ("cas_mvsnet", "mvsnet", "mvsnet_f32")
+
+
+def slab_of(x, dims, index):
+    """x sliced to slab `index` of 2 (slab_bounds) along each of `dims`."""
+    sl = [slice(None)] * x.ndim
+    for d in dims:
+        a, b = slab_bounds(x.shape[d], 2, index)
+        sl[d] = slice(a, b)
+    return x[tuple(sl)]
+
+
+def halo_slab(x, index):
+    """Slab `index` of 2 of a (B, D, H, W, C) volume along D and H, with one
+    plane of each neighbour's (zeros past the volume's ends): what a
+    depth=2 x space=2 rank's halo exchange gives it."""
+    padded = F.pad(x, (0, 0, 0, 0, 1, 1, 1, 1))
+    sl = [slice(None)] * 5
+    for d in (1, 2):
+        a, b = slab_bounds(x.shape[d], 2, index)
+        sl[d] = slice(a, b + 2)
+    return padded[tuple(sl)].contiguous()
+
+
+def phase_slab_kernels(device) -> dict:
+    """15a: the kernels on one rank's slab at CasMVSNet's 640x512 batch-4
+    train stages (bf16): the warp forward and backward on the row window
+    (the second half of the rows, the second depth slab where D splits)
+    against the whole volume's launch's rows and the plain version on the
+    slab; the fused conv3d (stage-1 regularizer's first block, eval) on a
+    halo-extended slab, cropped, against the whole volume's rows and the
+    plain version on the extended slab. Each with its ms beside the whole
+    volume's launch."""
+    log("phase 15a: the warp's row window and the conv3d on a halo-extended "
+        "slab at 640x512, batch 4, bf16")
+    scene = make_plane_scene(num_views=VIEWS, height=TRAIN_H, width=TRAIN_W,
+                             z0=10.0, tilt=SCAN_TILT)
+    rows = {"warp": [], "warp_grad": [], "conv": []}
+    dt = torch.bfloat16
+    for (stage, scale, c), d in zip(STAGES, NDEPTHS):
+        ref, src, rel, hyp = warp_inputs(scene, stage, scale, c, d, dt,
+                                         device, batch=TRAIN_BATCH,
+                                         height=TRAIN_H, width=TRAIN_W)
+        h = hyp.shape[2]
+        r0, r1 = slab_bounds(h, 2, 1)
+        d0, d1 = slab_bounds(d, 2, 1) if d >= 16 else (0, d)
+        sref = ref[:, r0:r1].contiguous()
+        shyp = hyp[:, d0:d1, r0:r1].contiguous()
+        whole = fused_variance_volume(ref, src, rel, hyp)
+        got = fused_variance_volume(sref, src, rel, shyp, row0=r0)
+        same = torch.equal(got, whole[:, d0:d1, r0:r1])
+        what = (f"stage {stage} warp on rows {r0}:{r1}, depths {d0}:{d1} of "
+                f"({d}, {h}, {hyp.shape[3]}), C={c}")
+        err = compare("warp", got, fused_variance_volume_plain(
+            sref, src, rel, shyp, r0), what)
+        ms = cuda_ms(lambda: fused_variance_volume(sref, src, rel, shyp,
+                                                   row0=r0))
+        whole_ms = cuda_ms(lambda: fused_variance_volume(ref, src, rel, hyp))
+        b, nv = ref.shape[0], src.shape[1]
+        bytes_ms, ops_ms = warp_bound(b, nv, d1 - d0, r1 - r0, hyp.shape[3],
+                                      c, 2)
+        log(f"    the whole volume's rows bit for bit: {same}; {ms:.4f} ms "
+            f"against the whole volume's {whole_ms:.4f} ms (bound "
+            f"{max(bytes_ms, ops_ms):.4f})")
+        if not same:
+            fail(f"15a {what}: the row window differs from the whole "
+                 f"volume's rows")
+        rows["warp"].append(dict(err=err, ms=ms, whole_ms=whole_ms,
+                                 bytes_ms=bytes_ms, ops_ms=ops_ms))
+        g = torch.randn(got.shape, generator=torch.Generator(
+            device="cpu").manual_seed(stage)).to(device, dt)
+        kern = fused_variance_volume_grad(g, sref, src, rel, shyp, row0=r0)
+        plain = fused_variance_volume_grad_plain(g, sref, src, rel, shyp,
+                                                 False, r0)
+        errs = [compare("warp_grad", k, p, f"stage {stage} {n} of the row "
+                        f"window") for n, k, p in zip(("dref", "dsrc"), kern,
+                                                      plain)]
+        gms = cuda_ms(lambda: fused_variance_volume_grad(
+            g, sref, src, rel, shyp, row0=r0), iters=5)
+        rows["warp_grad"].append(dict(err=max(errs), ms=gms))
+        log(f"    backward on the row window {gms:.4f} ms")
+        del whole, got, kern, plain, g
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    c, cout = STAGES[0][2], BASE
+    x = torch.randn((TRAIN_BATCH, NDEPTHS[0], TRAIN_H // 4, TRAIN_W // 4, c),
+                    generator=gen).to(device, dt)
+    wt = (torch.randn((cout, c, 3, 3, 3), generator=gen)
+          / (27 * c) ** 0.5).to(device)
+    sc = torch.rand(cout, generator=gen).to(device) + 0.5
+    sh = torch.randn(cout, generator=gen).to(device) * 0.1
+    whole = conv3d_affine(x, wt, sc, sh, True)
+    ext = halo_slab(x, 1)
+    got = conv3d_affine(ext, wt, sc, sh, True)[:, 1:-1, 1:-1]
+    want_rows = slab_of(slab_of(whole, (1,), 1), (2,), 1)
+    same = torch.equal(got, want_rows)
+    err = compare("conv", got, conv3d_affine_plain(ext, wt, sc, sh, True)[
+        :, 1:-1, 1:-1], f"conv3d {c}->{cout} on the halo-extended slab "
+        f"{tuple(ext.shape[1:4])} of {tuple(x.shape[1:4])}")
+    ms = cuda_ms(lambda: conv3d_affine(ext, wt, sc, sh, True))
+    whole_ms = cuda_ms(lambda: conv3d_affine(x, wt, sc, sh, True))
+    bytes_ms, ops_ms = conv_bound(*ext.shape[:4], c, cout, dt)
+    log(f"    the whole volume's rows bit for bit: {same}; {ms:.4f} ms "
+        f"against the whole volume's {whole_ms:.4f} ms (bound "
+        f"{max(bytes_ms, ops_ms):.4f})")
+    if not same:
+        fail("15a: the conv3d on the extended slab differs from the whole "
+             "volume's rows")
+    rows["conv"].append(dict(err=err, ms=ms, whole_ms=whole_ms,
+                             bytes_ms=bytes_ms, ops_ms=ops_ms))
+    return rows
+
+
+def phase_volume_steps(device, work: Path, reference: dict) -> dict:
+    """15b: 13b's configurations on the VOLUME_MESHES, against 13b's one
+    process (`reference`): 13b's limits (check_ranks), and each rank's
+    warp launches a step equal to one process's (slabs, not duplicates).
+    Returns {mesh: the ranks' results}."""
+    out = {}
+    for mesh in VOLUME_MESHES:
+        world = int(np.prod(list(mesh.values())))
+        label = "x".join(f"{k}={v}" for k, v in mesh.items())
+        got = phase_parallel_steps(
+            device, work, names=VOLUME_NAMES, world=world,
+            meshes=dict.fromkeys(VOLUME_NAMES, mesh), reference=reference,
+            label=f"15b {label}")
+        for layout, ranks in got["layouts"].items():
+            for name in VOLUME_NAMES:
+                want = reference["single"][name]["counts"]
+                for r, rank in enumerate(ranks):
+                    c = rank[name]["counts"]
+                    keys = ("warp_variance", "warp_variance_grad")
+                    if any(c[k] != want[k] for k in keys):
+                        fail(f"15b {name} {label} ({layout}) rank {r}: "
+                             f"launches {c}, one process {want}")
+            log(f"  {label} ({layout}): every rank's warp launches a step "
+                f"as one process's: " + ", ".join(
+                    f"{n} {reference['single'][n]['counts']['warp_variance']}"
+                    f" + {reference['single'][n]['counts']['warp_variance_grad']}"
+                    for n in VOLUME_NAMES))
+        out[label] = got["ranks"]
+    return out
+
+
+def cli_rank(argv) -> int:
+    """One rank of 15c (chip_smoke.py --cli-rank <cli train arguments>):
+    cli train, then this rank's kernel launches and peak memory."""
+    reset_counts()
+    cli_train.main(argv)
+    torch.cuda.synchronize()
+    print("launches " + json.dumps(read_counts()), flush=True)
+    print(f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    return 0
+
+
+def phase_volume_cli(device, work: Path) -> dict:
+    """15c: cli train (configs/cas_train_dtu.yaml, bf16) over depth=2 x
+    space=2 ranks sharing the card (gloo), 2 steps and validation (the
+    conv3d kernel on halo-extended slabs in eval mode) on 13c's training
+    layout, each rank's launches as one process's; 15d: cli profile
+    --train over 8 ranks (parallel.dryrun's step: view, space, depth 2
+    each), a trace per rank."""
+    log("phase 15c: cli train over depth=2 x space=2 ranks sharing the card "
+        "(gloo), 2 steps with validation")
+    root = generate(work / "vdtu", num_scans=2, num_views=VIEWS,
+                    height=TRAIN_H // 2, width=TRAIN_W // 2, num_depth=LADDER,
+                    num_lights=1, tilt=SCAN_TILT)
+    argv = ["--config", str(MVS_TRAIN_CONFIG), "--device", str(device),
+            f"data.root={root}", f"data.train_list={root}/lists/train.txt",
+            f"data.val_list={root}/lists/val.txt", "data.batch_size=2",
+            "train.epochs=1", "train.summary_every_steps=1",
+            "train.mesh_depth=2", "train.mesh_space=2",
+            f"train.log_dir={work / 'vrun'}"]
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    here = Path(__file__).resolve()
+    t0 = time.perf_counter()
+    ranks = launch_local([sys.executable, str(here), "--cli-rank", *argv], 4,
+                         400.0, cwd=here.parent, env=env)
+    seconds = time.perf_counter() - t0
+    # 2 steps of 3 + 3 warp launches; val 2 batches of 3 warp and 15 conv
+    # launches (eval mode, bf16), every rank on its slabs.
+    want = {"warp_variance": 12, "warp_variance_grad": 6,
+            "conv3d_affine": 30, "conv3d_affine.mma": 30}
+    counts = []
+    for r, (rc, out) in enumerate(ranks):
+        if rc != 0:
+            fail(f"15c rank {r} exited {rc}:\n{out[-3000:]}")
+        got = json.loads(out.split("launches ", 1)[1].splitlines()[0])
+        counts.append(got)
+        if any(got[k] != v for k, v in want.items()):
+            fail(f"15c rank {r}: launches {got}, want {want}")
+    lead = ranks[0][1]
+    log("  " + "; ".join(ln for ln in lead.splitlines() if ln.startswith((
+        "mesh", "volumes", "epoch", "peak")))
+        + f"; {seconds:.1f} s with start-up; launches a rank "
+        f"{json.dumps(counts[0])}; peaks "
+        + " / ".join(out.rsplit("peak ", 1)[1].split()[0] for _, out in ranks)
+        + " GiB")
+    if "volumes (B, 48, 64, 80, C): spec (None, 'depth', 'space'" not in lead:
+        fail("15c: rank 0 did not say the stage-1 volume's layout")
+
+    log("phase 15d: cli profile --train over 8 ranks sharing the card")
+    logdir = work / "vprofile"
+    t0 = time.perf_counter()
+    ranks = launch_local([sys.executable, "-m", "mvs_tpu_torch.cli",
+                          "profile", "--train", "--device", str(device),
+                          "--steps", "2", "--warmup", "1", "--logdir",
+                          str(logdir)], 8, 400.0, cwd=here.parent,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
+    for r, (rc, out) in enumerate(ranks):
+        if rc != 0:
+            fail(f"15d rank {r} exited {rc}:\n{out[-3000:]}")
+    lead = ranks[0][1]
+    line = next((ln for ln in lead.splitlines()
+                 if ln.startswith("dryrun:")), "")
+    traces = sorted(p.name for p in logdir.glob("trace_rank*.json"))
+    log(f"  {line}; {len(traces)} traces; {time.perf_counter() - t0:.1f} s; "
+        + next((ln for ln in lead.splitlines() if "ms/step" in ln), ""))
+    if "mesh=(data=1,view=2,depth=2,space=2)" not in line or \
+            len(traces) != 8 or "warp_variance" not in lead:
+        fail(f"15d: cli profile --train over 8 ranks: {lead[-3000:]}")
+    return dict(counts=counts[0])
+
+
+def phase_volume(device, work: Path, reference: dict) -> dict:
+    t0 = time.perf_counter()
+    rows = phase_slab_kernels(device)
+    steps = phase_volume_steps(device, work, reference)
+    cli = phase_volume_cli(device, work)
+    log(f"  phase 15 {time.perf_counter() - t0:.1f} s")
+    return dict(rows=rows, steps=steps, cli=cli)
+
+
 
 def kernel_entry(name, source, replaces, rows, launches, cli_launches,
                  library, **extra):
@@ -5483,6 +5770,8 @@ def main() -> int:
         tnt = timed("14a", phase_tnt(device, work))
         var = timed("14b", phase_variants(device, work))
         timed("14c", phase_profile(device, work))
+    with tempfile.TemporaryDirectory() as tmp:
+        vol = timed(15, phase_volume(device, Path(tmp), par))
     del tnt["model"], tnt["samples"]
     view_counts = par["ranks"][0]["mvsnet"]["counts"]
     mvs_partials = par["rows"]["mvsnet"]
@@ -5549,6 +5838,25 @@ def main() -> int:
                     share_cr_unet_none_launches=var["full"]["counts"][key],
                     group_cli_train_launches=var["cli"][key])
 
+    def on_slabs(key, rows=None, prefix="row_window"):
+        """15's figures of a kernel: per train step of a rank of each 15b
+        mesh (bf16 CasMVSNet and MVSNet, f32 MVSNet), and the sums over
+        15a's slab launches (`rows`) beside the whole volume's."""
+        out = {f"{short}_{m.replace('=', '')}_train_launches":
+               vol["steps"][m][0][name]["counts"][key]
+               for m in vol["steps"] for short, name in (
+                   ("cas", "cas_mvsnet"), ("mvsnet", "mvsnet"),
+                   ("mvsnet_f32", "mvsnet_f32"))}
+        if rows:
+            out.update({f"{prefix}_ms": sum(r["ms"] for r in rows),
+                        f"{prefix}_max_abs_err": max(r["err"] for r in rows)})
+            if "whole_ms" in rows[0]:
+                out.update({
+                    f"{prefix}_whole_ms": sum(r["whole_ms"] for r in rows),
+                    f"{prefix}_bound_ms": sum(max(r["bytes_ms"], r["ops_ms"])
+                                              for r in rows)})
+        return out
+
     kernels = [
         kernel_entry("warp_variance", "mvs_tpu_torch/csrc/warp_variance.cu",
                      "mvs_tpu/ops/warp_pallas.py:288", warp_rows,
@@ -5563,7 +5871,13 @@ def main() -> int:
                      **pyramid_training("warp_variance"),
                      **at_point("warp_variance"), **at_tnt("warp_variance"),
                      # One f32 Point-MVSNet map's 7 launches (11a).
-                     **row_sums(point["rows"]["warp"], "point")),
+                     **row_sums(point["rows"]["warp"], "point"),
+                     # A depth=2 x space=2 rank's three row-window launches
+                     # of a bf16 CasMVSNet train step (15a), 15b's launches
+                     # a step and 15c's cli train's a rank.
+                     **on_slabs("warp_variance", vol["rows"]["warp"]),
+                     volume_cli_launches=vol["cli"]["counts"][
+                         "warp_variance"]),
         kernel_entry("conv3d_affine", "mvs_tpu_torch/csrc/conv3d_affine.cu",
                      "mvs_tpu/ops/conv3d_pallas.py:259", conv_rows,
                      launches["conv3d_affine"],
@@ -5576,7 +5890,14 @@ def main() -> int:
                      **pyramid_training("conv3d_affine"),
                      **at_point("conv3d_affine"), **at_tnt("conv3d_affine"),
                      none_bf16_launches=var["counts"][
-                         "CasMVSNet none", torch.bfloat16]["conv3d_affine"]),
+                         "CasMVSNet none", torch.bfloat16]["conv3d_affine"],
+                     # The stage-1 block on a depth=2 x space=2 rank's
+                     # halo-extended slab (15a); 15c's validation's
+                     # launches a rank.
+                     **on_slabs("conv3d_affine", vol["rows"]["conv"],
+                                "halo_slab"),
+                     volume_cli_launches=vol["cli"]["counts"][
+                         "conv3d_affine"]),
         # The f32 variant of the same implicit GEMM (3xTF32): times over
         # AACVP's 10 f32 launches of a bf16 map (8a), library cuDNN f32 with
         # TF32 off; bound_ms is the larger of the bytes' time and the three
@@ -5656,7 +5977,11 @@ def main() -> int:
                      # One f32 Point-MVSNet train step's 7 launches, the
                      # flow's 6 with the hypotheses' gradient (11a).
                      **row_sums(point["rows"]["warp_grad"],
-                                "point_train")),
+                                "point_train"),
+                     **on_slabs("warp_variance_grad",
+                                vol["rows"]["warp_grad"]),
+                     volume_cli_launches=vol["cli"]["counts"][
+                         "warp_variance_grad"]),
         # No pallas_call of its own: the counterpart of the fused
         # group-correlation mode of the banded warp (hat_warp.py:413-417,
         # 477). launches: per AACVP map (8c); cli_launches: 8d's AACVP run.
@@ -5713,4 +6038,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(rank_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank(sys.argv[2:]))
     sys.exit(main())

@@ -9,8 +9,12 @@ hypotheses, a 64x64 three-view plane scene, batch 1, the Flax modules'
 initial weights drawn from seed 0; the forward as `cli infer` runs it
 (cli.infer.make_apply_fn: eval mode, no autograd, f32 convolutions
 without TF32), or with --train one CasMVSNet train step (Adam, the
-cascade loss) on the one device. The traced loop writes a Chrome trace,
-<logdir>/trace.json (open it in ui.perfetto.dev or chrome://tracing),
+cascade loss) on the one device; under torchrun with more than one rank,
+--train traces parallel.dryrun's step (CasMVSNet 48 / 32 / 8 over every
+rank, the ranks split over view, space, depth and data as mvs_tpu's
+dry run splits devices), each rank writing its own trace. The traced
+loop writes a Chrome trace, <logdir>/trace.json (trace_rank<r>.json under
+ranks; open it in ui.perfetto.dev or chrome://tracing),
 prints "N steps traced ... ms/step (... depth-maps/s)" (host clock,
 synchronised), then the traced steps' top device kernels by device ms and
 the port's hand-written kernels among all of them (on the CPU: the top
@@ -20,6 +24,7 @@ operators by CPU ms).
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
 
@@ -29,6 +34,9 @@ import torch
 from mvs_tpu_torch.cli.infer import make_apply_fn
 from mvs_tpu_torch.geometry import compose_projection, scale_intrinsics
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet
+from mvs_tpu_torch.parallel import dryrun
+from mvs_tpu_torch.parallel.distributed import (maybe_initialize_distributed,
+                                                shutdown)
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.train.state import make_train_step
 from mvs_tpu_torch.train.tasks import CascadeTask
@@ -107,31 +115,52 @@ def main(argv=None) -> dict:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--train", action="store_true",
-                   help="profile a CasMVSNet train step on the one device "
-                        "instead of the forward (mvs_tpu's --train traces "
-                        "its multi-device dry run; the port's depth and "
-                        "space axes wait for ROADMAP.md queue 1, item 20)")
+                   help="profile a CasMVSNet train step instead of the "
+                        "forward: on the one device, or under torchrun "
+                        "with more than one rank parallel.dryrun's step "
+                        "over every rank")
     p.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA card)")
     args = p.parse_args(argv)
+    if args.train and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return _profile_dryrun(args)
     device = resolve_device(args.device)
+    return _profile(args, device)
+
+
+def _profile_dryrun(args) -> dict:
+    """--train over ranks: parallel.dryrun's step, traced on every rank."""
+    proc = maybe_initialize_distributed(args.device)
+    try:
+        dry = dryrun.build_step(proc.device, proc.world_size)
+        return _profile(args, proc.device, dry, proc.rank)
+    finally:
+        shutdown()
+
+
+def _profile(args, device, dry=None, rank=None) -> dict:
+    """Warm up, then trace args.steps of: dry's step (a (step, mesh shape)
+    pair from parallel.dryrun), else the forward or with --train one
+    CasMVSNet train step on `device`."""
     on_card = device.type == "cuda"
-
-    model = CasMVSNet(ndepths=(8, 8, 8),
-                      generator=torch.Generator().manual_seed(0),
-                      trained=False).to(device)
-    batch = example_batch(device)
-    if args.train:
-        task = CascadeTask(model)
-        run = make_train_step(task, OptaxChain(model.parameters(), "adam",
-                                               lambda step: 1e-3))
-        step = lambda: run(batch)  # noqa: E731
+    lead = rank in (None, 0)
+    if dry is not None:
+        step = dry[0]
     else:
-        apply_fn = make_apply_fn(model, device)
+        model = CasMVSNet(ndepths=(8, 8, 8),
+                          generator=torch.Generator().manual_seed(0),
+                          trained=False).to(device)
+        batch = example_batch(device)
+        if args.train:
+            run = make_train_step(CascadeTask(model), OptaxChain(
+                model.parameters(), "adam", lambda step: 1e-3))
+            step = lambda: run(batch)  # noqa: E731
+        else:
+            apply_fn = make_apply_fn(model, device)
 
-        def step():
-            return apply_fn(batch["imgs"], batch["proj_matrices"],
-                            batch["depth_values"])
+            def step():
+                return apply_fn(batch["imgs"], batch["proj_matrices"],
+                                batch["depth_values"])
 
     def sync():
         if on_card:
@@ -152,13 +181,20 @@ def main(argv=None) -> dict:
         dt = (time.perf_counter() - t0) / args.steps
     logdir = Path(args.logdir)
     logdir.mkdir(parents=True, exist_ok=True)
-    trace = logdir / "trace.json"
+    trace = logdir / ("trace.json" if rank is None else
+                      f"trace_rank{rank}.json")
     prof.export_chrome_trace(str(trace))
     what = "train steps" if args.train else "steps"
-    print(f"{args.steps} {what} traced to {logdir}; {dt * 1e3:.2f} ms/step "
-          f"({1.0 / dt:.2f} depth-maps/s)")
     table = _top_table(prof, on_card)
-    print("\n".join(table))
+    # Every rank takes the last step: its collectives need them all.
+    last = None if dry is None else dryrun.describe(
+        dry[1], float(step()["loss"]))
+    if lead:
+        if last is not None:
+            print(last)
+        print(f"{args.steps} {what} traced to {logdir}; {dt * 1e3:.2f} "
+              f"ms/step ({1.0 / dt:.2f} depth-maps/s)")
+        print("\n".join(table))
     return {"ms_per_step": dt * 1e3, "trace": str(trace), "table": table}
 
 

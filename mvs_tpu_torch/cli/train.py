@@ -41,15 +41,21 @@ Several cards (or CPU processes) train one global batch of
 Each process initialises torch.distributed from torchrun's variables
 (parallel.distributed: its card is cuda:LOCAL_RANK, NCCL; with --device
 naming one card for every rank, or the CPU, gloo) and takes its point of
-the mesh data x view (train.mesh_data = 0: the world size over the other
-axes; train.mesh_depth and train.mesh_space above 1 raise). A data rank
-loads its rows of each global batch (io.pipeline), and the train step is
-the global batch's (train.state.make_train_step: global BatchNorm moments,
-global masked losses and metrics, gradients summed over the ranks). With
+the mesh data x view x depth x space (train.mesh_data = 0: the world size
+over the other axes). A data rank loads its rows of each global batch
+(io.pipeline), and the train step is the global batch's
+(train.state.make_train_step: global BatchNorm moments, global masked
+losses and metrics, gradients summed over the ranks). With
 train.mesh_view > 1, MVSNet and CasMVSNet split their source views over
-the 'view' ranks (parallel.make_view_variance); the other families compute
-the same rows on every rank of a view group. Rank 0 writes the
-checkpoints, their index and the scalars; every rank restores.
+the 'view' ranks (parallel.make_view_variance); with train.mesh_depth or
+train.mesh_space > 1 they split each cost volume into depth slabs and
+row tiles as mvs_tpu's volume_sharded_plan and its small-extent guard lay
+them out (parallel.sharding: halo exchanges, BatchNorm moments and the
+softmax over the split volume, rank 0 saying each volume's layout with
+the guard's folds and drops). The other families compute the same rows on
+every rank of a view, depth and space group. Validation runs on the same
+layout in eval mode. Rank 0 writes the checkpoints, their index and the
+scalars; every rank restores.
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.nn.blocks import BatchStats
 from mvs_tpu_torch.parallel import (make_mesh, make_view_variance,
                                     maybe_initialize_distributed, replicate,
-                                    shutdown, use_mesh)
+                                    shutdown, use_mesh, volume_sharded_plan)
 from mvs_tpu_torch.geometry.resize import resize_nearest
 from mvs_tpu_torch.parallel.mesh import mesh_shape_from_config
 from mvs_tpu_torch.train.checkpoint import CheckpointManager
@@ -186,11 +192,14 @@ def _summary_triplet(task, out: dict, batch: dict):
     """(depth_est, depth_gt, mask) of sample 0 at the estimate's
     resolution, as mvs_tpu's _summary_triplet picks them."""
     depth = out["depth"]
+    rows = out["shard"].take if "shard" in out else (lambda x: x)
     if isinstance(task, MVSNetTask):
-        return depth[0], batch["depth_gt"][0], batch["mask"][0]
+        return (depth[0], rows(batch["depth_gt"])[0],
+                rows(batch["mask"])[0])
     if isinstance(task, CascadeTask):
         last = f"stage{len(task.stage_weights)}"
-        return depth[0], batch["depth_gt"][last][0], batch["mask"][last][0]
+        return (depth[0], rows(batch["depth_gt"][last])[0],
+                rows(batch["mask"][last])[0])
     if isinstance(task, PyramidTask):
         return (depth[0], batch["depth_gt_levels"][0][0],
                 batch["mask_levels"][0][0])
@@ -215,6 +224,29 @@ def _log_val_images(task, out: dict, batch: dict, logger, step: int):
         print(f"val image summary skipped: {e}")
 
 
+def describe_layout(layout) -> str:
+    """The guard's decision on a volume (sharding.Guarded): its spec, with
+    the axes it folded into another dim and those it dropped."""
+    notes = [f"{axis!r} folded into dim {dim}" for axis, dim in layout.folded]
+    notes += [f"{axis!r} dropped" for axis in layout.dropped]
+    return f"spec {layout.spec}" + (f" ({', '.join(notes)})" if notes
+                                    else "")
+
+
+def volume_hook(plan, say):
+    """plan.constrain_volume, saying each new volume shape's layout once."""
+    seen = set()
+
+    def constrain(shape):
+        if tuple(shape[1:4]) not in seen:
+            seen.add(tuple(shape[1:4]))
+            say(f"volumes (B, {shape[1]}, {shape[2]}, {shape[3]}, C): "
+                + describe_layout(plan.volume_layout(shape)))
+        return plan.constrain_volume(shape)
+
+    return constrain
+
+
 def _train(cfg, args, proc, debug_nans: bool = False) -> dict:
     device, lead = proc.device, proc.rank == 0
     mesh = make_mesh(**mesh_shape_from_config(cfg.train, proc.world_size))
@@ -228,8 +260,13 @@ def _train(cfg, args, proc, debug_nans: bool = False) -> dict:
         lights=(3,)) if d.val_list else None
     model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed),
                         trained=False).to(device)
-    if mesh.size("view") > 1 and cfg.model.name in ("mvsnet", "cas_mvsnet"):
+    constrained = cfg.model.name in ("mvsnet", "cas_mvsnet")
+    if mesh.size("view") > 1 and constrained:
         model.view_variance = make_view_variance(mesh)
+    split = mesh.size("depth") * mesh.size("space") > 1
+    say = print if lead else (lambda *a, **k: None)
+    if split and constrained:
+        model.volume_constraint = volume_hook(volume_sharded_plan(mesh), say)
     task, collate = build_task(cfg, model)
     shard = (mesh.coord("data"), mesh.size("data"))
     loader = DataLoader(train_ds, d.batch_size, collate,
@@ -246,12 +283,15 @@ def _train(cfg, args, proc, debug_nans: bool = False) -> dict:
         best_metric="abs_depth_error" if val_ds is not None else None,
         writer=lead)
     logger = ScalarLogger(cfg.train.log_dir, enabled=lead)
-    say = print if lead else (lambda *a, **k: None)
     if mesh.world_size > 1:
         say(f"mesh {mesh.shape}: "
             + ("the source views split over the 'view' ranks"
                if getattr(model, "view_variance", None) is not None else
-               "every source view on every rank"))
+               "every source view on every rank")
+            + ("" if not split else
+               "; the volumes split over the 'depth' and 'space' ranks"
+               if constrained else
+               "; every 'depth' x 'space' rank computes the same rows"))
 
     start_epoch = 0
     if args.resume:

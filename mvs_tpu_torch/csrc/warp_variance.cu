@@ -100,10 +100,18 @@
 // needed and each sample is blended once; dref = sum_d (g1 + 2 ref g2) when
 // the reference is a term; dsrc goes through the same window.
 //
+// A row window (Hs, y0) serves a volume whose rows are split over processes
+// (mvs_tpu_torch.parallel.sharding): the reference, the hypotheses and the
+// output hold rows y0 .. y0 + H - 1 of source views of Hs rows. Pixel
+// (x, y) of the window is rotated as pixel (x, y0 + y) of the whole image,
+// so a window computes the whole volume's rows bit for bit; Hs = H, y0 = 0
+// is the whole volume. (Folding y0 into the geometry's constant column
+// would round the rotation differently.)
+//
 // C interface (loaded with ctypes, see mvs_tpu_torch/ops/warp_variance.py):
 // every pointer is a device pointer to contiguous memory,
 //   ref  (B, H, W, C)      T
-//   src  (B, V, H, W, C)   T
+//   src  (B, V, Hs, W, C)  T
 //   geom (B, V, 12)        f32: rows of R (9 values) then t (3) of src @ ref^-1
 //   hyp  (B, D, H, W)      f32 per-pixel depth hypotheses
 //   out  (B, D, H, W, C)   T
@@ -112,7 +120,7 @@
 // also takes
 //   grad (B, D, H, W, C)   T    dL/dvar
 //   dref (B, H, W, C)      T    written
-//   dsrc (B, V, H, W, C)   f32  zero-filled by the caller, accumulated
+//   dsrc (B, V, Hs, W, C)  f32  zero-filled by the caller, accumulated
 //   ddepth (B, D, H, W)    f32  written, or null for no depth gradient
 // The partial entries write (mvs_warp_partials) or read
 // (mvs_warp_partials_grad, as g1 and g2)
@@ -171,7 +179,8 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
                      const float* __restrict__ hyp,
                      std::conditional_t<kPartial, float, T>* __restrict__ out,
                      float* __restrict__ out_sq, int V, int D, int H, int W,
-                     int C, int dgroup, int ngroups, int with_ref) {
+                     int C, int Hs, int y0, int dgroup, int ngroups,
+                     int with_ref) {
   // Per warp: [V][32] sample records (corner offset, wx, wy, corner
   // validity bits), [V][3][32] rotated pixels; then the batch's (V, 12)
   // geometry.
@@ -200,7 +209,7 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   const int px = wx0 + (lane & 7), py = wy0 + (lane >> 3);
   const bool pix_ok = px < W && py < H;
   const int pix = py * W + px;
-  mvs::rotate_pixel(sgeom, rot, V, px, py, lane);
+  mvs::rotate_pixel(sgeom, rot, V, px, py + y0, lane);
 
   // Pass k of the chunk walk gives lane l chunk (32k + l) % nch of pixel
   // (32k + l) / nch: consecutive lanes on consecutive 16-byte chunks.
@@ -208,9 +217,10 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   const bool even = 32 % nch == 0;  // then a lane keeps its chunk
   const int lane_pl = lane / nch, lane_c0 = (lane - lane_pl * nch) * 8;
   const int vstride = hw * C;  // < 2^31, checked at launch
+  const int svstride = Hs * W * C;
   const int rowc = W * C;
   const T* refb = ref + (int64_t)b * vstride;
-  const T* srcb = src + (int64_t)b * V * vstride;
+  const T* srcb = src + (int64_t)b * V * svstride;
   // variance = sq / n - (sf / n)^2, each quotient as a product with the
   // rounded 1/n (within an ulp of the division, at a fraction of its cost).
   const float rn = __frcp_rn((float)(V + 1));
@@ -221,7 +231,7 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
       const float dep = __ldcs(hyp + plane + pix);
       for (int v = 0; v < V; ++v)
         rec[v * 32 + lane] = sample_record(rot + v * 96 + lane, 32,
-                                           sgeom + v * 12, dep, W, H, C);
+                                           sgeom + v * 12, dep, W, Hs, C);
     }
     __syncwarp();
 
@@ -245,7 +255,7 @@ warp_variance_kernel(const T* __restrict__ ref, const T* __restrict__ src,
         float w[4];
         corner_weights(r, w);
         // A corner off the image is not loaded: it reads as zero.
-        const T* sv = srcb + (int64_t)v * vstride + c0 + r.x;
+        const T* sv = srcb + (int64_t)v * svstride + c0 + r.x;
         float v00[8], v01[8], v10[8], v11[8];
         load8<kVec>(sv, r.w & 1, nc, v00);
         load8<kVec>(sv + C, r.w & 2, nc, v01);
@@ -289,8 +299,8 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
                           const float* __restrict__ gsum,
                           const float* __restrict__ gsq, T* __restrict__ dref,
                           float* __restrict__ dsrc, float* __restrict__ ddep,
-                          int V, int D, int H, int W, int C, int slots,
-                          int with_ref) {
+                          int V, int D, int H, int W, int C, int Hs, int y0,
+                          int slots, int with_ref) {
   extern __shared__ int4 smem[];
   const mvs::GradSmem sm = mvs::carve_grad_smem(smem, V, slots, kDepth);
   const int tid = threadIdx.x;
@@ -306,13 +316,14 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
   const int py = blockIdx.y / split * mvs::kWinTileH + off.y;
   const bool ok = px < W && py < H;
   const int pix = py * W + px;
-  mvs::grad_setup(sm, geom + (int64_t)b * V * 12, V, px, py);
+  mvs::grad_setup(sm, geom + (int64_t)b * V * 12, V, px, py + y0);
 
   const int vstride = hw * C;  // < 2^31, checked at launch
+  const int svstride = Hs * W * C;
   const int rowc = W * C;
   const T* refp = ref + (int64_t)b * vstride + pix * C;
-  const T* srcb = src + (int64_t)b * V * vstride;
-  float* dsrcb = dsrc + (int64_t)b * V * vstride;
+  const T* srcb = src + (int64_t)b * V * svstride;
+  float* dsrcb = dsrc + (int64_t)b * V * svstride;
   const float* hypp = hyp + (int64_t)b * D * hw + pix;
   const float rn = __frcp_rn((float)(V + 1));
   const float g2 = 2.f * rn;  // dvar/df_i = (2 / N) (f_i - m)
@@ -329,7 +340,7 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
     for (int d0 = 0, want = D; d0 < D;) {
       int used;
       const int L = mvs::window_plan(sm, hypp, hw, ok, d0, min(want, D - d0),
-                                     V, W, H, slots, &used);
+                                     V, W, Hs, slots, &used);
       // Every lane walks the chunk (the window's adds take the whole
       // warp); a lane whose pixel is off the image has no valid sample.
       for (int d = d0; d < d0 + L; ++d) {
@@ -337,7 +348,7 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
         const float dep = ok ? __ldg(hyp + at) : 1.f;
         for (int v = 0; v < V; ++v) {
           rec[v * mvs::kWinThreads] =
-              mvs::grad_record(sm, v, dep, ok, W, H, C);
+              mvs::grad_record(sm, v, dep, ok, W, Hs, C);
           if constexpr (kDepth)
             jac[v * mvs::kWinThreads] = mvs::grad_jacobian(sm, v, dep);
         }
@@ -353,7 +364,7 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
           float dd = 0.f;
           for (int v = 0; v < V; ++v) {
             const int4 rv = rec[v * mvs::kWinThreads];
-            const T* sv = srcb + (int64_t)v * vstride + c0;
+            const T* sv = srcb + (int64_t)v * svstride + c0;
             float f[8];
             if constexpr (kDepth) {
               float fx[8], fy[8];
@@ -370,7 +381,7 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
               for (int k = 0; k < 8; ++k) f[k] = g[k] + 2.f * f[k] * q[k];
             }
             mvs::scatter_sample<kVec>(sm, v,
-                                      dsrcb + (int64_t)v * vstride + c0, rv,
+                                      dsrcb + (int64_t)v * svstride + c0, rv,
                                       nc, C, rowc, f);
           }
           if (kDepth && ok) ddep[at] = c0 == 0 ? dd : ddep[at] + dd;
@@ -382,7 +393,7 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
         for (int k = 0; k < 8; ++k) m[k] = r[k];
         for (int v = 0; v < V; ++v) {
           float f[8];
-          blend<kVec>(srcb + (int64_t)v * vstride + c0,
+          blend<kVec>(srcb + (int64_t)v * svstride + c0,
                       rec[v * mvs::kWinThreads], nc, C, rowc, f);
 #pragma unroll
           for (int k = 0; k < 8; ++k) m[k] += f[k];
@@ -399,7 +410,7 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
         float dd = 0.f;
         for (int v = 0; v < V; ++v) {
           const int4 rv = rec[v * mvs::kWinThreads];
-          const T* sv = srcb + (int64_t)v * vstride + c0;
+          const T* sv = srcb + (int64_t)v * svstride + c0;
           float f[8];
           if constexpr (kDepth) {
             float fx[8], fy[8];
@@ -415,13 +426,13 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
 #pragma unroll
             for (int k = 0; k < 8; ++k) f[k] = g[k] * (f[k] - m[k]);
           }
-          mvs::scatter_sample<kVec>(sm, v, dsrcb + (int64_t)v * vstride + c0,
+          mvs::scatter_sample<kVec>(sm, v, dsrcb + (int64_t)v * svstride + c0,
                                     rv, nc, C, rowc, f);
         }
         // One writer per (pixel, depth): this thread, slice by slice.
         if (kDepth && ok) ddep[at] = c0 == 0 ? dd : ddep[at] + dd;
       }
-      mvs::window_flush(sm, used, V, dsrcb + c0, vstride, W, H, C, nc);
+      mvs::window_flush(sm, used, V, dsrcb + c0, svstride, W, Hs, C, nc);
       d0 += L;
       want = 2 * L;
     }
@@ -435,10 +446,12 @@ warp_variance_grad_kernel(const T* __restrict__ ref,
 template <typename T, bool kVec, bool kPartial>
 int launch(const void* ref, const void* src, const void* geom,
            const void* hyp, void* out, void* out_sq, int B, int V, int D,
-           int H, int W, int C, int with_ref, cudaStream_t stream) {
+           int H, int W, int C, int Hs, int y0, int with_ref,
+           cudaStream_t stream) {
   const int64_t hw = (int64_t)H * W;
   if (B == 0 || V == 0 || D == 0 || hw == 0 || C == 0) return cudaSuccess;
-  if (!mvs::offsets_fit(hw, W, C)) return (int)cudaErrorInvalidValue;
+  if (y0 < 0 || y0 + H > Hs || !mvs::offsets_fit((int64_t)Hs * W, W, C))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)V * (kWarps * 32 * 16 + kWarps * 96 * 4 + 48);
   auto* kernel = warp_variance_kernel<T, kVec, kPartial>;
   const int err = mvs::reserve_smem(kernel, smem);
@@ -464,7 +477,7 @@ int launch(const void* ref, const void* src, const void* geom,
       static_cast<const T*>(ref), static_cast<const T*>(src),
       static_cast<const float*>(geom), static_cast<const float*>(hyp),
       static_cast<std::conditional_t<kPartial, float, T>*>(out),
-      static_cast<float*>(out_sq), V, D, H, W, C, dgroup, (int)groups,
+      static_cast<float*>(out_sq), V, D, H, W, C, Hs, y0, dgroup, (int)groups,
       with_ref);
   return (int)cudaGetLastError();
 }
@@ -472,28 +485,29 @@ int launch(const void* ref, const void* src, const void* geom,
 template <typename T, bool kPartial>
 int launch_t(const void* ref, const void* src, const void* geom,
              const void* hyp, void* out, void* out_sq, int B, int V, int D,
-             int H, int W, int C, int with_ref, int vec,
+             int H, int W, int C, int Hs, int y0, int with_ref, int vec,
              cudaStream_t stream) {
   if (vec)
     return launch<T, true, kPartial>(ref, src, geom, hyp, out, out_sq, B, V,
-                                     D, H, W, C, with_ref, stream);
+                                     D, H, W, C, Hs, y0, with_ref, stream);
   return launch<T, false, kPartial>(ref, src, geom, hyp, out, out_sq, B, V, D,
-                                    H, W, C, with_ref, stream);
+                                    H, W, C, Hs, y0, with_ref, stream);
 }
 
 template <bool kPartial>
 int launch_dtype(const void* ref, const void* src, const void* geom,
                  const void* hyp, void* out, void* out_sq, int B, int V,
-                 int D, int H, int W, int C, int with_ref, int dtype, int vec,
-                 cudaStream_t stream) {
+                 int D, int H, int W, int C, int Hs, int y0, int with_ref,
+                 int dtype, int vec, cudaStream_t stream) {
   if (vec && C % 8 != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_t<float, kPartial>(ref, src, geom, hyp, out, out_sq, B, V,
-                                     D, H, W, C, with_ref, vec, stream);
+                                     D, H, W, C, Hs, y0, with_ref, vec,
+                                     stream);
   if (dtype == 1)
     return launch_t<__nv_bfloat16, kPartial>(ref, src, geom, hyp, out, out_sq,
-                                             B, V, D, H, W, C, with_ref, vec,
-                                             stream);
+                                             B, V, D, H, W, C, Hs, y0,
+                                             with_ref, vec, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -501,11 +515,12 @@ template <typename T, bool kVec, bool kDepth, bool kPartial>
 int launch_grad(const void* ref, const void* src, const void* geom,
                 const void* hyp, const void* grad, const void* g1,
                 const void* g2, void* dref, void* dsrc, void* ddep, int B,
-                int V, int D, int H, int W, int C, int with_ref,
-                cudaStream_t stream) {
+                int V, int D, int H, int W, int C, int Hs, int y0,
+                int with_ref, cudaStream_t stream) {
   const int64_t hw = (int64_t)H * W;
   if (B == 0 || V == 0 || D == 0 || hw == 0 || C == 0) return cudaSuccess;
-  if (!mvs::offsets_fit(hw, W, C)) return (int)cudaErrorInvalidValue;
+  if (y0 < 0 || y0 + H > Hs || !mvs::offsets_fit((int64_t)Hs * W, W, C))
+    return (int)cudaErrorInvalidValue;
   auto* kernel = warp_variance_grad_kernel<T, kVec, kDepth, kPartial>;
   dim3 grid;
   size_t smem;
@@ -519,8 +534,8 @@ int launch_grad(const void* ref, const void* src, const void* geom,
       static_cast<const float*>(geom), static_cast<const float*>(hyp),
       static_cast<const T*>(grad), static_cast<const float*>(g1),
       static_cast<const float*>(g2), static_cast<T*>(dref),
-      static_cast<float*>(dsrc), static_cast<float*>(ddep), V, D, H, W, C,
-      slots, with_ref);
+      static_cast<float*>(dsrc), static_cast<float*>(ddep), V, D, H, W, C, Hs,
+      y0, slots, with_ref);
   return (int)cudaGetLastError();
 }
 
@@ -529,19 +544,21 @@ int launch_grad(const void* ref, const void* src, const void* geom,
 extern "C" int mvs_warp_variance(const void* ref, const void* src,
                                  const void* geom, const void* hyp, void* out,
                                  int B, int V, int D, int H, int W, int C,
-                                 int dtype, int vec, void* stream) {
+                                 int Hs, int y0, int dtype, int vec,
+                                 void* stream) {
   return launch_dtype<false>(ref, src, geom, hyp, out, nullptr, B, V, D, H, W,
-                             C, 1, dtype, vec,
+                             C, Hs, y0, 1, dtype, vec,
                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mvs_warp_partials(const void* ref, const void* src,
                                  const void* geom, const void* hyp,
                                  void* sum_f, void* sum_sq, int B, int V,
-                                 int D, int H, int W, int C, int with_ref,
-                                 int dtype, int vec, void* stream) {
+                                 int D, int H, int W, int C, int Hs, int y0,
+                                 int with_ref, int dtype, int vec,
+                                 void* stream) {
   return launch_dtype<true>(ref, src, geom, hyp, sum_f, sum_sq, B, V, D, H, W,
-                            C, with_ref, dtype, vec,
+                            C, Hs, y0, with_ref, dtype, vec,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -549,14 +566,15 @@ extern "C" int mvs_warp_variance_grad(const void* ref, const void* src,
                                       const void* geom, const void* hyp,
                                       const void* grad, void* dref,
                                       void* dsrc, void* ddepth, int B, int V,
-                                      int D, int H, int W, int C, int dtype,
-                                      int vec, void* stream) {
+                                      int D, int H, int W, int C, int Hs,
+                                      int y0, int dtype, int vec,
+                                      void* stream) {
   return mvs::dispatch_grad(
       dtype, vec, ddepth != nullptr, C, [&](auto type, auto kvec, auto kdep) {
         return launch_grad<typename decltype(type)::type, decltype(kvec)::value,
                            decltype(kdep)::value, false>(
             ref, src, geom, hyp, grad, nullptr, nullptr, dref, dsrc, ddepth, B,
-            V, D, H, W, C, 1, static_cast<cudaStream_t>(stream));
+            V, D, H, W, C, Hs, y0, 1, static_cast<cudaStream_t>(stream));
       });
 }
 
@@ -565,13 +583,13 @@ extern "C" int mvs_warp_partials_grad(const void* ref, const void* src,
                                       const void* g1, const void* g2,
                                       void* dref, void* dsrc, void* ddepth,
                                       int B, int V, int D, int H, int W,
-                                      int C, int with_ref, int dtype, int vec,
-                                      void* stream) {
+                                      int C, int Hs, int y0, int with_ref,
+                                      int dtype, int vec, void* stream) {
   return mvs::dispatch_grad(
       dtype, vec, ddepth != nullptr, C, [&](auto type, auto kvec, auto kdep) {
         return launch_grad<typename decltype(type)::type, decltype(kvec)::value,
                            decltype(kdep)::value, true>(
             ref, src, geom, hyp, nullptr, g1, g2, dref, dsrc, ddepth, B, V, D,
-            H, W, C, with_ref, static_cast<cudaStream_t>(stream));
+            H, W, C, Hs, y0, with_ref, static_cast<cudaStream_t>(stream));
       });
 }

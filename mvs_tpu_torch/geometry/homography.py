@@ -16,27 +16,32 @@ __all__ = ["pixel_grid", "plane_sweep_coords", "warp_src_feature"]
 
 
 def pixel_grid(height: int, width: int, dtype=torch.float32,
-               device=None) -> torch.Tensor:
-    """Homogeneous pixel coordinates (3, H, W) = [x; y; 1]."""
+               device=None, row0: int = 0) -> torch.Tensor:
+    """Homogeneous pixel coordinates (3, H, W) = [x; y; 1], rows row0 ..
+    row0 + H - 1."""
     ys, xs = torch.meshgrid(
-        torch.arange(height, dtype=dtype, device=device),
+        torch.arange(row0, row0 + height, dtype=dtype, device=device),
         torch.arange(width, dtype=dtype, device=device), indexing="ij")
     return torch.stack([xs, ys, torch.ones_like(xs)], dim=0)
 
 
 def plane_sweep_coords(rel_proj: torch.Tensor, depth_values: torch.Tensor,
-                       height: int, width: int) -> torch.Tensor:
+                       height: int, width: int, row0: int = 0,
+                       rows: int | None = None) -> torch.Tensor:
     """Source-view sampling coords for every (depth, pixel).
 
     rel_proj (*lead, 4, 4); depth_values (*lead, D) or (*lead, D, H, W).
     Returns (*lead, D, H, W, 2) (x, y). Points with z <= 1e-3 (behind the
     source camera) go to (-2W, -2H), where zero-padded sampling drops them.
+    With `rows`, the reference pixels are rows row0 .. row0 + rows - 1 of
+    an image of `height` rows (depth_values per pixel then has `rows`).
     """
     lead = rel_proj.shape[:-2]
     nl = len(lead)
     rot = rel_proj[..., :3, :3]
     trans = rel_proj[..., :3, 3]
-    grid = pixel_grid(height, width, depth_values.dtype, depth_values.device)
+    grid = pixel_grid(height if rows is None else rows, width,
+                      depth_values.dtype, depth_values.device, row0)
     # Same order as the reference: rotate (x term, y term, then the constant
     # column), then multiply-add depth and translation, then divide. Written
     # elementwise so every step rounds once, in the order the CUDA kernel
@@ -58,10 +63,12 @@ def plane_sweep_coords(rel_proj: torch.Tensor, depth_values: torch.Tensor,
 
 
 def warp_src_feature(src_feat: torch.Tensor, rel_proj: torch.Tensor,
-                     depth_values: torch.Tensor) -> torch.Tensor:
+                     depth_values: torch.Tensor, row0: int = 0,
+                     rows: int | None = None) -> torch.Tensor:
     """Warp source features (*lead, H, W, C) over all hypotheses.
 
-    Returns the plane-sweep volume (*lead, D, H, W, C)."""
+    Returns the plane-sweep volume (*lead, D, H, W, C), or with `rows` its
+    rows row0 .. row0 + rows - 1."""
     h, w = src_feat.shape[-3:-1]
-    coords = plane_sweep_coords(rel_proj, depth_values, h, w)
+    coords = plane_sweep_coords(rel_proj, depth_values, h, w, row0, rows)
     return bilinear_sample(src_feat, coords)

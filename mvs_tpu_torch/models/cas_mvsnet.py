@@ -14,6 +14,16 @@ on the fused conv3d kernel; `model.train()` runs the blocks' train paths
 (batch statistics, torch convs) and the warp's backward kernel, and each
 stage's depth is detached before it centres the next stage's hypotheses,
 as the JAX model does in training.
+
+With ``volume_constraint`` (parallel.sharding.ShardingPlan
+.constrain_volume, where mvs_tpu puts its sharding constraint) a rank
+builds only its slab of each stage's volume, on the warp kernel's row
+window, and regularizes and regresses it over the ranks that hold the
+other slabs; each stage's outputs are the rows it holds, with their
+layout under "shard", and the next stage upsamples the whole depth map,
+gathered over the ranks that split the rows. Each stage's features'
+cotangent is summed over the ranks that split the volume
+(parallel.collectives.shared) before the feature net's backward.
 """
 
 from __future__ import annotations
@@ -28,8 +38,10 @@ from mvs_tpu_torch.geometry.depth import cascade_depth_samples
 from mvs_tpu_torch.nn.blocks import Conv, init_random_
 from mvs_tpu_torch.nn.cost_reg import UNetCostRegNet
 from mvs_tpu_torch.nn.feature_nets import CascadeFeatureNet
-from mvs_tpu_torch.ops.regression import regress_depth_and_confidence
 from mvs_tpu_torch.ops.warp_variance import fused_variance_volume
+from mvs_tpu_torch.parallel.collectives import (gather_rows,
+                                                regress_sharded, shared)
+from mvs_tpu_torch.parallel.sharding import use_volume
 
 __all__ = ["CasMVSNet"]
 
@@ -75,6 +87,9 @@ class CasMVSNet(nn.Module):
         # (parallel.collectives.make_view_variance: the source views split
         # over the mesh 'view' axis, one all-reduce of the partial sums).
         self.view_variance = None
+        # Optional fn((B, D, H, W, C) shape) -> the VolumeShard this rank
+        # builds of a stage's volume, or None for the whole volume.
+        self.volume_constraint = None
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_random_(self, generator, trained)
@@ -110,18 +125,37 @@ class CasMVSNet(nn.Module):
             interval = self.depth_interval_ratios[i] * depth_interval
             hyp = cascade_depth_samples(cur_depth, ndepth, interval, sh,
                                         sw).contiguous()
+            shard = None if self.volume_constraint is None else \
+                self.volume_constraint((b, ndepth, sh, sw, f.shape[-1]))
+            if shard is not None:
+                f = shared(f, shard.sample_group)
+            ref, row0 = f[:, 0], 0
+            if shard is not None:  # this rank's rows and depth slab
+                ref, hyp = shard.take(ref, {2: 1}), shard.take(hyp, {1: 1, 2: 2})
+                row0 = shard.slices({2: 1})[1].start or 0
             volume = (self.view_variance or fused_variance_volume)(
-                f[:, 0].contiguous(), f[:, 1:].contiguous(),
-                rel_projs.contiguous(), hyp)
-            if self.share_cr:
-                score = self.cost_reg_shared(
-                    getattr(self, f"cr_inproj_{stage}")(volume))
-            else:
-                score = getattr(self, f"cost_reg_{stage}")(volume)
-            depth, conf, prob = regress_depth_and_confidence(score.float(),
-                                                             hyp)
+                ref.contiguous(), f[:, 1:].contiguous(),
+                rel_projs.contiguous(), hyp.contiguous(), row0=row0)
+            if shard is not None and shard.split(3) is not None:
+                # Columns split: the warp's row window spans whole rows.
+                volume = shard.take(volume, {3: 3})
+                hyp = shard.take(hyp, {3: 3})
+            with use_volume(shard):
+                if self.share_cr:
+                    score = self.cost_reg_shared(
+                        getattr(self, f"cr_inproj_{stage}")(volume))
+                else:
+                    score = getattr(self, f"cost_reg_{stage}")(volume)
+            depth, conf, prob = regress_sharded(score.float(), hyp, shard)
             outputs[stage] = {"depth": depth, "photometric_confidence": conf,
                               "prob_volume": prob}
-        outputs["depth"] = depth
+            if shard is not None:
+                maps = outputs[stage]["shard"] = shard.map_shard()
+                if i + 1 < len(self.ndepths):
+                    depth = gather_rows(depth, maps)
+        last = outputs[stage]
+        outputs["depth"] = last["depth"]
         outputs["photometric_confidence"] = conf
+        if "shard" in last:
+            outputs["shard"] = last["shard"]
         return outputs

@@ -8,6 +8,14 @@ fused warp-variance kernel (its backward kernel in train mode; the ladder
 takes no gradient, as in the JAX model); UNetCostRegNet regularizes it
 (in eval mode its stride-1 convs run on the fused conv3d kernel) and the
 depth and confidence are regressed in f32 with the ladder.
+
+With ``volume_constraint`` (parallel.sharding.ShardingPlan
+.constrain_volume) a rank builds, regularizes and regresses only its slab
+of the volume, as CasMVSNet's stages do; its maps are the rows it holds
+(their layout under "shard"), and RefineNet runs on the whole depth map,
+gathered over the ranks that split the rows, of which it keeps its rows.
+The features' cotangent is summed over the ranks that split the volume
+(parallel.collectives.shared) before the feature net's backward.
 """
 
 from __future__ import annotations
@@ -19,8 +27,10 @@ from mvs_tpu_torch.geometry.resize import downsample_bilinear
 from mvs_tpu_torch.nn.blocks import ConvBlock, init_random_
 from mvs_tpu_torch.nn.cost_reg import UNetCostRegNet
 from mvs_tpu_torch.nn.feature_nets import MVSNetFeatureNet
-from mvs_tpu_torch.ops.regression import regress_depth_and_confidence
 from mvs_tpu_torch.ops.warp_variance import fused_variance_volume
+from mvs_tpu_torch.parallel.collectives import (gather_rows,
+                                                regress_sharded, shared)
+from mvs_tpu_torch.parallel.sharding import use_volume
 
 __all__ = ["MVSNet", "RefineNet"]
 
@@ -78,6 +88,9 @@ class MVSNet(nn.Module):
         # the fused kernel, same arguments
         # (parallel.collectives.make_view_variance).
         self.view_variance = None
+        # Optional fn((B, D, H, W, C) shape) -> the VolumeShard this rank
+        # builds of the volume, or None for the whole volume.
+        self.volume_constraint = None
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_random_(self, generator, trained)
@@ -106,16 +119,33 @@ class MVSNet(nn.Module):
         rel_projs = (proj[:, 1:] @ torch.linalg.inv(proj[:, 0])[:, None]
                      ).contiguous()
         ladder = depth_values.float()
-        hyp = ladder[:, :, None, None].expand(-1, -1, fh, fw).contiguous()
+        shard = None if self.volume_constraint is None else \
+            self.volume_constraint((b, d, fh, fw, feats.shape[-1]))
+        if shard is not None:
+            feats = shared(feats, shard.sample_group)
+        ref, row0, rows = feats[:, 0], 0, fh
+        if shard is not None:  # this rank's rows and depth slab
+            ref, ladder = shard.take(ref, {2: 1}), shard.take(ladder, {1: 1})
+            row0, rows = shard.slices({2: 1})[1].start or 0, ref.shape[1]
+        hyp = ladder[:, :, None, None].expand(-1, -1, rows, fw).contiguous()
         volume = (self.view_variance or fused_variance_volume)(
-            feats[:, 0].contiguous(), feats[:, 1:].contiguous(), rel_projs,
-            hyp)
-        score = self.UNetCostRegNet_0(volume)
-        depth, conf, prob = regress_depth_and_confidence(score.float(),
-                                                         ladder)
+            ref.contiguous(), feats[:, 1:].contiguous(), rel_projs, hyp,
+            row0=row0)
+        if shard is not None and shard.split(3) is not None:
+            # Columns split: the warp's row window spans whole rows.
+            volume = shard.take(volume, {3: 3})
+        with use_volume(shard):
+            score = self.UNetCostRegNet_0(volume)
+        depth, conf, prob = regress_sharded(score.float(), ladder, shard)
         out = {"depth": depth, "photometric_confidence": conf,
                "prob_volume": prob}
+        if shard is not None:
+            out["shard"] = shard.map_shard()
         if self.RefineNet_0 is not None:
-            out["refined_depth"] = self.RefineNet_0(
-                imgs[:, 0].to(self.compute_dtype), depth)
+            whole = depth if shard is None else gather_rows(depth,
+                                                            out["shard"])
+            refined = self.RefineNet_0(imgs[:, 0].to(self.compute_dtype),
+                                       whole)
+            out["refined_depth"] = refined if shard is None else \
+                out["shard"].take(refined)
         return out

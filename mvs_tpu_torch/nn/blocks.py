@@ -32,6 +32,12 @@ Geometry follows flax 'SAME': stride-2 padding is asymmetric (lo =
 total // 2), and the stride-2 transposed conv is flax's dilated-input form,
 which torch expresses as conv_transpose over the flipped kernel cropped to
 2x the input (the flip happens in the converter).
+
+Inside a split volume (parallel.sharding.use_volume: a rank holds a slab
+of the cost regularizer's volume) every 3D conv of kernel 3 exchanges its
+input's halo first and convolves the extended slab (parallel.halo), and
+the normalizations take their moments over the ranks whose slabs make the
+batch (BatchNorm) or the sample (GroupNorm).
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvs_tpu_torch.ops.conv3d import conv3d_affine
-from mvs_tpu_torch.parallel.collectives import global_moments
+from mvs_tpu_torch.parallel import halo
+from mvs_tpu_torch.parallel.collectives import all_reduce, global_moments
+from mvs_tpu_torch.parallel.sharding import current_volume
 
 __all__ = ["BatchStats", "Norm", "GroupNorm", "make_norm", "Conv",
            "ConvTranspose", "ConvBlock", "ConvTransposeBlock",
@@ -120,10 +128,9 @@ class BatchStats(nn.Module):
         f32: the biased var = max(E[y^2] - E[y]^2, 0). Under a current mesh
         with more than one data rank (parallel.use_mesh) E[y] and E[y^2]
         are the global batch's: one differentiable all-reduce over the
-        'data' group."""
-        yf = y.float()
-        dims = tuple(range(yf.ndim - 1))
-        mean, mean_sq = global_moments(yf.mean(dims), (yf * yf).mean(dims))
+        'data' group, or inside a split volume over the ranks whose slabs
+        make the batch (parallel.collectives.global_moments)."""
+        mean, mean_sq = global_moments(y.float())
         return mean, torch.clamp(mean_sq - mean * mean, min=0.0)
 
     @torch.no_grad()
@@ -218,7 +225,15 @@ class GroupNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = tuple(range(1, x.ndim - 1))
         count = xf[0, ..., 0].numel()
-        mean, var = self.moments(xf.sum(dims), (xf * xf).sum(dims), count)
+        sums, sq_sums = xf.sum(dims), (xf * xf).sum(dims)
+        shard = current_volume() if x.ndim == 5 else None
+        group = None if shard is None else shard.sample_group
+        if group is not None:  # a sample's volume over the ranks' slabs
+            n = torch.full_like(sums, float(count))
+            sums, sq_sums, n = all_reduce(torch.stack([sums, sq_sums, n]),
+                                          group).unbind()
+            count = n[0, 0]
+        mean, var = self.moments(sums, sq_sums, count)
         return self.normalize(xf, mean, var)
 
 
@@ -266,14 +281,22 @@ class Conv(nn.Module):
             else:
                 shift = shift + scale * self.bias
         ks = tuple(self.kernel.shape[2:])
+        shard = current_volume() if ks == (3, 3, 3) else None
+        if shard is not None:
+            x = halo.extend(x, shard)
         if ks == (3, 3, 3) and self.stride == 1 and not self.training:
             if scale is None:
                 scale = torch.ones(self.kernel.shape[0], device=x.device)
                 shift = torch.zeros_like(scale)
-            return conv3d_affine(x.contiguous(), self.kernel, scale, shift,
-                                 relu)
-        pads = [_same_pads(n, k, self.stride)
-                for n, k in zip(x.shape[1:-1], ks)]
+            y = conv3d_affine(x.contiguous(), self.kernel, scale, shift,
+                              relu)
+            return y if shard is None else halo.crop(y, shard)
+        split = halo.split_dims(shard)
+        if split and self.stride == 2:
+            x = halo.stride2_input(x, shard)
+        # The halo stands in for the padding of a split dim.
+        pads = [(0, 0) if d + 1 in split else _same_pads(n, k, self.stride)
+                for d, (n, k) in enumerate(zip(x.shape[1:-1], ks))]
         flat = [p for lo_hi in reversed(pads) for p in lo_hi]
         if any(flat):
             x = F.pad(x, (0, 0, *flat))
@@ -315,21 +338,33 @@ class ConvTranspose(nn.Module):
             _, h, w, _ = x.shape
             return _epilogue(y[:, :, :2 * h, :2 * w], scale, shift, relu,
                              x.dtype)
+        shard = current_volume()
+        sizes = x.shape[1:4]
+        if shard is not None:
+            x = halo.extend(x, shard)
         if self.stride == 1:
             if not self.training:
                 w = self.kernel.flip(2, 3, 4).transpose(0, 1)
                 if scale is None:
                     scale = torch.ones(w.shape[0], device=x.device)
                     shift = torch.zeros_like(scale)
-                return conv3d_affine(x.contiguous(), w, scale, shift, relu)
+                y = conv3d_affine(x.contiguous(), w, scale, shift, relu)
+                return y if shard is None else halo.crop(y, shard)
+            # conv_transpose's padding crops its output: one plane more on
+            # a split dim, whose halo is there.
+            pad = 1 if shard is None else [
+                2 - p for p in halo.same_conv_padding(shard)]
             y = F.conv_transpose3d(x.movedim(-1, 1), self.kernel.to(x.dtype),
-                                   padding=1)
+                                   padding=pad)
             return _epilogue(y, scale, shift, relu, x.dtype)
         y = F.conv_transpose3d(x.movedim(-1, 1), self.kernel.to(x.dtype),
                                stride=2)
-        _, d, h, w, _ = x.shape
-        return _epilogue(y[:, :, :2 * d, :2 * h, :2 * w], scale, shift, relu,
-                         x.dtype)
+        if shard is not None:
+            y = halo.transposed_crop(y, shard, sizes)
+        else:
+            d, h, w = sizes
+            y = y[:, :, :2 * d, :2 * h, :2 * w]
+        return _epilogue(y, scale, shift, relu, x.dtype)
 
 
 def _norm_relu_block(block, conv, x):
@@ -396,12 +431,13 @@ class _ConvToF32(torch.autograd.Function):
     the inputs' dtype and convolves in it."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, padding):
         ctx.save_for_backward(x, w)
+        ctx.padding = padding
         cudnn = torch.backends.cudnn
         saved, cudnn.allow_tf32 = cudnn.allow_tf32, True
         try:
-            return F.conv3d(x.float(), w.float(), padding=1)
+            return F.conv3d(x.float(), w.float(), padding=padding)
         finally:
             cudnn.allow_tf32 = saved
 
@@ -409,9 +445,9 @@ class _ConvToF32(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         gx, gw, _ = torch.ops.aten.convolution_backward(
-            g.to(x.dtype), x, w, None, [1] * 3, [1] * 3, [1] * 3, False,
-            [0] * 3, 1, [*ctx.needs_input_grad[:2], False])
-        return gx, gw
+            g.to(x.dtype), x, w, None, [1] * 3, list(ctx.padding), [1] * 3,
+            False, [0] * 3, 1, [*ctx.needs_input_grad[:2], False])
+        return gx, gw, None
 
 
 class FusedConvBlock3D(BatchStats):
@@ -434,20 +470,36 @@ class FusedConvBlock3D(BatchStats):
     def forward(self, x):
         if not self.training:
             scale, shift = self.affine()
-            return conv3d_affine(x.contiguous(), self.kernel, scale, shift,
-                                 self.relu)
+            return _fused_conv(x, self.kernel, scale, shift, self.relu)
         y = self.normalize_batch(_conv3d_to_f32(x, self.kernel))
         if self.relu:
             y = torch.relu(y)
         return y.to(x.dtype)
 
 
+def _fused_conv(x, kernel, scale, shift, relu):
+    """The fused conv3d kernel's SAME conv of `x`, on the halo-extended
+    slab inside a split volume."""
+    shard = current_volume()
+    if shard is None:
+        return conv3d_affine(x.contiguous(), kernel, scale, shift, relu)
+    y = conv3d_affine(halo.extend(x, shard).contiguous(), kernel, scale,
+                      shift, relu)
+    return halo.crop(y, shard)
+
+
 def _conv3d_to_f32(x, kernel):
     """Train-mode 3x3x3 SAME conv of channels-last `x` with an f32 result
-    (_ConvToF32 for a low-precision input), channels-last."""
+    (_ConvToF32 for a low-precision input), channels-last; inside a split
+    volume the halo-extended slab's, unpadded on the split dims."""
+    shard = current_volume()
+    padding = [1] * 3
+    if shard is not None:
+        x = halo.extend(x, shard)
+        padding = halo.same_conv_padding(shard)
     x5, w = x.movedim(-1, 1), kernel.to(x.dtype)
-    y = F.conv3d(x5, w, padding=1) if x.dtype == torch.float32 \
-        else _ConvToF32.apply(x5, w)
+    y = F.conv3d(x5, w, padding=padding) if x.dtype == torch.float32 \
+        else _ConvToF32.apply(x5, w, padding)
     return y.movedim(1, -1)
 
 
@@ -467,8 +519,8 @@ class FusedConvBlock3DNoNorm(nn.Module):
     def forward(self, x):
         if not self.training:
             ones = torch.ones(self.kernel.shape[0], device=x.device)
-            return conv3d_affine(x.contiguous(), self.kernel, ones,
-                                 torch.zeros_like(ones), self.relu)
+            return _fused_conv(x, self.kernel, ones, torch.zeros_like(ones),
+                               self.relu)
         y = _conv3d_to_f32(x, self.kernel)
         if self.relu:
             y = torch.relu(y)

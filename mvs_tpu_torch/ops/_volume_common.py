@@ -23,15 +23,23 @@ def vjp_plain(fn, grad, ref_feat, src_feats, rel_projs, depth_values,
     return grads[0], grads[1], grads[2] if depth_grad else None
 
 
-def check_cuda_inputs(ref_feat, src_feats, rel_projs, depth_values):
-    """Raise on what the kernels do not take; return (B, V, D, H, W, C)."""
+def check_cuda_inputs(ref_feat, src_feats, rel_projs, depth_values,
+                      row0: int | None = None):
+    """Raise on what the kernels do not take; return (B, V, D, H, W, C).
+    With `row0` the reference's H rows are rows row0 .. row0 + H - 1 of the
+    source views (the warp kernels' row window); without it the source
+    views have H rows."""
     if ref_feat.device.type != "cuda":
         raise ValueError(f"unsupported device {ref_feat.device}")
     b, h, w, c = ref_feat.shape
-    if src_feats.ndim != 5 or src_feats.shape[0] != b or \
-            src_feats.shape[2:] != ref_feat.shape[1:]:
+    rows_ok = src_feats.ndim == 5 and (
+        src_feats.shape[2] == h if row0 is None
+        else 0 <= row0 <= src_feats.shape[2] - h)
+    if not rows_ok or src_feats.shape[0] != b or \
+            src_feats.shape[3:] != ref_feat.shape[2:]:
         raise ValueError(f"src_feats {tuple(src_feats.shape)} does not match "
-                         f"ref_feat {tuple(ref_feat.shape)}")
+                         f"ref_feat {tuple(ref_feat.shape)}"
+                         + ("" if row0 is None else f" at row {row0}"))
     nv = src_feats.shape[1]
     if rel_projs.shape != (b, nv, 4, 4):
         raise ValueError(f"rel_projs {tuple(rel_projs.shape)}, want "

@@ -20,13 +20,15 @@ __all__ = ["variance_cost_volume", "variance_partials",
 
 
 def variance_cost_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
-                         rel_projs: torch.Tensor,
-                         depth_values: torch.Tensor) -> torch.Tensor:
+                         rel_projs: torch.Tensor, depth_values: torch.Tensor,
+                         row0: int = 0) -> torch.Tensor:
     """(B, D, H, W, C) variance over ref + V source views.
 
     ref_feat (B, H, W, C); src_feats (B, V, H, W, C); rel_projs (B, V, 4, 4)
     src @ ref^-1; depth_values (B, D) shared ladder or (B, D, H, W).
-    Returns the volume in ref_feat's dtype.
+    Returns the volume in ref_feat's dtype. With `row0`, ref_feat (and
+    per-pixel depth_values) hold rows row0 .. row0 + H - 1 of source views
+    with more rows, and the volume those rows.
     """
     b, h, w, c = ref_feat.shape
     d = depth_values.shape[1]
@@ -35,7 +37,7 @@ def variance_cost_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
     sum_sq = sum_f * sum_f
     for v in range(num_views - 1):
         warped = warp_src_feature(src_feats[:, v].float(), rel_projs[:, v],
-                                  depth_values)
+                                  depth_values, row0=row0, rows=h)
         sum_f = sum_f + warped
         sum_sq = sum_sq + warped * warped
     return variance_from_partials(sum_f, sum_sq, num_views).to(ref_feat.dtype)
@@ -43,7 +45,7 @@ def variance_cost_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
 
 def variance_partials(ref_feat: torch.Tensor, src_feats: torch.Tensor,
                       rel_projs: torch.Tensor, depth_values: torch.Tensor,
-                      with_ref: bool = True):
+                      with_ref: bool = True, row0: int = 0):
     """(sum_f, sum_sq), each (B, D, H, W, C) f32: the sums of the warped
     source views' features and of their squares, with the reference view a
     term when `with_ref`; inputs as variance_cost_volume. The sums are
@@ -57,7 +59,7 @@ def variance_partials(ref_feat: torch.Tensor, src_feats: torch.Tensor,
     sum_sq = sum_f * sum_f
     for v in range(src_feats.shape[1]):
         warped = warp_src_feature(src_feats[:, v].float(), rel_projs[:, v],
-                                  depth_values)
+                                  depth_values, row0=row0, rows=h)
         sum_f = sum_f + warped
         sum_sq = sum_sq + warped * warped
     return sum_f, sum_sq

@@ -19,6 +19,11 @@ only when ``depth_values`` requires one; on the CPU autograd runs through
 the plain version. No model differentiates the cameras: both paths raise if
 ``rel_projs`` requires a gradient.
 
+Every entry takes ``row0``: the reference features and the hypotheses
+hold rows row0 .. row0 + H - 1 of source views with more rows (the
+kernels' row window, for a volume whose rows are split over processes,
+parallel.sharding); the output holds those rows of the whole volume.
+
 ``fused_variance_partials`` is the kernels' partial-moment variant, for a
 volume whose source views are split over processes (parallel.collectives):
 the f32 sums of the local views' warped features and of their squares, the
@@ -55,13 +60,13 @@ __all__ = ["fused_variance_volume", "fused_variance_volume_plain",
            "fused_variance_partials_grad_plain"]
 
 _SIGNATURES = {
-    "mvs_warp_variance": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    "mvs_warp_variance": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                           + [ctypes.c_void_p], ctypes.c_int),
-    "mvs_warp_variance_grad": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    "mvs_warp_variance_grad": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                                + [ctypes.c_void_p], ctypes.c_int),
-    "mvs_warp_partials": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    "mvs_warp_partials": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                           + [ctypes.c_void_p], ctypes.c_int),
-    "mvs_warp_partials_grad": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+    "mvs_warp_partials_grad": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
                                + [ctypes.c_void_p], ctypes.c_int),
 }
 
@@ -69,16 +74,17 @@ fused_variance_volume_plain = variance_cost_volume
 
 
 def fused_variance_volume_grad_plain(grad, ref_feat, src_feats, rel_projs,
-                                     depth_values, depth_grad: bool = True):
+                                     depth_values, depth_grad: bool = True,
+                                     row0: int = 0):
     """(dref, dsrc, ddepth) by autograd through the plain version (ddepth
     None unless `depth_grad`)."""
     return vjp_plain(fused_variance_volume_plain, grad, ref_feat, src_feats,
-                     rel_projs, depth_values, depth_grad=depth_grad)
+                     rel_projs, depth_values, row0, depth_grad=depth_grad)
 
 
-def _launch_forward(ref_feat, src_feats, rel_projs, depth_values):
+def _launch_forward(ref_feat, src_feats, rel_projs, depth_values, row0):
     b, nv, d, h, w, c = check_cuda_inputs(ref_feat, src_feats, rel_projs,
-                                          depth_values)
+                                          depth_values, row0)
     geom = geometry(rel_projs)
     out = torch.empty((b, d, h, w, c), dtype=ref_feat.dtype,
                       device=ref_feat.device)
@@ -89,7 +95,8 @@ def _launch_forward(ref_feat, src_feats, rel_projs, depth_values):
         status = lib.mvs_warp_variance(
             ref_feat.data_ptr(), src_feats.data_ptr(), geom.data_ptr(),
             depth_values.data_ptr(), out.data_ptr(), b, nv, d, h, w, c,
-            DTYPES[ref_feat.dtype], int(vec), stream)
+            src_feats.shape[2], row0, DTYPES[ref_feat.dtype], int(vec),
+            stream)
     _build.check(status, "warp_variance")
     fused_variance_volume.launches += 1
     fused_variance_volume.vector_launches += int(vec)
@@ -97,7 +104,8 @@ def _launch_forward(ref_feat, src_feats, rel_projs, depth_values):
 
 
 def fused_variance_volume_grad(grad, ref_feat, src_feats, rel_projs,
-                               depth_values, depth_grad: bool = False):
+                               depth_values, depth_grad: bool = False,
+                               row0: int = 0):
     """(dref (B, H, W, C), dsrc (B, V, H, W, C), ddepth (B, D, H, W) or None)
     given grad = dL/dvar (B, D, H, W, C) and the forward's inputs: the
     features' gradients in their dtype, the hypotheses' in f32 when
@@ -110,9 +118,10 @@ def fused_variance_volume_grad(grad, ref_feat, src_feats, rel_projs,
     """
     if ref_feat.device.type == "cpu":
         return fused_variance_volume_grad_plain(
-            grad, ref_feat, src_feats, rel_projs, depth_values, depth_grad)
+            grad, ref_feat, src_feats, rel_projs, depth_values, depth_grad,
+            row0)
     b, nv, d, h, w, c = check_cuda_inputs(ref_feat, src_feats, rel_projs,
-                                          depth_values)
+                                          depth_values, row0)
     grad = check_grad(grad, (b, d, h, w, c), ref_feat)
     geom = geometry(rel_projs)
     dref = torch.empty_like(ref_feat)
@@ -128,7 +137,8 @@ def fused_variance_volume_grad(grad, ref_feat, src_feats, rel_projs,
             ref_feat.data_ptr(), src_feats.data_ptr(), geom.data_ptr(),
             depth_values.data_ptr(), grad.data_ptr(), dref.data_ptr(),
             dsrc.data_ptr(), None if ddepth is None else ddepth.data_ptr(),
-            b, nv, d, h, w, c, DTYPES[ref_feat.dtype], int(vec), stream)
+            b, nv, d, h, w, c, src_feats.shape[2], row0,
+            DTYPES[ref_feat.dtype], int(vec), stream)
     _build.check(status, "warp_variance_grad")
     fused_variance_volume_grad.launches += 1
     fused_variance_volume_grad.depth_launches += int(depth_grad)
@@ -143,36 +153,43 @@ class _WarpVariance(torch.autograd.Function):
     """The forward kernel, saving only its inputs; the backward kernel."""
 
     @staticmethod
-    def forward(ctx, ref_feat, src_feats, rel_projs, depth_values):
+    def forward(ctx, ref_feat, src_feats, rel_projs, depth_values, row0):
         ctx.save_for_backward(ref_feat, src_feats, rel_projs, depth_values)
-        return _launch_forward(ref_feat, src_feats, rel_projs, depth_values)
+        ctx.row0 = row0
+        return _launch_forward(ref_feat, src_feats, rel_projs, depth_values,
+                               row0)
 
     @staticmethod
     def backward(ctx, grad):
         dref, dsrc, ddepth = fused_variance_volume_grad(
-            grad, *ctx.saved_tensors, depth_grad=ctx.needs_input_grad[3])
-        return dref, dsrc, None, ddepth
+            grad, *ctx.saved_tensors, depth_grad=ctx.needs_input_grad[3],
+            row0=ctx.row0)
+        return dref, dsrc, None, ddepth, None
 
 
 def fused_variance_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
                           rel_projs: torch.Tensor,
-                          depth_values: torch.Tensor) -> torch.Tensor:
+                          depth_values: torch.Tensor,
+                          row0: int = 0) -> torch.Tensor:
     """Variance volume (B, D, H, W, C) over ref + V views, exact bilinear.
 
     ref_feat (B, H, W, C) and src_feats (B, V, H, W, C), f32 or bf16,
     contiguous; rel_projs (B, V, 4, 4) src @ ref^-1; depth_values
     (B, D, H, W) f32 contiguous per-pixel hypotheses. Output in the
     features' dtype; differentiable in the features and the hypotheses.
+    With `row0`, ref_feat and depth_values hold rows row0 .. row0 + H - 1
+    of the source views' rows, and the output those rows of the volume.
     """
     check_geometry_grad(rel_projs, "the warp")
     if ref_feat.device.type == "cpu":
         return fused_variance_volume_plain(ref_feat, src_feats, rel_projs,
-                                           depth_values)
+                                           depth_values, row0)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (ref_feat, src_feats, depth_values)):
         return _WarpVariance.apply(ref_feat, src_feats, rel_projs,
-                                   depth_values)
-    return _launch_forward(ref_feat, src_feats, rel_projs, depth_values)
+                                   depth_values, row0)
+    return _launch_forward(ref_feat, src_feats, rel_projs, depth_values,
+                           row0)
 
 
 fused_variance_volume.launches = 0
@@ -185,7 +202,8 @@ fused_variance_partials_plain = variance_partials
 def fused_variance_partials_grad_plain(g1, g2, ref_feat, src_feats,
                                        rel_projs, depth_values,
                                        with_ref: bool = True,
-                                       depth_grad: bool = True):
+                                       depth_grad: bool = True,
+                                       row0: int = 0):
     """(dref, dsrc, ddepth) by autograd through the plain partials for the
     cotangents g1 of sum_f and g2 of sum_sq: dref None unless `with_ref`,
     ddepth None unless `depth_grad`."""
@@ -195,23 +213,25 @@ def fused_variance_partials_grad_plain(g1, g2, ref_feat, src_feats,
             (depth_values, depth_grad)))
         wrt = [t for t in (ref, src, depth) if t.requires_grad]
         grads = iter(torch.autograd.grad(
-            variance_partials(ref, src, rel_projs, depth, with_ref), wrt,
+            variance_partials(ref, src, rel_projs, depth, with_ref, row0),
+            wrt,
             (g1, g2)))
     return tuple(next(grads) if t.requires_grad else None
                  for t in (ref, src, depth))
 
 
-def _partial_inputs(ref_feat, src_feats, rel_projs, depth_values):
-    dims = check_cuda_inputs(ref_feat, src_feats, rel_projs, depth_values)
+def _partial_inputs(ref_feat, src_feats, rel_projs, depth_values, row0):
+    dims = check_cuda_inputs(ref_feat, src_feats, rel_projs, depth_values,
+                             row0)
     if dims[1] == 0:
         raise ValueError("the partial sums need at least one source view")
     return dims
 
 
 def _launch_partials(ref_feat, src_feats, rel_projs, depth_values,
-                     with_ref: bool):
+                     with_ref: bool, row0: int):
     b, nv, d, h, w, c = _partial_inputs(ref_feat, src_feats, rel_projs,
-                                        depth_values)
+                                        depth_values, row0)
     geom = geometry(rel_projs)
     sum_f, sum_sq = torch.empty((2, b, d, h, w, c), dtype=torch.float32,
                                 device=ref_feat.device)
@@ -222,8 +242,8 @@ def _launch_partials(ref_feat, src_feats, rel_projs, depth_values,
         status = lib.mvs_warp_partials(
             ref_feat.data_ptr(), src_feats.data_ptr(), geom.data_ptr(),
             depth_values.data_ptr(), sum_f.data_ptr(), sum_sq.data_ptr(), b,
-            nv, d, h, w, c, int(with_ref), DTYPES[ref_feat.dtype], int(vec),
-            stream)
+            nv, d, h, w, c, src_feats.shape[2], row0, int(with_ref),
+            DTYPES[ref_feat.dtype], int(vec), stream)
     _build.check(status, "warp_partials")
     fused_variance_partials.launches += 1
     fused_variance_partials.vector_launches += int(vec)
@@ -232,7 +252,7 @@ def _launch_partials(ref_feat, src_feats, rel_projs, depth_values,
 
 def fused_variance_partials_grad(g1, g2, ref_feat, src_feats, rel_projs,
                                  depth_values, with_ref: bool = True,
-                                 depth_grad: bool = False):
+                                 depth_grad: bool = False, row0: int = 0):
     """(dref (B, H, W, C) or None, dsrc (B, V, H, W, C), ddepth (B, D, H, W)
     or None) given g1 = dL/dsum_f and g2 = dL/dsum_sq (B, D, H, W, C) and
     the forward's inputs: dref None unless `with_ref` (the reference view
@@ -245,9 +265,9 @@ def fused_variance_partials_grad(g1, g2, ref_feat, src_feats, rel_projs,
     if ref_feat.device.type == "cpu":
         return fused_variance_partials_grad_plain(
             g1, g2, ref_feat, src_feats, rel_projs, depth_values, with_ref,
-            depth_grad)
+            depth_grad, row0)
     b, nv, d, h, w, c = _partial_inputs(ref_feat, src_feats, rel_projs,
-                                        depth_values)
+                                        depth_values, row0)
     g1, g2 = (g.float().contiguous() for g in (g1, g2))
     for g in (g1, g2):
         if g.shape != (b, d, h, w, c) or g.device != ref_feat.device:
@@ -269,7 +289,8 @@ def fused_variance_partials_grad(g1, g2, ref_feat, src_feats, rel_projs,
             depth_values.data_ptr(), g1.data_ptr(), g2.data_ptr(),
             None if dref is None else dref.data_ptr(), dsrc.data_ptr(),
             None if ddepth is None else ddepth.data_ptr(), b, nv, d, h, w, c,
-            int(with_ref), DTYPES[ref_feat.dtype], int(vec), stream)
+            src_feats.shape[2], row0, int(with_ref), DTYPES[ref_feat.dtype],
+            int(vec), stream)
     _build.check(status, "warp_partials_grad")
     fused_variance_partials_grad.launches += 1
     fused_variance_partials_grad.depth_launches += int(depth_grad)
@@ -285,11 +306,12 @@ class _WarpPartials(torch.autograd.Function):
     backward kernel."""
 
     @staticmethod
-    def forward(ctx, ref_feat, src_feats, rel_projs, depth_values, with_ref):
+    def forward(ctx, ref_feat, src_feats, rel_projs, depth_values, with_ref,
+                row0):
         ctx.save_for_backward(ref_feat, src_feats, rel_projs, depth_values)
-        ctx.with_ref = with_ref
+        ctx.with_ref, ctx.row0 = with_ref, row0
         return _launch_partials(ref_feat, src_feats, rel_projs, depth_values,
-                                with_ref)
+                                with_ref, row0)
 
     @staticmethod
     def backward(ctx, g1, g2):
@@ -301,16 +323,16 @@ class _WarpPartials(torch.autograd.Function):
                   for g in (g1, g2))
         dref, dsrc, ddepth = fused_variance_partials_grad(
             g1, g2, *ctx.saved_tensors, with_ref=ctx.with_ref,
-            depth_grad=ctx.needs_input_grad[3])
+            depth_grad=ctx.needs_input_grad[3], row0=ctx.row0)
         if dref is None and ctx.needs_input_grad[0]:
             dref = torch.zeros_like(ref_feat)
-        return dref, dsrc, None, ddepth, None
+        return dref, dsrc, None, ddepth, None, None
 
 
 def fused_variance_partials(ref_feat: torch.Tensor, src_feats: torch.Tensor,
                             rel_projs: torch.Tensor,
                             depth_values: torch.Tensor,
-                            with_ref: bool = True):
+                            with_ref: bool = True, row0: int = 0):
     """(sum_f, sum_sq), each (B, D, H, W, C) f32: the sums over the V >= 1
     source views in src_feats, and over the reference view when
     `with_ref`, of the exact bilinear warps and of their squares; inputs as
@@ -319,13 +341,13 @@ def fused_variance_partials(ref_feat: torch.Tensor, src_feats: torch.Tensor,
     check_geometry_grad(rel_projs, "the warp")
     if ref_feat.device.type == "cpu":
         return fused_variance_partials_plain(ref_feat, src_feats, rel_projs,
-                                             depth_values, with_ref)
+                                             depth_values, with_ref, row0)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (ref_feat, src_feats, depth_values)):
         return _WarpPartials.apply(ref_feat, src_feats, rel_projs,
-                                   depth_values, with_ref)
+                                   depth_values, with_ref, row0)
     return _launch_partials(ref_feat, src_feats, rel_projs, depth_values,
-                            with_ref)
+                            with_ref, row0)
 
 
 fused_variance_partials.launches = 0

@@ -15,16 +15,33 @@ mvs_tpu.parallel.collectives).
     form that fixed mvs_tpu's 2x kernel-gradient error under GSPMD
     (mvs_tpu/models/cas_mvsnet.py:57-65).
   * ``psum_metrics``: a dict of scalars reduced with one all-reduce.
-  * ``global_count``, ``global_moments``, ``gather_slots``: the reductions
-    over the current mesh's 'data' group that the masked losses, BatchNorm
-    and OHEM take (identities without a current mesh, or with one data
-    rank).
+  * ``global_count``, ``global_moments``, ``gather_map``: the reductions
+    that the masked losses, BatchNorm and OHEM take (identities without a
+    current mesh): counts and OHEM's ranking over the ranks whose maps
+    make the global batch's (sharding.current_map: 'data', and the axes
+    that split a regressed map's rows); BatchNorm's moments over 'data',
+    or inside a split volume (sharding.current_volume) over 'data' x
+    'depth' x 'space', each rank's moments weighted by its share of the
+    elements.
+  * ``regress_sharded``: softmax, soft-argmin and the 4-tap confidence
+    over a depth axis split over ranks: the max of the scores over the
+    line as a shift (no gradient), then one all-reduce of the sums
+    sum(exp), sum(exp * depth) and sum(exp * index), and one of the
+    window's taps, each rank adding the taps it holds at the global index.
+  * ``shared``: the features, which every rank of a split volume's
+    sample group computes alike, entering the volume: their cotangent is
+    summed over the group (f32) before the feature net's backward, so that
+    each rank runs it on the whole cotangent (GSPMD's all-reduce where a
+    replicated tensor meets sharded consumers) and rounds it as one
+    process does.
+  * ``gather_rows``: a map's parts over the ranks that split its rows
+    (CasMVSNet's next stage upsamples the whole map).
   * ``sum_gradients``: the parameter gradients summed over every rank in
     one flat bucket per dtype.
 
-Only ``all_reduce`` and ``broadcast`` move tensors: gloo has no CUDA
-all_gather, so ``gather_slots`` all-reduces each rank's rows into its slot
-of a zero buffer.
+Only ``all_reduce`` and ``broadcast`` move tensors (and the halo's sends
+under NCCL, parallel.halo): gloo has no CUDA all_gather, so a gather
+all-reduces each rank's part into its place in a zero buffer.
 """
 
 from __future__ import annotations
@@ -33,12 +50,16 @@ import torch
 import torch.distributed as dist
 
 from mvs_tpu_torch.ops.cost_volume import variance_from_partials
+from mvs_tpu_torch.ops.regression import regress_depth_and_confidence
 from mvs_tpu_torch.ops.warp_variance import fused_variance_partials
 from mvs_tpu_torch.parallel.mesh import Mesh, current_mesh
+from mvs_tpu_torch.parallel.sharding import (MapShard, VolumeShard,
+                                             current_map, current_volume)
 
 __all__ = ["all_reduce", "make_view_variance", "view_sharded_variance_volume",
-           "psum_metrics", "global_count", "global_moments", "gather_slots",
-           "sum_gradients", "data_group"]
+           "psum_metrics", "global_count", "global_moments", "gather_map",
+           "gather_rows", "regress_sharded", "shared", "sum_gradients",
+           "data_group", "metrics_group"]
 
 
 class _AllReduce(torch.autograd.Function):
@@ -56,6 +77,31 @@ class _AllReduce(torch.autograd.Function):
         return grad, None
 
 
+class _Shared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = grad.float().contiguous()
+        dist.all_reduce(total, group=ctx.group)
+        return (total / ctx.n).to(grad.dtype), None, None
+
+
+def shared(x: torch.Tensor, group) -> torch.Tensor:
+    """`x`, held alike by every rank of `group` (None: x itself), whose
+    consumers on those ranks each take a part of it: the identity, whose
+    backward sums the ranks' cotangents in f32 over the group and divides
+    by its size. Every rank then runs the backward of x's producer on the
+    whole cotangent, as one process does, and sum_gradients' sum over the
+    group counts it once."""
+    if group is None:
+        return x
+    return _Shared.apply(x, group, dist.get_world_size(group))
+
+
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of `x` over `group` (None: x itself), differentiable: its
     backward all-reduces the cotangents over the same group."""
@@ -71,9 +117,17 @@ def data_group(mesh: Mesh | None = None):
     return None if mesh is None else mesh.group("data")
 
 
+def metrics_group(mesh: Mesh):
+    """The ranks whose metric shares sum to the global batch's: 'data' x
+    'depth' x 'space' (a view group's ranks hold the same shares)."""
+    return mesh.group_of(("data", "depth", "space"))
+
+
 def global_count(count: torch.Tensor) -> torch.Tensor:
-    """A count (no gradient) summed over the current mesh's data ranks."""
-    group = data_group()
+    """A count (no gradient) summed over the ranks whose maps make the
+    global batch's (the current map's group)."""
+    shard = current_map()
+    group = None if shard is None else shard.group
     if group is None:
         return count
     count = count.detach().clone()
@@ -81,31 +135,87 @@ def global_count(count: torch.Tensor) -> torch.Tensor:
     return count
 
 
-def global_moments(mean: torch.Tensor, mean_sq: torch.Tensor):
-    """(E[y], E[y^2]) over the global batch from a rank's own, with one
-    differentiable all-reduce over the current mesh's data group: the ranks
-    hold equal row counts, so the ranks' moments average."""
-    group = data_group()
+def global_moments(y: torch.Tensor):
+    """(E[y], E[y^2]) per channel of channels-last `y` over the global
+    batch, from a rank's own part: the ranks' moments weighted by their
+    shares n / N of the elements (N the all-reduced count, in f64) and
+    summed with one differentiable all-reduce, over the current mesh's
+    data group, or inside a split volume, whose slabs may differ, over the
+    volume's moments group. Over k equal parts, k a power of 2, the
+    weights are exactly 1 / k."""
+    dims = tuple(range(y.ndim - 1))
+    shard = current_volume()
+    group = data_group() if shard is None else shard.moments_group
     if group is None:
-        return mean, mean_sq
-    n = current_mesh().size("data")
-    both = all_reduce(torch.stack([mean, mean_sq]), group) / n
+        return y.mean(dims), (y * y).mean(dims)
+    n = float(y[..., 0].numel())
+    total = torch.full((), n, dtype=torch.float64, device=y.device)
+    dist.all_reduce(total, group=group)
+    share = (n / total).to(y.dtype)
+    both = all_reduce(torch.stack([y.mean(dims), (y * y).mean(dims)])
+                      * share, group)
     return both[0], both[1]
 
 
-def gather_slots(x: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """(the current mesh's data ranks' 1-D `x` concatenated in data-rank
-    order, this rank's offset in it), with no gradient: each rank's x
-    all-reduced into its slot of a zero buffer; (x, 0) without a data
-    group."""
-    if data_group() is None:
-        return x.detach(), 0
-    mesh = current_mesh()
-    n, r = mesh.size("data"), mesh.coord("data")
-    buf = x.new_zeros((n, x.shape[0]))
-    buf[r] = x.detach()
-    dist.all_reduce(buf, group=mesh.group("data"))
-    return buf.reshape(-1), r * x.shape[0]
+@torch.no_grad()
+def gather_map(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the global batch's (B, H, W) map made of every rank's part `x` of
+    the current map, a bool map of this rank's part in it): each rank's
+    part all-reduced into its place in a zero buffer over the current
+    map's group; (x, all True) without one."""
+    shard = current_map()
+    if shard is None or shard.group is None:
+        return x, torch.ones_like(x, dtype=torch.bool)
+    mesh = shard.mesh
+    n, r, b = mesh.size("data"), mesh.coord("data"), x.shape[0]
+    part = shard.place(x)
+    buf = x.new_zeros((n * b,) + tuple(part.shape[1:]))
+    buf[r * b:(r + 1) * b] = part
+    mine = torch.zeros_like(buf, dtype=torch.bool)
+    mine[r * b:(r + 1) * b] = shard.place(torch.ones_like(x)) > 0
+    dist.all_reduce(buf, group=shard.group)
+    return buf, mine
+
+
+def gather_rows(x: torch.Tensor, shard: MapShard) -> torch.Tensor:
+    """The whole (B, H, W) map of the data rank's samples from each rank's
+    part `x` (differentiable: the all-reduce's backward hands each part its
+    cotangent); x itself when no axis splits the map."""
+    group = shard.part_group
+    return x if group is None else all_reduce(shard.place(x), group)
+
+
+def regress_sharded(cost: torch.Tensor, depth_values: torch.Tensor,
+                    shard: VolumeShard | None):
+    """ops.regression.regress_depth_and_confidence on this rank's slab of
+    the score volume (B, D_l, h, w), depth_values its (B, D_l) ladder or
+    (B, D_l, h, w) hypotheses, when `shard` splits D over a line of ranks:
+    (depth, confidence) of the rows it holds, equal on every rank of the
+    line, and its slab of the probability volume."""
+    split = None if shard is None else shard.split(1)
+    if split is None:
+        return regress_depth_and_confidence(cost, depth_values)
+    group = split.group
+    shift = cost.detach().amax(dim=1, keepdim=True)
+    dist.all_reduce(shift, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(cost - shift)
+    if depth_values.ndim == 2:
+        depth_values = depth_values[:, :, None, None]
+    steps = torch.arange(split.start, split.stop, dtype=e.dtype,
+                         device=e.device)[None, :, None, None]
+    sums = all_reduce(torch.stack([e.sum(1), (e * depth_values).sum(1),
+                                   (e.detach() * steps).sum(1)]), group)
+    prob = e / sums[0][:, None]
+    depth = sums[1] / sums[0]
+    # The 4-tap window {i-1 .. i+2} around the truncated global index i may
+    # span two slabs: each rank adds the taps it holds.
+    fixed = prob.detach()
+    index = (sums[2] / sums[0]).detach()
+    idx = index.clamp(0, split.extent - 1).to(torch.int64)[:, None]
+    window = (steps >= idx - 1) & (steps <= idx + 2)
+    conf = torch.sum(fixed * window.to(fixed.dtype), dim=1)
+    dist.all_reduce(conf, group=group)
+    return depth, conf, prob
 
 
 def psum_metrics(metrics: dict, group) -> dict:
@@ -139,13 +249,15 @@ def sum_gradients(grads, params, group=None) -> list:
 
 def make_view_variance(mesh: Mesh):
     """fn(ref_feat (B, H, W, C), src_feats (B, V, H, W, C), rel_projs
-    (B, V, 4, 4), depth_values (B, D, H, W)) -> the variance volume
+    (B, V, 4, 4), depth_values (B, D, H, W), row0=0) -> the variance volume
     (B, D, H, W, C) in ref_feat's dtype over all V + 1 views, this rank
     warping only its own V / |view| source views (view rank i: views
-    [i V / |view|, (i + 1) V / |view|)). V must divide by |view|."""
+    [i V / |view|, (i + 1) V / |view|)). V must divide by |view|. With a
+    split volume (row0, fused_variance_volume's row window) the rank
+    builds its slab only, as mvs_tpu's in_specs P('data', 'depth') do."""
     n, idx, group = mesh.size("view"), mesh.coord("view"), mesh.group("view")
 
-    def view_variance(ref_feat, src_feats, rel_projs, depth_values):
+    def view_variance(ref_feat, src_feats, rel_projs, depth_values, row0=0):
         num_src = src_feats.shape[1]
         if num_src % n:
             raise ValueError(f"{num_src} source views do not split over a "
@@ -154,7 +266,8 @@ def make_view_variance(mesh: Mesh):
         local = slice(idx * per, (idx + 1) * per)
         sums = fused_variance_partials(
             ref_feat, src_feats[:, local].contiguous(),
-            rel_projs[:, local].contiguous(), depth_values, with_ref=idx == 0)
+            rel_projs[:, local].contiguous(), depth_values, with_ref=idx == 0,
+            row0=row0)
         sum_f, sum_sq = all_reduce(torch.stack(sums), group).unbind()
         return variance_from_partials(sum_f, sum_sq,
                                       per * n + 1).to(ref_feat.dtype)

@@ -5,12 +5,12 @@ mvs_tpu lays devices out on a GSPMD mesh with the axes ('data', 'view',
 same grid, 'space' innermost and 'view' inside 'data': rank = ((d * view +
 v) * depth + z) * space + s. A rank gets its coordinates and the process
 groups of its 'data' line (the ranks that hold other rows of the global
-batch, same view shard) and its 'view' line (the ranks that hold the same
-rows, other source views).
-
-'depth' and 'space' above 1 raise: GSPMD's conv-halo sharding of the
-volumes (mvs_tpu.parallel.sharding.volume_sharded_plan and its extent
-guard) has no counterpart yet (ROADMAP.md queue 1, item 20).
+batch, same view shard), its 'view' line (the ranks that hold the same
+rows, other source views), its 'depth' and 'space' lines, and its line
+over every set of more than one of the axes that the volume sharding
+reduces over (parallel.sharding): the ('depth', 'space') product a folded
+dim splits over, the 'data' x 'depth' x 'space' ranks whose slabs make a
+batch's volume.
 
 The train loop makes its mesh current (use_mesh): while it is, the batch
 moments of BatchNorm, the masked losses and metrics and OHEM's ranking
@@ -26,11 +26,22 @@ import dataclasses
 import numpy as np
 import torch.distributed as dist
 
-__all__ = ["AXES", "Mesh", "layout", "make_mesh", "mesh_shape_from_config",
-           "use_mesh", "current_mesh"]
+__all__ = ["AXES", "Mesh", "layout", "lines", "make_mesh",
+           "mesh_shape_from_config", "use_mesh", "current_mesh"]
 
 AXES = ("data", "view", "depth", "space")
-_ITEM = "ROADMAP.md queue 1, item 20"
+
+
+def lines(shape: tuple, axes: tuple) -> list:
+    """The ranks of each line of the grid `shape` (sizes in AXES order)
+    along `axes` (the others fixed), each line in the order of its ranks'
+    mixed-radix index over `axes` (the first axis major)."""
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    idx = [AXES.index(a) for a in axes]
+    rest = [i for i in range(len(AXES)) if i not in idx]
+    moved = np.transpose(grid, rest + idx)
+    n = int(np.prod([shape[i] for i in idx]))
+    return [[int(r) for r in line] for line in moved.reshape(-1, n)]
 
 
 def layout(data: int = 1, view: int = 1, depth: int = 1,
@@ -38,12 +49,17 @@ def layout(data: int = 1, view: int = 1, depth: int = 1,
     """{axis: [ranks of each line along the axis]}: the process groups of
     the grid data x view x depth x space, in the order every rank creates
     them."""
-    grid = np.arange(data * view * depth * space).reshape(data, view, depth,
-                                                          space)
-    out = {}
-    for i, axis in enumerate(AXES):
-        lines = np.moveaxis(grid, i, -1).reshape(-1, grid.shape[i])
-        out[axis] = [[int(r) for r in line] for line in lines]
+    shape = (data, view, depth, space)
+    return {axis: lines(shape, (axis,)) for axis in AXES}
+
+
+def _subsets(live: list) -> list:
+    """The subsets of more than one of the `live` axes, in a fixed order."""
+    out = []
+    for mask in range(1, 2 ** len(live)):
+        sub = tuple(a for i, a in enumerate(live) if mask >> i & 1)
+        if len(sub) > 1:
+            out.append(sub)
     return out
 
 
@@ -53,6 +69,8 @@ class Mesh:
     rank: int
     coords: dict  # {axis: this rank's index}
     groups: dict  # {axis: ProcessGroup, or None for an axis of size 1}
+    # {frozenset of more than one axis of size > 1: ProcessGroup}
+    product_groups: dict = dataclasses.field(default_factory=dict)
 
     def size(self, axis: str) -> int:
         return self.shape[axis]
@@ -62,6 +80,37 @@ class Mesh:
 
     def group(self, axis: str):
         return self.groups[axis]
+
+    def sizes(self, axes) -> int:
+        """The product of the sizes of `axes`."""
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def group_of(self, axes):
+        """The ranks that differ from this one only along `axes` (any
+        order): None when those axes have one rank, the axis's own group
+        for one axis of size > 1."""
+        live = [a for a in AXES if a in axes and self.shape[a] > 1]
+        if not live:
+            return None
+        if len(live) == 1:
+            return self.groups[live[0]]
+        return self.product_groups[frozenset(live)]
+
+    def index_along(self, axes: tuple) -> int:
+        """This rank's mixed-radix index over `axes` (the first major)."""
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def rank_along(self, axes: tuple, index: int) -> int:
+        """The rank with mixed-radix index `index` over `axes` and this
+        rank's coordinates on the other axes."""
+        coords = dict(self.coords)
+        for a in reversed(axes):
+            index, coords[a] = divmod(index, self.shape[a])
+        return int(np.ravel_multi_index(tuple(coords[a] for a in AXES),
+                                        tuple(self.shape[a] for a in AXES)))
 
     @property
     def world_size(self) -> int:
@@ -76,10 +125,6 @@ def make_mesh(data: int = 1, view: int = 1, depth: int = 1, space: int = 1,
     rank must call this with the same shape, in the same order as its other
     group creations."""
     shape = dict(zip(AXES, (data, view, depth, space)))
-    if depth > 1 or space > 1:
-        raise NotImplementedError(
-            f"mesh depth={depth} space={space}: sharding the volumes over "
-            f"depth slabs or spatial tiles is not ported ({_ITEM})")
     initialized = dist.is_available() and dist.is_initialized()
     if world_size is None:
         world_size = dist.get_world_size() if initialized else 1
@@ -92,16 +137,19 @@ def make_mesh(data: int = 1, view: int = 1, depth: int = 1, space: int = 1,
             f"{world_size}")
     coords = dict(zip(AXES, (int(c) for c in np.unravel_index(
         rank, tuple(shape.values())))))
-    groups = {}
-    for axis, lines in layout(data, view, depth, space).items():
-        groups[axis] = None
-        if shape[axis] == 1:
-            continue
-        for line in lines:  # every rank creates every group, in order
-            g = dist.new_group(line)
+    def create(axes):
+        mine = None
+        for line in lines(tuple(shape.values()), axes):
+            g = dist.new_group(line)  # every rank creates every group
             if rank in line:
-                groups[axis] = g
-    return Mesh(shape, rank, coords, groups)
+                mine = g
+        return mine
+
+    groups = {axis: create((axis,)) if shape[axis] > 1 else None
+              for axis in AXES}
+    live = [a for a in AXES if shape[a] > 1]
+    product = {frozenset(sub): create(sub) for sub in _subsets(live)}
+    return Mesh(shape, rank, coords, groups, product)
 
 
 def mesh_shape_from_config(train_cfg, world_size: int) -> dict:

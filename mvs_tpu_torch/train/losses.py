@@ -13,6 +13,14 @@ all-reduced over the 'data' group, as mvs_tpu divides a global masked sum
 by a global count under GSPMD. The shares of the data ranks sum to the
 global loss (the train step sums them, parallel.psum_metrics), and each
 rank differentiates its own. OHEM ranks the whole global batch.
+
+Where a model splits its volumes over 'depth' and 'space' ranks
+(parallel.sharding), a map is the rows a rank holds (its layout under
+"shard" in the outputs; the task makes it current, parallel.use_map, and
+takes the same rows of the ground truth): counts are summed over the ranks
+whose rows make the global batch's maps, and a rank's share is divided by
+the number of ranks that hold the same rows (a family that does not split
+its volumes: every 'depth' x 'space' rank holds whole maps).
 """
 
 from __future__ import annotations
@@ -20,10 +28,12 @@ from __future__ import annotations
 import torch
 
 from mvs_tpu_torch.geometry.resize import resize_nearest
-from mvs_tpu_torch.parallel.collectives import gather_slots, global_count
+from mvs_tpu_torch.parallel.collectives import gather_map, global_count
+from mvs_tpu_torch.parallel.sharding import current_map, use_map
 
 __all__ = ["smooth_l1", "masked_smooth_l1", "ohem_smooth_l1",
-           "cascade_loss", "pyramid_loss", "masked_mae", "point_mvsnet_loss"]
+           "cascade_loss", "pyramid_loss", "masked_mae", "point_mvsnet_loss",
+           "map_of", "take_rows"]
 
 
 def smooth_l1(err: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -33,12 +43,19 @@ def smooth_l1(err: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
                        abs_err - 0.5 * beta)
 
 
+def _copies() -> int:
+    shard = current_map()
+    return 1 if shard is None else shard.copies
+
+
 def masked_mean(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Mean of `values` where `valid` (bool), 0 when nothing is valid;
-    under a data-parallel mesh this rank's share of the global mean."""
+    under a mesh this rank's share of the global mean."""
     mask = valid.to(values.dtype)
-    return torch.sum(values * mask) / torch.clamp(
+    share = torch.sum(values * mask) / torch.clamp(
         global_count(torch.sum(mask)), min=1.0)
+    copies = _copies()
+    return share if copies == 1 else share / copies
 
 
 def masked_smooth_l1(depth_est, depth_gt, mask, beta: float = 1.0):
@@ -53,38 +70,56 @@ def ohem_smooth_l1(depth_est, depth_gt, mask, topk_frac: float = 0.6):
     finite entries of rank < k are averaged, on the device. The gradient
     reaches the selected pixels only. 0 for an all-masked batch.
 
-    Under a data-parallel mesh k comes from the global n_valid and the
-    ranking is the global batch's: every data rank sorts all ranks' errors
-    (gathered into a buffer of rank-ordered slots, parallel.gather_slots)
-    with a stable sort, so that all agree on which pixels are taken, and
-    returns the sum of its own taken errors over the global count taken."""
-    err = smooth_l1(depth_est - depth_gt).reshape(-1)
-    keyed = torch.where((mask > 0.5).reshape(-1), err, -torch.inf)
-    everyone, offset = gather_slots(keyed)
+    Under a mesh k comes from the global n_valid and the ranking is the
+    global batch's: every rank sorts the global batch's errors (each
+    rank's part in its place, parallel.gather_map) with a stable sort, so
+    that all agree on which pixels are taken, and returns the sum of its
+    own taken errors over the global count taken."""
+    err = smooth_l1(depth_est - depth_gt)
+    keyed = torch.where(mask > 0.5, err, -torch.inf)
+    everyone, mine = gather_map(keyed)
+    everyone, mine, err = everyone.reshape(-1), mine.reshape(-1), \
+        err.reshape(-1)
     order = torch.sort(everyone, descending=True, stable=True).indices
     k = torch.clamp(torch.floor(topk_frac * torch.isfinite(everyone).sum(
         dtype=torch.float32)), min=1.0)
     ranks = torch.arange(order.shape[0], device=order.device)
     take = torch.zeros_like(everyone, dtype=torch.bool)
     take[order] = (ranks < k) & torch.isfinite(everyone[order])
-    mine = take[offset:offset + err.shape[0]]
+    mine = take[mine]
     return (torch.sum(torch.where(mine, err, 0.0))
-            / torch.clamp(take.sum(dtype=torch.float32), min=1.0))
+            / torch.clamp(take.sum(dtype=torch.float32), min=1.0)
+            / _copies())
 
 
 def cascade_loss(stage_outputs: dict, depth_gt_stages: dict,
                  mask_stages: dict, stage_weights=(0.5, 1.0, 2.0)):
     """sum_k w_k * masked smooth-L1 of stage k ('stage1'..'stageN' keys in
-    every dict). Returns (total, last_stage_loss)."""
+    every dict; a stage's "shard", where its volume was split, is the
+    layout of its maps). Returns (total, last_stage_loss)."""
     total = last = 0.0
     for i, w in enumerate(stage_weights):
         key = f"stage{i + 1}"
         if key not in stage_outputs:
             continue
-        last = masked_smooth_l1(stage_outputs[key]["depth"],
-                                depth_gt_stages[key], mask_stages[key])
+        out = stage_outputs[key]
+        with map_of(out) as shard:
+            last = masked_smooth_l1(out["depth"],
+                                    take_rows(shard, depth_gt_stages[key]),
+                                    take_rows(shard, mask_stages[key]))
         total = total + w * last
     return total, last
+
+
+def map_of(outputs: dict):
+    """use_map of the layout of a model's maps ("shard" in its outputs),
+    or of the default layout."""
+    return use_map(outputs.get("shard"))
+
+
+def take_rows(shard, x):
+    """The rows of a (B, H, W) map that `shard` (a MapShard or None) holds."""
+    return x if shard is None else shard.take(x)
 
 
 def pyramid_loss(depth_est_levels, depth_gt_levels, mask_levels):

@@ -21,12 +21,35 @@ metrics divide by global counts and OHEM ranks the global batch
   * the parameter gradients are then summed over all ranks, once, in one
     flat bucket (parallel.collectives.sum_gradients), before the optimizer
     step, so that every rank applies the same update.
-It has three wrong forms, each held up by tests/test_torch_parallel_train.py:
-averaged gradients (DDP's rule: 1 / world of the gradient), a loss without
-the 1 / |view| (|view| times the gradient, the V-fold error mvs_tpu hit,
-mvs_tpu/models/cas_mvsnet.py:57-65), and a mean of the ranks' own means (a
-different loss wherever the ranks' mask counts differ). torch.autograd.grad
-keeps DDP's averaging reducer out of the way.
+With 'depth' and 'space' above 1, MVSNet and CasMVSNet split their
+volumes (parallel.sharding): a rank builds, regularizes and regresses its
+slab of each volume, and its maps are the rows it holds. Then:
+  * a rank's share of a masked mean is its rows' masked sum over the count
+    summed over the ranks whose rows make the global batch's maps, divided
+    by the number of ranks that hold the same rows (train.losses): on a
+    stage whose D is split that is |depth| (after the softmax's
+    all-reduce the depth ranks hold the same rows), on CasMVSNet's stage
+    3, where 'depth' is folded into H, 1, and for a family that does not
+    split its volumes |depth| x |space|;
+  * the halo exchanges, BatchNorm's moments and the softmax's sums are
+    autograd-aware collectives too (parallel.halo, parallel.collectives);
+  * the features, which the ranks of a sample's volume compute alike,
+    enter the volume through parallel.collectives.shared: their cotangent
+    is summed over those ranks in f32 and divided by their number, so that
+    each rank runs the feature net's backward on the whole cotangent, as
+    one process does (a backward on the rank's own slab's share, rounded
+    in bf16 on its own, put a bf16 MVSNet step's update norm at 0.94 of
+    one process's on an H100; with the sum it is within 0.4%);
+  * the parameter gradients are still summed over every rank, once; the
+    metrics' shares sum over 'data' x 'depth' x 'space'.
+It has four wrong forms, each held up by tests/test_torch_parallel.py or
+tests/test_torch_volume_sharding.py: averaged gradients (DDP's rule: 1 /
+world of the gradient), a loss without the 1 / |view| (|view| times the
+gradient, the V-fold error mvs_tpu hit, mvs_tpu/models/cas_mvsnet.py:57-65),
+a mean of the ranks' own means (a different loss wherever the ranks' mask
+counts differ), and a share without the 1 / |depth| on the depth-split
+stages (|depth| times those stages' gradient). torch.autograd.grad keeps
+DDP's averaging reducer out of the way.
 """
 
 from __future__ import annotations
@@ -35,7 +58,8 @@ from collections.abc import Callable
 
 import torch
 
-from mvs_tpu_torch.parallel.collectives import psum_metrics, sum_gradients
+from mvs_tpu_torch.parallel.collectives import (metrics_group, psum_metrics,
+                                                sum_gradients)
 from mvs_tpu_torch.parallel.mesh import Mesh, use_mesh
 from mvs_tpu_torch.train.optim import OptaxChain
 from mvs_tpu_torch.utils.platform import full_f32
@@ -73,8 +97,8 @@ def make_train_step(task, optimizer: OptaxChain,
         mark("optimizer")
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()
-        return metrics if mesh is None else psum_metrics(metrics,
-                                                         mesh.group("data"))
+        return metrics if mesh is None else psum_metrics(
+            metrics, metrics_group(mesh))
 
     return step
 
@@ -89,7 +113,7 @@ def make_eval_step(task, mesh: Mesh | None = None
             loss, metrics = task.loss_and_metrics(batch)
         metrics = dict(metrics)
         metrics["loss"] = loss
-        return metrics if mesh is None else psum_metrics(metrics,
-                                                         mesh.group("data"))
+        return metrics if mesh is None else psum_metrics(
+            metrics, metrics_group(mesh))
 
     return step

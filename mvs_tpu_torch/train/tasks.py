@@ -15,9 +15,10 @@ import torch
 from torch import nn
 
 from mvs_tpu_torch.geometry.resize import resize_nearest
-from mvs_tpu_torch.train.losses import (cascade_loss, masked_smooth_l1,
-                                        ohem_smooth_l1, point_mvsnet_loss,
-                                        pyramid_loss)
+from mvs_tpu_torch.train.losses import (cascade_loss, map_of,
+                                        masked_smooth_l1, ohem_smooth_l1,
+                                        point_mvsnet_loss, pyramid_loss,
+                                        take_rows)
 from mvs_tpu_torch.train.metrics import interval_metrics, standard_metrics
 
 __all__ = ["MVSNetTask", "CascadeTask", "PyramidTask", "PointTask",
@@ -65,16 +66,18 @@ class MVSNetTask:
                           batch["depth_values"])
 
     def loss_and_metrics(self, batch: dict):
-        """(loss, the standard metrics of the unrefined depth)."""
+        """(loss, the standard metrics of the unrefined depth), over the
+        rows the model's outputs hold (losses.map_of)."""
         out = self.forward(batch)
         est = out.get("refined_depth", out["depth"])
-        if self.loss_name == "ohem":
-            loss = ohem_smooth_l1(est, batch["depth_gt"], batch["mask"],
-                                  self.ohem_topk)
-        else:
-            loss = masked_smooth_l1(est, batch["depth_gt"], batch["mask"])
-        return loss, standard_metrics(out["depth"], batch["depth_gt"],
-                                      batch["mask"])
+        with map_of(out) as shard:
+            gt, mask = (take_rows(shard, batch[k])
+                        for k in ("depth_gt", "mask"))
+            if self.loss_name == "ohem":
+                loss = ohem_smooth_l1(est, gt, mask, self.ohem_topk)
+            else:
+                loss = masked_smooth_l1(est, gt, mask)
+            return loss, standard_metrics(out["depth"], gt, mask)
 
 
 @dataclasses.dataclass
@@ -97,9 +100,10 @@ class CascadeTask:
         loss, last = cascade_loss(out, batch["depth_gt"], batch["mask"],
                                   self.stage_weights)
         last_stage = f"stage{len(self.stage_weights)}"
-        metrics = standard_metrics(out["depth"],
-                                   batch["depth_gt"][last_stage],
-                                   batch["mask"][last_stage])
+        with map_of(out) as shard:
+            metrics = standard_metrics(
+                out["depth"], take_rows(shard, batch["depth_gt"][last_stage]),
+                take_rows(shard, batch["mask"][last_stage]))
         metrics["last_stage_loss"] = last.detach()
         return loss, metrics
 

@@ -1,4 +1,5 @@
-"""One rank of the port's CPU process-group tests (tests/test_torch_parallel*.py).
+"""One rank of the port's CPU process-group tests (tests/test_torch_parallel*.py,
+tests/test_torch_volume_sharding.py).
 
     python tests/_torch_dist_worker.py <inputs.pt> <out_dir>
 
@@ -19,10 +20,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from mvs_tpu_torch.models.cas_mvsnet import CasMVSNet  # noqa: E402
 from mvs_tpu_torch.models.mvsnet import MVSNet  # noqa: E402
 from mvs_tpu_torch.nn.blocks import BatchStats  # noqa: E402
-from mvs_tpu_torch.parallel import (collectives, make_mesh,  # noqa: E402
-                                    make_view_variance,
+from mvs_tpu_torch.parallel import (collectives, halo,  # noqa: E402
+                                    make_mesh, make_view_variance,
                                     maybe_initialize_distributed, replicate,
-                                    shard_batch, use_mesh)
+                                    shard_batch, sharding, use_mesh,
+                                    volume_sharded_plan)
 from mvs_tpu_torch.train import losses, state  # noqa: E402
 from mvs_tpu_torch.train.optim import OptaxChain  # noqa: E402
 from mvs_tpu_torch.train.tasks import (CascadeTask, MVSNetTask,  # noqa: E402
@@ -68,32 +70,46 @@ def _cast(x, dtype):
 def train(inp, mesh, mode="right", steps=1, dtype="float32",
           model_name="mvsnet"):
     """`steps` train steps of the global batch (SGD) in `dtype` of MVSNet
-    from inp["state"] on inp["batch"], or of CasMVSNet (8 hypotheses a
-    stage) from inp["cas_state"] on inp["cas_batch"]; mode 'avg':
-    gradients averaged over the ranks; 'no_view_div': the loss share
-    without the 1 / |view|; 'mean_of_means': each rank's masked means over
-    its own counts, the ranks' shares averaged."""
+    from inp["state"] on inp["batch"], or of CasMVSNet from
+    inp["cas_state"] on inp["cas_batch"] (8 hypotheses a stage, or
+    inp["cas_ndepths"]); with 'depth' or 'space' above 1 the volumes split
+    by volume_sharded_plan. mode 'avg': gradients averaged over the ranks;
+    'no_view_div': the loss share without the 1 / |view';
+    'mean_of_means': each rank's masked means over its own counts, the
+    ranks' shares averaged; 'no_copies_div': a map's share without the
+    1 / (ranks holding its rows); 'data_moments': a split volume's
+    BatchNorm moments over 'data' only."""
     dtype = getattr(torch, dtype)
     if model_name == "mvsnet":
-        model = MVSNet(refine=False, compute_dtype=dtype).to(dtype)
+        model = MVSNet(refine=inp.get("refine", False),
+                       compute_dtype=dtype).to(dtype)
         model.load_state_dict(inp["state"])
         task, batch = MVSNetTask(model, loss_name=inp["loss"]), inp["batch"]
     else:
-        model = CasMVSNet(ndepths=(8, 8, 8), compute_dtype=dtype).to(dtype)
+        model = CasMVSNet(ndepths=inp.get("cas_ndepths", (8, 8, 8)),
+                          compute_dtype=dtype).to(dtype)
         model.load_state_dict(inp["cas_state"])
         task, batch = CascadeTask(model), inp["cas_batch"]
     if mesh.size("view") > 1:
         model.view_variance = make_view_variance(mesh)
+    if mesh.size("depth") * mesh.size("space") > 1:
+        model.volume_constraint = volume_sharded_plan(mesh).constrain_volume
     if mode == "no_view_div":
         right = task.loss_and_metrics
         task.loss_and_metrics = lambda b: (
             lambda lm: (lm[0] * mesh.size("view"), lm[1]))(right(b))
-    saved = state.sum_gradients, losses.global_count
+    saved = (state.sum_gradients, losses.global_count, losses._copies,
+             sharding.VolumeShard.moments_group)
     if mode == "avg":
         state.sum_gradients = lambda g, p: [
             x / mesh.world_size for x in saved[0](g, p)]
     if mode == "mean_of_means":
         losses.global_count = lambda c: c * mesh.size("data")
+    if mode == "no_copies_div":
+        losses._copies = lambda: 1
+    if mode == "data_moments":
+        sharding.VolumeShard.moments_group = property(
+            lambda shard: shard.mesh.group("data"))
     try:
         opt = OptaxChain(model.parameters(), "sgd", lambda count: 1e-2)
         replicate(model, opt)
@@ -104,9 +120,103 @@ def train(inp, mesh, mode="right", steps=1, dtype="float32",
             for _ in range(steps):
                 metrics = step(batch)
     finally:
-        state.sum_gradients, losses.global_count = saved
+        (state.sum_gradients, losses.global_count, losses._copies,
+         sharding.VolumeShard.moments_group) = saved
     return dict(metrics={k: float(v) for k, v in metrics.items()},
                 state={k: v.clone() for k, v in model.state_dict().items()})
+
+
+def forward(inp, mesh, dtype="float32"):
+    """The eval-mode forward of MVSNet (inp["fwd_state"]) on the data
+    rank's rows of inp["fwd_batch"], the volume split by
+    volume_sharded_plan: the depth and confidence rows this rank holds,
+    with their row and column slices."""
+    dtype = getattr(torch, dtype)
+    model = MVSNet(compute_dtype=dtype).to(dtype)
+    model.load_state_dict(inp["fwd_state"])
+    model.volume_constraint = volume_sharded_plan(mesh).constrain_volume
+    batch = _cast(batch_to_device(shard_batch(inp["fwd_batch"], mesh),
+                                  "cpu"), dtype)
+    model.eval()
+    with torch.no_grad(), float64_kept(dtype):
+        out = model(batch["imgs"], batch["proj_matrices"],
+                    batch["depth_values"])
+    shard = out["shard"]
+    return dict(depth=out["depth"], conf=out["photometric_confidence"],
+                rows=shard.rows, cols=shard.cols)
+
+
+def halo_case(inp, mesh, spec, p2p=False):
+    """The halo exchange and each conv kind on this rank's slab of
+    inp["halo_x"] (float64, channels-last (B, D, H, W, C)) under the spec
+    inp["halo_specs"][spec]: the outputs and the input gradients of
+    sum(out * weight) for each kind, and the regression of inp's scores,
+    with the slab's slices."""
+    saved = halo.P2P_BACKENDS
+    if p2p:  # point-to-point sends over gloo: the NCCL path's logic
+        halo.P2P_BACKENDS = ("nccl", "gloo")
+    try:
+        with float64_kept(torch.float64):
+            return _halo_case(inp, mesh, inp["halo_specs"][spec])
+    finally:
+        halo.P2P_BACKENDS = saved
+
+
+def _scaled(index, scale):
+    return tuple(i if i.start is None else slice(int(i.start * scale),
+                                                 int(i.stop * scale))
+                 for i in index)
+
+
+def _halo_case(inp, mesh, spec):
+    x = inp["halo_x"]
+    shard = sharding._volume_shard(mesh, spec, tuple(x.shape))
+    index = shard.slices({1: 1, 2: 2, 3: 3})
+    out = {"slices": index}
+    xs = shard.take(x).clone().requires_grad_(True)
+    ext = halo.extend(xs, shard)
+    (g,) = torch.autograd.grad(
+        (ext * _ext_weight(inp["halo_w"]["ext"], shard)).sum(), xs)
+    out["ext"], out["ext_grad"] = ext.detach(), g
+    for name, layer in inp["halo_layers"].items():
+        train = name != "fused_eval"
+        layer.train(train)
+        with sharding.use_volume(shard), torch.set_grad_enabled(train):
+            y = layer(xs)
+        out[name] = y.detach()
+        if train:
+            w = inp["halo_w"][name][_scaled(
+                index, inp["halo_scale"].get(name, 1))]
+            (out[name + "_grad"],) = torch.autograd.grad((y * w).sum(), xs)
+    # The softmax and soft-argmin over the split D: each rank's share of
+    # sum(depth * w) divided by the ranks holding the same rows.
+    scores = shard.take(inp["reg_scores"]).clone().requires_grad_(True)
+    depth, conf, prob = collectives.regress_sharded(
+        scores, shard.take(inp["reg_hyp"]), shard)
+    maps = shard.map_shard()
+    (g,) = torch.autograd.grad((depth * maps.take(inp["reg_w"])).sum()
+                               / maps.copies, scores)
+    out["regress"] = dict(depth=depth.detach(), conf=conf, prob=prob.detach(),
+                          grad=g, rows=maps.rows, cols=maps.cols)
+    # The features entering the volume: the same x on every rank, rank r's
+    # cotangent (r + 1) x, summed over the sample group and divided by its
+    # size.
+    xf = x.clone().requires_grad_(True)
+    (out["shared_grad"],) = torch.autograd.grad(
+        (collectives.shared(xf, shard.sample_group) * x
+         * (mesh.rank + 1)).sum(), xf)
+    return out
+
+
+def _ext_weight(w, shard):
+    """The weights of an extended slab's planes: the global weights at its
+    planes (zero past the volume's ends)."""
+    pad = torch.nn.functional.pad(w, (0, 0, 1, 1, 1, 1, 1, 1))
+    index = [slice(None)] * 5
+    for d in (1, 2, 3):
+        s = shard.split(d)
+        index[d] = slice(s.start, s.stop + 2) if s else slice(1, -1)
+    return pad[tuple(index)]
 
 
 @contextlib.contextmanager
@@ -136,6 +246,10 @@ def main(inputs, out_dir):
         mesh = meshes[shape]
         if kind == "primitives":
             results[case] = primitives(inp, mesh)
+        elif kind == "forward":
+            results[case] = forward(inp, mesh, *rest)
+        elif kind == "halo":
+            results[case] = halo_case(inp, mesh, *rest)
         else:
             results[case] = train(inp, mesh, *rest)
         results[case]["coords"] = mesh.coords

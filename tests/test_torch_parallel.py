@@ -99,15 +99,21 @@ def test_layout_puts_view_inside_data():
 @pytest.mark.parametrize("shape,err,match", [
     (dict(data=2), ValueError, r"needs 2 processes, have 1"),
     (dict(data=1, view=3), ValueError, r"needs 3 processes"),
-    (dict(depth=2), NotImplementedError, "item 20"),
-    (dict(space=2), NotImplementedError, "item 20"),
+    (dict(depth=2), ValueError, r"needs 2 processes, have 1"),
+    (dict(space=2), ValueError, r"needs 2 processes, have 1"),
 ])
 def test_mesh_errors(shape, err, match):
+    """A mesh needs as many processes as its shape says, 'depth' and
+    'space' too (their meshes are built over gloo ranks in
+    tests/test_torch_volume_sharding.py); with as many, the shape's lines
+    are its process groups."""
     with pytest.raises(err, match=match):
         make_mesh(**shape)
     if err is ValueError:  # mvs_tpu raises the same on as many devices
         with pytest.raises(ValueError, match="needs"):
             jax_make_mesh(**shape, devices=jax.devices()[:1])
+    axis = next(a for a in AXES if shape.get(a, 1) > 1)
+    assert layout(**shape)[axis] == [list(range(shape[axis]))]
 
 
 def test_mesh_data_zero_fills_the_world():

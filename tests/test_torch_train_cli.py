@@ -122,11 +122,11 @@ def test_infer_reads_a_state_dict_without_counts(root, tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(root, tmp_path, monkeypatch):
-    # A mesh larger than the process group, and depth or space sharding.
-    with pytest.raises(ValueError, match="needs 2 processes, have 1"):
-        train.main(_train_args(root, tmp_path, "train.mesh_data=2"))
-    for axis in ("depth", "space"):
-        with pytest.raises(NotImplementedError, match="item 20"):
+    # A mesh larger than the process group, over any axis (depth and
+    # space sharding run over as many ranks:
+    # tests/test_torch_volume_sharding.py).
+    for axis in ("data", "depth", "space"):
+        with pytest.raises(ValueError, match="needs 2 processes, have 1"):
             train.main(_train_args(root, tmp_path, f"train.mesh_{axis}=2"))
     # Point-MVSNet trains (2 steps, a val pass, a checkpoint that `infer`
     # loads, maps at half the images' resolution), in float32 only.
