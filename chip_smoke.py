@@ -218,9 +218,8 @@ Phases, in order; any failure exits non-zero:
          data=2 in bf16, MVSNet view=2 (D = 192, one source view a rank)
          in bf16 and in f32: each step's loss, the update-norm ratio, the
          ranks' parameters bit for bit, the launches of a step (the
-         partial kernels in the view=2 runs); the bf16 view=2 run's update
-         norm against a one-process control of the two view groups'
-         arithmetic and against one f32 process (check_view_bf16); ms per
+         partial kernels in the view=2 runs), every run to the same
+         limits; one MVSNet process's bf16 / f32 update norm; ms per
          step labelled as two ranks sharing a card; with two or more
          cards, also over NCCL, a card a rank, and with four, CasMVSNet
          data=4 and MVSNet data=2 x view=2 in f32 over NCCL (samples/s of
@@ -366,7 +365,6 @@ from mvs_tpu_torch.models.point_mvsnet import PointMVSNet
 from mvs_tpu_torch.models.registry import build_model
 from mvs_tpu_torch.ops import _build
 from mvs_tpu_torch.ops.conv3d import conv3d_affine, conv3d_affine_plain
-from mvs_tpu_torch.ops.cost_volume import variance_from_partials
 from mvs_tpu_torch.ops.group_correlation import (
     group_correlation_volume, group_correlation_volume_grad,
     group_correlation_volume_grad_plain, group_correlation_volume_plain)
@@ -3718,7 +3716,12 @@ def phase_point_training(device):
     f32: on the CPU they lie up to 2.2e-2 of their largest magnitude from
     the float64 step's (one rounding of the images moves them 2e-5 to
     1e-2), and the card's lie 1.1e-3 to 1.3e-3 from the CPU's (cosine >=
-    0.9999992, on an NVIDIA H100 80GB HBM3); so a gradient also passes
+    0.9999992, on an NVIDIA H100 80GB HBM3). mvs_tpu's own f32 step is as
+    far from float64: over one f32 rounding of the images both packages'
+    coarse gradients toggle between ~1e-4 and 9.1e-3 of their largest
+    magnitude, carried by the step's BatchNorms, not by the MAE's sign or
+    bilinear's slope jumps (tests/test_torch_point_train.py::
+    test_f32_gradient_gap_is_mvs_tpus_too). So a gradient also passes
     when the card's is no farther from the float64 step's than twice the
     CPU's is (float64_grads). Then training at full width with the train
     config's model and task (launches per step exact). Returns (launches,
@@ -4129,23 +4132,30 @@ PARALLEL_LR = 1e-2  # SGD: the update is -lr x the gradient
 # within 2% of 1 (averaged gradients give 0.5, a loss share without
 # 1 / |view| gives 2); the ranks' parameters equal bit for bit after both
 # steps.
-# The bf16 view=2 step's update norm is 2.2% below one bf16 process's
-# (0.97823 on an H100 80GB HBM3 at 700 W): each view rank runs the feature
-# net's backward for its own views only, and rounds it in bf16 on its own
-# before the ranks' f32 sum. view_split_control does that split in one
-# process and gives the same norm (ranks / control 1.000001 there), so the
-# split's bf16 roundings, not a collective or a kernel, move it. One bf16
-# process is itself 4.4% above one f32 process (1.04440; 1.04156 on the
-# nudged images), the view ranks 2.2% (1.02166). So that run is held
-# to the control within PARALLEL_CONTROL_RTOL, and to one f32 process
-# within 2% or 3x the farthest of one bf16 process from it, read in the
-# same run (check_view_bf16). The ranks of a split volume (15b) sum the
-# features' cotangent over the volume's ranks before the feature net's
-# backward (parallel.collectives.shared) and are held to one bf16
-# process like every other run.
+# The ranks of a view group and of a split volume (15b) sum the features'
+# cotangent over their group before the feature net's backward
+# (parallel.collectives.shared, inside make_view_variance for 'view'), as
+# mvs_tpu's shard_map transpose does, so the bf16 runs are held to one bf16
+# process like the f32 ones (without that sum the bf16 MVSNet view=2 ratio
+# was 0.97823 on an H100 80GB HBM3 at 700 W).
+# Where a mesh has such a group (view, depth or space above 1), the
+# feature net's first update alone, the part whose backward that sum
+# changes, is held to the same 2% of one process's (bf16 MVSNet view=2:
+# 1.00071, and 0.96354 without the sum, where the global ratio read
+# 0.97823; H100 80GB HBM3, 700 W). Every run prints it, and the largest
+# deviation of one parameter's first update from one process's, with no
+# limit: in bf16 at 13b's inputs the step's own sensitivity swamps that
+# (one f32 rounding of the images moves one process's by 0.104 of a
+# parameter's largest update; the view ranks lie 0.035 away with the sum,
+# 0.096 without it), where tests/test_torch_parallel.py's one small step
+# holds it to 2^-8.
 PARALLEL_LOSS_RTOL, PARALLEL_NORM_RTOL = 1e-3, 0.02
-PARALLEL_CONTROL_RTOL = 1e-3
+FEATURE_NETS = ("MVSNetFeatureNet_0", "CascadeFeatureNet_0")
 PARALLEL_STEPS = 2
+# The score convs' biases: the softmax over depth is invariant to them, so
+# their exact gradient is 0 and each run's update is rounding residue.
+PARALLEL_SCORE_BIASES = ("UNetCostRegNet_0.FoldedConv_0.bias",) + tuple(
+    f"cost_reg_stage{i}.FoldedConv_0.bias" for i in (1, 2, 3))
 
 
 def read_partial_counts() -> dict:
@@ -4363,94 +4373,11 @@ def parallel_spec(name):
                 state=model.state_dict())
 
 
-class _Gate(torch.autograd.Function):
-    """The identity; its backward passes the cotangent while
-    state["open"] is `group` or "all", and zeros otherwise."""
-
-    @staticmethod
-    def forward(ctx, x, group, state):
-        ctx.group, ctx.state = group, state
-        return x.clone()
-
-    @staticmethod
-    def backward(ctx, grad):
-        keep = ctx.state["open"] in (ctx.group, "all")
-        return (grad if keep else torch.zeros_like(grad)), None, None
-
-
-def view_split_control(spec, device) -> dict:
-    """The control of an MVSNet view=2 run, in one process on the whole
-    batch: the variance built as the two view ranks build it (group 0 the
-    reference and the first half of the sources, group 1 the second half;
-    each group's f32 partial sums on the partial kernel, added), and the
-    gradient taken in two backward passes, each passing only one group's
-    feature cotangents, as each view rank's backward does. The feature
-    net's parameter gradients of the two passes, each rounded by its own
-    backward in the compute dtype, are summed in f32 as sum_gradients sums
-    the ranks'; the other parameters take the first pass's (the whole
-    loss's, which the ranks' halves sum to). Returns the first SGD step's
-    update norm, the loss, the feature net's gradient norms (each pass's
-    and their sum's), and the update norm of one backward pass through
-    both groups (the split forward alone; SGD's first update is -lr x the
-    gradient)."""
-    model = build_model(spec["cfg"], torch.Generator().manual_seed(5),
-                        trained=False)
-    model.load_state_dict(spec["state"])
-    model = model.to(device)
-    gates = {"open": 0}
-
-    def split_variance(ref_feat, src_feats, rel_projs, depth_values,
-                       row0=0):
-        per = src_feats.shape[1] // 2
-        sums = [fused_variance_partials(
-            _Gate.apply(ref_feat, 0, gates),
-            _Gate.apply(src_feats[:, g * per:(g + 1) * per].contiguous(), g,
-                        gates),
-            rel_projs[:, g * per:(g + 1) * per].contiguous(), depth_values,
-            with_ref=g == 0, row0=row0) for g in (0, 1)]
-        return variance_from_partials(
-            sums[0][0] + sums[1][0], sums[0][1] + sums[1][1],
-            2 * per + 1).to(ref_feat.dtype)
-
-    model.view_variance = split_variance
-    task, _ = cli_train.build_task(spec["cfg"], model)
-    opt = OptaxChain(model.parameters(), "sgd", lambda count: PARALLEL_LR)
-    batch = batch_to_device(spec["batch"], device)
-    start = [p.detach().clone() for p in opt.params]
-    model.train()
-    with full_f32():
-        loss, _ = task.loss_and_metrics(batch)
-        passes = []
-        for g in ("all", 0, 1):
-            gates["open"] = g
-            passes.append([torch.zeros_like(p) if x is None else x
-                           for p, x in zip(opt.params, torch.autograd.grad(
-                               loss, opt.params, allow_unused=True,
-                               retain_graph=g != 1))])
-    whole, passes = passes[0], passes[1:]
-    feature = {id(p) for p in model.MVSNetFeatureNet_0.parameters()}
-    grads = [a + b if id(p) in feature else a
-             for p, a, b in zip(opt.params, *passes)]
-
-    def norm(gs, only=feature):
-        return float(torch.sqrt(sum((x.double() ** 2).sum() for p, x in
-                                    zip(opt.params, gs)
-                                    if only is None or id(p) in only)))
-
-    features = (norm(passes[0]), norm(passes[1]), norm(grads))
-    opt.step(grads)
-    torch.cuda.synchronize(device)
-    return dict(loss=float(loss.detach()), features=features,
-                forward_split_norm=PARALLEL_LR * norm(whole, None),
-                norm=float(torch.sqrt(sum(
-                    ((p.detach() - q).double() ** 2).sum()
-                    for p, q in zip(opt.params, start)))))
-
-
 def parallel_run(spec, device, mesh) -> dict:
     """PARALLEL_STEPS SGD train steps of spec's model on this rank's rows
     of its global batch under `mesh` (a one-process mesh: the whole batch):
-    each step's loss, the first step's global update norm, the second
+    each step's loss, the first step's global update norm and parameters
+    after it, the second
     step's ms (host clock) and launches (counts zeroed just before it),
     peak memory, and the parameters and the BatchNorm statistics after the
     last step."""
@@ -4483,12 +4410,14 @@ def parallel_run(spec, device, mesh) -> dict:
         if i == 0:
             norm = float(torch.sqrt(sum(((p.detach() - q).double() ** 2).sum()
                                         for p, q in zip(opt.params, start))))
+            first = {k: p.detach().cpu().clone()
+                     for k, p in model.named_parameters()}
         if i == 1:
             ms = (time.perf_counter() - t0) * 1e3
             counts = {**read_counts(), **read_partial_counts()}
     params = {k for k, _ in model.named_parameters()}
     state = {k: v.cpu() for k, v in model.state_dict().items()}
-    return dict(losses=losses, norm=norm, ms=ms, counts=counts,
+    return dict(losses=losses, norm=norm, first=first, ms=ms, counts=counts,
                 peak=(torch.cuda.max_memory_allocated(device) / 2 ** 30
                       if card else 0.0),
                 params={k: v for k, v in state.items() if k in params},
@@ -4520,8 +4449,7 @@ def phase_parallel_steps(device, work: Path,
     backend rule for a named card) unless not `shared`, and where the host
     has `world` cards, a card a rank over NCCL. `meshes` ({name: mesh})
     replaces a configuration's mesh; `reference`, an earlier call's result,
-    gives the one-process runs. The bf16 MVSNet view=2 run is also held
-    against view_split_control and mvsnet_f32's one process."""
+    gives the one-process runs."""
     specs = [parallel_spec(n) for n in names]
     for spec in specs:
         spec["mesh"] = (meshes or {}).get(spec["name"], spec["mesh"])
@@ -4530,7 +4458,7 @@ def phase_parallel_steps(device, work: Path,
         + ", ".join(f"{s['name']} {s['mesh']}" for s in specs)
         + f" (CasMVSNet {VIEWS} views, bf16; MVSNet {MVS_TRAIN_VIEWS} views, "
         f"D={LADDER}, bf16 and f32)")
-    single, nudged, control = {}, {}, {}
+    single, nudged = {}, {}
     if reference is not None:
         single, nudged = reference["single"], reference["nudged"]
     for spec in (specs if reference is None else ()):
@@ -4540,10 +4468,13 @@ def phase_parallel_steps(device, work: Path,
         moved = dict(spec, batch=dict(spec["batch"], imgs=(
             imgs * (1 + sign * 2.0 ** -24)).astype(np.float32)))
         nudged[spec["name"]] = parallel_run(moved, device, make_mesh())
-        if split_bf16(spec):
-            control[spec["name"]] = view_split_control(spec, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    if reference is None and {"mvsnet", "mvsnet_f32"} <= set(single):
+        log("  mvsnet one process, update norm bf16 / f32: "
+            f"{single['mvsnet']['norm'] / single['mvsnet_f32']['norm']:.5f}"
+            " (on the nudged images "
+            f"{nudged['mvsnet']['norm'] / nudged['mvsnet_f32']['norm']:.5f})")
     phase = label
     layouts = [(str(device), f"gloo, {world} ranks sharing one card")] \
         if shared else []
@@ -4578,22 +4509,47 @@ def phase_parallel_steps(device, work: Path,
             name = spec["name"]
             check_ranks(spec, [g[name] for g in got], single[name],
                         nudged[name], label)
-            if name in control:
-                check_view_bf16([g[name] for g in got], single[name],
-                                nudged[name], control[name],
-                                single["mvsnet_f32"], nudged["mvsnet_f32"])
         results[label] = got
     return dict(single=single, nudged=nudged, ranks=results[layouts[0][1]],
                 layouts=results, seconds=seconds)
 
 
+def update_norm(params, start, keys) -> float:
+    """The norm of the update from `start` of the parameters `keys`."""
+    return float(torch.sqrt(sum(((params[k].double() - start[k].double())
+                                 ** 2).sum() for k in keys)))
+
+
+def update_deviation(got, want, start) -> tuple:
+    """(deviation, name): the parameter whose update from `start` in `got`
+    lies farthest from `want`'s, over the latter's largest magnitude (the
+    score biases aside)."""
+    worst = (0.0, "")
+    for k, w in want.items():
+        if k in PARALLEL_SCORE_BIASES:
+            continue
+        w = w.double() - start[k].double()
+        g = got[k].double() - start[k].double()
+        worst = max(worst, (float((g - w).abs().max())
+                            / max(float(w.abs().max()), 1e-30), k))
+    return worst
+
+
 def check_ranks(spec, ranks, want, nudged, label) -> None:
     """13b's limits for one configuration's ranks against one process (and
-    the one process on nudged images); the update-norm ratio of the bf16
-    MVSNet view=2 run is held by check_view_bf16 instead."""
+    the one process on nudged images)."""
     name, a = spec["name"], ranks[0]
     ratio = a["norm"] / want["norm"]
     nudged_ratio = nudged["norm"] / want["norm"]
+    start = spec["state"]
+    feature = [k for k in want["first"] if k.startswith(FEATURE_NETS)]
+    feature_ratio, nudged_feature = (
+        update_norm(r["first"], start, feature)
+        / update_norm(want["first"], start, feature) for r in (a, nudged))
+    dev, dev_name = update_deviation(a["first"], want["first"], start)
+    nudged_dev, _ = update_deviation(nudged["first"], want["first"], start)
+    grouped = any(spec["mesh"].get(axis, 1) > 1
+                  for axis in ("view", "depth", "space"))
     rel = [abs(x / y - 1) for x, y in zip(a["losses"], want["losses"])]
     moved = [abs(x / y - 1) for x, y in zip(nudged["losses"],
                                             want["losses"])]
@@ -4609,7 +4565,6 @@ def check_ranks(spec, ranks, want, nudged, label) -> None:
                 for b in ranks[1:] for k in a["stats"]
                 if k.endswith(("mean", "var")))
     multi = label.startswith("nccl")
-    split = split_bf16(spec)
     log(f"  {name} mesh {spec['mesh']} ({label}): losses "
         + " ".join(f"{x:.6f}" for x in a["losses"]) + " vs one process "
         + " ".join(f"{x:.6f}" for x in want["losses"])
@@ -4617,10 +4572,13 @@ def check_ranks(spec, ranks, want, nudged, label) -> None:
         + "; one f32 rounding of the images moves them "
         + " ".join(f"{x:.2e}" for x in moved) + "; limits "
         + " ".join(f"{x:.2e}" for x in limits)
-        + f"); global update-norm ratio {ratio:.5f} ("
-        + ("limits below" if split else f"limit 1 +- "
-           f"{PARALLEL_NORM_RTOL}")
-        + f"; one f32 rounding of the images: {nudged_ratio:.5f}); ranks' "
+        + f"); global update-norm ratio {ratio:.5f} (limit 1 +- "
+        f"{PARALLEL_NORM_RTOL}; one f32 rounding of the images: "
+        f"{nudged_ratio:.5f}), the feature net's {feature_ratio:.5f} ("
+        + ("the same limit" if grouped else "no limit")
+        + f"; {nudged_feature:.5f}); largest deviation of a "
+        f"parameter's update {dev:.3e} ({dev_name}; no limit; "
+        f"{nudged_dev:.3e}); ranks' "
         f"parameters {'identical' if same else 'DIFFER'}, their BatchNorm "
         f"statistics apart by {stats:.1e} relative at most; ms per step "
         f"(host clock, one step): ranks "
@@ -4636,8 +4594,11 @@ def check_ranks(spec, ranks, want, nudged, label) -> None:
         f"{json.dumps(a['counts'])}")
     if any(x > lim for x, lim in zip(rel, limits)):
         fail(f"13b {name}: losses differ by {rel}, limits {limits}")
-    if not split and abs(ratio - 1) > PARALLEL_NORM_RTOL:
+    if abs(ratio - 1) > PARALLEL_NORM_RTOL:
         fail(f"13b {name}: update-norm ratio {ratio}")
+    if grouped and abs(feature_ratio - 1) > PARALLEL_NORM_RTOL:
+        fail(f"13b {name}: the feature net's update-norm ratio "
+             f"{feature_ratio}")
     if not same or (spec["mesh"].get("view", 1) == 1 and stats):
         fail(f"13b {name}: the ranks' parameters or all-reduced statistics "
              f"differ")
@@ -4646,48 +4607,6 @@ def check_ranks(spec, ranks, want, nudged, label) -> None:
             "warp_variance_partials", "warp_variance_partials_grad")
     for r in ranks:
         check_launched(f"13b {name}", r["counts"], keys)
-
-
-def split_bf16(spec) -> bool:
-    """The bf16 MVSNet view=2 run, whose ranks each run the feature net's
-    backward on their own views' share of the features' gradient, rounded
-    in bf16 before the ranks' f32 sum: its update norm is held to
-    view_split_control and one f32 process (check_view_bf16). (The ranks
-    of a split volume sum the features' cotangent first,
-    parallel.collectives.shared, and are held to one bf16 process.)"""
-    return spec["name"] == "mvsnet" and spec["mesh"].get("view", 1) == 2
-
-
-def check_view_bf16(ranks, want, nudged, control, f32, f32_nudged) -> None:
-    """The update-norm limits of the bf16 MVSNet view=2 run (PARALLEL_*
-    above): against view_split_control within PARALLEL_CONTROL_RTOL, and
-    against one f32 process within PARALLEL_NORM_RTOL or 3x the farthest of
-    one bf16 process (on the images and on the nudged images) from it."""
-    a = ranks[0]
-    to_control = a["norm"] / control["norm"]
-    to_f32 = a["norm"] / f32["norm"]
-    bf16_f32 = [x["norm"] / f32["norm"] for x in (want, nudged)]
-    f32_moved = f32_nudged["norm"] / f32["norm"]
-    limit = max(PARALLEL_NORM_RTOL, *(3 * abs(x - 1) for x in bf16_f32))
-    fa, fb, fsum = control["features"]
-    log(f"  mvsnet bf16 view=2 update norms: ranks / one bf16 process "
-        f"{a['norm'] / want['norm']:.5f}; the one-process control of the "
-        f"two view groups' arithmetic / one bf16 process "
-        f"{control['norm'] / want['norm']:.5f} (its loss "
-        f"{control['loss']:.6f}; its split forward with one backward "
-        f"through both groups {control['forward_split_norm'] / want['norm']:.5f}"
-        f"); ranks / control {to_control:.6f} (limit "
-        f"1 +- {PARALLEL_CONTROL_RTOL}); against one f32 process: ranks "
-        f"{to_f32:.5f}, one bf16 process {bf16_f32[0]:.5f}, on the nudged "
-        f"images {bf16_f32[1]:.5f} (limit 1 +- {limit:.5f}; one f32 process "
-        f"on the nudged images {f32_moved:.5f}); the feature net's gradient "
-        f"norms in the control: view group 0 {fa:.6e}, group 1 {fb:.6e}, "
-        f"their sum {fsum:.6e}")
-    if abs(to_control - 1) > PARALLEL_CONTROL_RTOL:
-        fail(f"13b mvsnet bf16: ranks / control update norm {to_control}")
-    if abs(to_f32 - 1) > limit:
-        fail(f"13b mvsnet bf16: ranks / f32 update norm {to_f32}, limit "
-             f"1 +- {limit}")
 
 
 def phase_torchrun(work: Path, device) -> None:

@@ -23,7 +23,8 @@ other slabs; each stage's outputs are the rows it holds, with their
 layout under "shard", and the next stage upsamples the whole depth map,
 gathered over the ranks that split the rows. Each stage's features'
 cotangent is summed over the ranks that split the volume
-(parallel.collectives.shared) before the feature net's backward.
+(parallel.collectives.shared) before the feature net's backward; over the
+'view' ranks, view_variance sums it (parallel.make_view_variance).
 """
 
 from __future__ import annotations

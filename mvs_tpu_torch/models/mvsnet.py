@@ -15,7 +15,8 @@ of the volume, as CasMVSNet's stages do; its maps are the rows it holds
 (their layout under "shard"), and RefineNet runs on the whole depth map,
 gathered over the ranks that split the rows, of which it keeps its rows.
 The features' cotangent is summed over the ranks that split the volume
-(parallel.collectives.shared) before the feature net's backward.
+(parallel.collectives.shared) before the feature net's backward; over the
+'view' ranks, view_variance sums it (parallel.make_view_variance).
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ mvs_tpu.parallel.collectives).
     only, one all-reduce over the 'view' group finishes the sums, then
     variance_from_partials over V_local * |view| + 1 views. This is the
     form that fixed mvs_tpu's 2x kernel-gradient error under GSPMD
-    (mvs_tpu/models/cas_mvsnet.py:57-65).
+    (mvs_tpu/models/cas_mvsnet.py:57-65). The features enter through
+    ``shared`` over the 'view' group, as mvs_tpu's replicated features
+    enter its shard_map (mvs_tpu/parallel/collectives.py:87-94).
   * ``psum_metrics``: a dict of scalars reduced with one all-reduce.
   * ``global_count``, ``global_moments``, ``gather_map``: the reductions
     that the masked losses, BatchNorm and OHEM take (identities without a
@@ -28,11 +30,12 @@ mvs_tpu.parallel.collectives).
     line as a shift (no gradient), then one all-reduce of the sums
     sum(exp), sum(exp * depth) and sum(exp * index), and one of the
     window's taps, each rank adding the taps it holds at the global index.
-  * ``shared``: the features, which every rank of a split volume's
-    sample group computes alike, entering the volume: their cotangent is
-    summed over the group (f32) before the feature net's backward, so that
-    each rank runs it on the whole cotangent (GSPMD's all-reduce where a
-    replicated tensor meets sharded consumers) and rounds it as one
+  * ``shared``: the features, which every rank of a view group or of a
+    split volume's sample group computes alike, entering the volume: their
+    cotangent is summed over the group (f32) before the feature net's
+    backward, so that each rank runs it on the whole cotangent (GSPMD's
+    all-reduce where a replicated tensor meets sharded consumers, the
+    transpose of shard_map's replicated in_specs) and rounds it as one
     process does.
   * ``gather_rows``: a map's parts over the ranks that split its rows
     (CasMVSNet's next stage upsamples the whole map).
@@ -79,27 +82,35 @@ class _AllReduce(torch.autograd.Function):
 
 class _Shared(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n):
+    def forward(ctx, group, n, *xs):
         ctx.group, ctx.n = group, n
-        return x.view_as(x)
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, grad):
-        total = grad.float().contiguous()
+    def backward(ctx, *grads):
+        total = torch.cat([g.float().reshape(-1) for g in grads])
         dist.all_reduce(total, group=ctx.group)
-        return (total / ctx.n).to(grad.dtype), None, None
+        total /= ctx.n
+        parts = total.split([g.numel() for g in grads])
+        return (None, None) + tuple(p.view_as(g).to(g.dtype)
+                                    for p, g in zip(parts, grads))
 
 
-def shared(x: torch.Tensor, group) -> torch.Tensor:
-    """`x`, held alike by every rank of `group` (None: x itself), whose
-    consumers on those ranks each take a part of it: the identity, whose
-    backward sums the ranks' cotangents in f32 over the group and divides
-    by its size. Every rank then runs the backward of x's producer on the
-    whole cotangent, as one process does, and sum_gradients' sum over the
-    group counts it once."""
+def shared(x, group):
+    """`x` (a tensor or a tuple of tensors), held alike by every rank of
+    `group` (None: x itself), whose consumers on those ranks each take a
+    part of it: the identity, whose backward sums the ranks' cotangents in
+    f32 over the group (one all-reduce for the tuple) and divides by its
+    size. Every rank then runs the backward of x's producer on the whole
+    cotangent, as one process does, and sum_gradients' sum over the group
+    counts it once. Two nested calls over orthogonal groups (no two ranks
+    of one lie in the other) give each rank the mean over the groups'
+    product: the inner call's means, averaged by the outer one."""
     if group is None:
         return x
-    return _Shared.apply(x, group, dist.get_world_size(group))
+    xs = x if isinstance(x, tuple) else (x,)
+    out = _Shared.apply(group, dist.get_world_size(group), *xs)
+    return out if isinstance(x, tuple) else out[0]
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -254,7 +265,18 @@ def make_view_variance(mesh: Mesh):
     warping only its own V / |view| source views (view rank i: views
     [i V / |view|, (i + 1) V / |view|)). V must divide by |view|. With a
     split volume (row0, fused_variance_volume's row window) the rank
-    builds its slab only, as mvs_tpu's in_specs P('data', 'depth') do."""
+    builds its slab only, as mvs_tpu's in_specs P('data', 'depth') do.
+
+    Every view rank holds ref_feat and src_feats whole, and their cotangent
+    is summed over the 'view' group before the feature net's backward
+    (shared), so that each rank runs that backward on the whole cotangent
+    and rounds it as one process does: mvs_tpu feeds replicated features
+    into its shard_map, whose transpose sums their cotangent over 'view'
+    (a psum) before the feature net's backward runs once. The sum sits
+    here, not in the models, so that every caller of the view split takes
+    it; with a split volume the models' own shared over its sample group
+    (depth x space, orthogonal to 'view') wraps this one, and each rank's
+    features take the mean over view x depth x space."""
     n, idx, group = mesh.size("view"), mesh.coord("view"), mesh.group("view")
 
     def view_variance(ref_feat, src_feats, rel_projs, depth_values, row0=0):
@@ -263,6 +285,7 @@ def make_view_variance(mesh: Mesh):
             raise ValueError(f"{num_src} source views do not split over a "
                              f"view axis of {n}")
         per = num_src // n
+        ref_feat, src_feats = shared((ref_feat, src_feats), group)
         local = slice(idx * per, (idx + 1) * per)
         sums = fused_variance_partials(
             ref_feat, src_feats[:, local].contiguous(),

@@ -39,7 +39,9 @@ slab of each volume, and its maps are the rows it holds. Then:
     each rank runs the feature net's backward on the whole cotangent, as
     one process does (a backward on the rank's own slab's share, rounded
     in bf16 on its own, put a bf16 MVSNet step's update norm at 0.94 of
-    one process's on an H100; with the sum it is within 0.4%);
+    one process's on an H100; with the sum it is within 0.4%). The view
+    ranks' features enter the variance the same way, over the 'view'
+    group (collectives.make_view_variance);
   * the parameter gradients are still summed over every rank, once; the
     metrics' shares sum over 'data' x 'depth' x 'space'.
 It has four wrong forms, each held up by tests/test_torch_parallel.py or

@@ -78,16 +78,20 @@ def train(inp, mesh, mode="right", steps=1, dtype="float32",
     'mean_of_means': each rank's masked means over its own counts, the
     ranks' shares averaged; 'no_copies_div': a map's share without the
     1 / (ranks holding its rows); 'data_moments': a split volume's
-    BatchNorm moments over 'data' only."""
+    BatchNorm moments over 'data' only; 'unshared': the view ranks'
+    features without collectives.shared (each rank runs the feature net's
+    backward on its own views' share of their cotangent). In bfloat16 the
+    parameters, the batch and the sums stay f32, as cli train's are."""
     dtype = getattr(torch, dtype)
+    store = torch.float32 if dtype == torch.bfloat16 else dtype
     if model_name == "mvsnet":
         model = MVSNet(refine=inp.get("refine", False),
-                       compute_dtype=dtype).to(dtype)
+                       compute_dtype=dtype).to(store)
         model.load_state_dict(inp["state"])
         task, batch = MVSNetTask(model, loss_name=inp["loss"]), inp["batch"]
     else:
         model = CasMVSNet(ndepths=inp.get("cas_ndepths", (8, 8, 8)),
-                          compute_dtype=dtype).to(dtype)
+                          compute_dtype=dtype).to(store)
         model.load_state_dict(inp["cas_state"])
         task, batch = CascadeTask(model), inp["cas_batch"]
     if mesh.size("view") > 1:
@@ -99,7 +103,7 @@ def train(inp, mesh, mode="right", steps=1, dtype="float32",
         task.loss_and_metrics = lambda b: (
             lambda lm: (lm[0] * mesh.size("view"), lm[1]))(right(b))
     saved = (state.sum_gradients, losses.global_count, losses._copies,
-             sharding.VolumeShard.moments_group)
+             sharding.VolumeShard.moments_group, collectives.shared)
     if mode == "avg":
         state.sum_gradients = lambda g, p: [
             x / mesh.world_size for x in saved[0](g, p)]
@@ -110,20 +114,53 @@ def train(inp, mesh, mode="right", steps=1, dtype="float32",
     if mode == "data_moments":
         sharding.VolumeShard.moments_group = property(
             lambda shard: shard.mesh.group("data"))
+    if mode == "unshared":
+        collectives.shared = lambda x, group: x
     try:
         opt = OptaxChain(model.parameters(), "sgd", lambda count: 1e-2)
         replicate(model, opt)
         step = state.make_train_step(task, opt, mesh=mesh)
         batch = _cast(batch_to_device(shard_batch(batch, mesh), "cpu"),
-                      dtype)
+                      store)
         with float64_kept(dtype):
             for _ in range(steps):
                 metrics = step(batch)
     finally:
         (state.sum_gradients, losses.global_count, losses._copies,
-         sharding.VolumeShard.moments_group) = saved
+         sharding.VolumeShard.moments_group, collectives.shared) = saved
     return dict(metrics={k: float(v) for k, v in metrics.items()},
                 state={k: v.clone() for k, v in model.state_dict().items()})
+
+
+def view_shared(inp, mesh):
+    """The variance volume of make_view_variance on this view rank
+    (float64; every rank holds the same features), and the gradients of
+    its features for this rank's share of sum(volume * w), 1 / |view| of
+    it, as the train step takes it: with the features' cotangent summed
+    over the view group, every rank's is the whole volume's divided by
+    |view|, the reference view's and every source view's."""
+    ref, src = (inp[k].clone().requires_grad_(True)
+                for k in ("vs_ref", "vs_src"))
+    with float64_kept(torch.float64):
+        volume = make_view_variance(mesh)(ref, src, inp["vs_rel"],
+                                          inp["vs_hyp"])
+        g_ref, g_src = torch.autograd.grad(
+            (volume * inp["vs_w"]).sum() / mesh.size("view"), (ref, src))
+    return dict(volume=volume.detach(), ref_grad=g_ref, src_grad=g_src)
+
+
+def nested_shared(inp, mesh):
+    """collectives.shared over a split volume's sample group (depth x
+    space) around shared over 'view', as the models wrap view_variance:
+    the same x on every rank, rank r's cotangent (r + 1) x."""
+    x = inp["halo_x"]
+    xf = x.clone().requires_grad_(True)
+    with float64_kept(torch.float64):
+        inner = collectives.shared(
+            collectives.shared(xf, mesh.group_of(("depth", "space"))),
+            mesh.group("view"))
+        (g,) = torch.autograd.grad((inner * x * (mesh.rank + 1)).sum(), xf)
+    return dict(grad=g)
 
 
 def forward(inp, mesh, dtype="float32"):
@@ -250,6 +287,10 @@ def main(inputs, out_dir):
             results[case] = forward(inp, mesh, *rest)
         elif kind == "halo":
             results[case] = halo_case(inp, mesh, *rest)
+        elif kind == "view_shared":
+            results[case] = view_shared(inp, mesh)
+        elif kind == "nested_shared":
+            results[case] = nested_shared(inp, mesh)
         else:
             results[case] = train(inp, mesh, *rest)
         results[case]["coords"] = mesh.coords

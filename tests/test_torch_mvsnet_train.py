@@ -15,6 +15,22 @@ f32 gradient does (cosine > 0.999, norm within 1%). The regularizer's score
 bias is left out: the softmax over depth is invariant to it, so its exact
 gradient is 0 and both sides hold rounding residue.
 
+The bf16 step (f32 parameters) of both packages for both losses is held
+against the float64 step by tests/test_torch_train.py's rule for
+CasMVSNet's (check_bf16_step; each figure averaged over the batch and two
+copies with the images moved by one bf16 rounding): each of the port's
+parameters within twice mvs_tpu's mean error or under 0.05 (mvs_tpu's
+median is ~0.81 / ~0.95 of the largest magnitude with / without
+RefineNet, and the float64 gradient on the moved images lies as far from
+the batch's; the port's ratio to mvs_tpu's 0.57-1.44 / 0.71-1.34); where
+mvs_tpu's mean cosine is at least 0.5 (39 of 66 / 29 of 54 parameters),
+the mean norm within a factor 1.5 of mvs_tpu's (0.96-1.10 / 0.95-1.12)
+and the mean cosine at most 0.5 under it (-0.22 to +0.15 / -0.10 to
++0.05); each draw's loss within 0.1 relative (mvs_tpu's lie up to 8.3%
+off), its mean error within twice mvs_tpu's or under 1e-2. Each side's
+bf16 / f32 gradient norm per draw is printed: with RefineNet 1.00-1.20
+for the port and 0.96-1.16 for mvs_tpu.
+
 OHEM sorts, so its gradient reaches the pixels it selects: the test inputs
 are continuous draws, free of ties at rank k, so that jax.grad and autograd
 select the same pixels.
@@ -41,9 +57,10 @@ from mvs_tpu_torch.train.tasks import MVSNetTask, batch_to_device
 from mvs_tpu_torch.utils.make_synthetic_dtu import generate
 from mvs_tpu_torch.utils.synthetic import make_plane_scene
 from test_torch_blocks import perturb_batch_norm
-from test_torch_train import (ROUNDING_FACTOR, _Float64Numpy,
+from test_torch_train import (BF16_DRAWS, BF16_ROUNDING, F32_ROUNDING,
+                              ROUNDING_FACTOR, _Float64Numpy,
                               _flax_grads_to_torch, _gradient_errors,
-                              _to_float64)
+                              _nudged, _to_float64, check_bf16_step)
 
 SIZE, VIEWS, DEPTHS = 64, 3, 8
 CASES = {"smooth_l1": True, "ohem": False}  # loss name: refine
@@ -165,11 +182,13 @@ def _case(tree: dict, refine: bool) -> dict:
 
 def _port_step(state, batch, loss, refine, dtype=torch.float32):
     """Loss, metrics, gradients and state after one train-mode forward and
-    backward of the port."""
-    model = MVSNet(refine=refine, compute_dtype=dtype).to(dtype)
+    backward of the port (in bf16 with f32 parameters and batch, as cli
+    train's)."""
+    store = torch.float32 if dtype == torch.bfloat16 else dtype
+    model = MVSNet(refine=refine, compute_dtype=dtype).to(store)
     model.load_state_dict(_case(state, refine))
     model.train()
-    tb = {k: v.to(dtype) for k, v in batch_to_device(batch, "cpu").items()}
+    tb = {k: v.to(store) for k, v in batch_to_device(batch, "cpu").items()}
     value, metrics = MVSNetTask(model, loss_name=loss).loss_and_metrics(tb)
     value.backward()
     return dict(loss=value.item(),
@@ -199,10 +218,7 @@ def steps():
     for i, (loss, refine) in enumerate(CASES.items()):
         moved = {}
         for seed in range(3):
-            sign = np.random.default_rng(seed).choice([-1.0, 1.0],
-                                                      size=batch["imgs"].shape)
-            nudged = dict(batch, imgs=(batch["imgs"] * (1 + sign * 2.0 ** -24)
-                                       ).astype(np.float32))
+            nudged = _nudged(batch, seed, F32_ROUNDING)
             for k, g in _port_step(state, nudged, loss, refine)[
                     "grads"].items():
                 moved.setdefault(k, []).append(g)
@@ -238,6 +254,40 @@ def steps():
                                                  torch.float64)
         finally:
             jax.config.update("jax_enable_x64", x64)
+    out["variables"], out["state"] = variables, state
+    return out
+
+
+@pytest.fixture(scope="module")
+def bf16_steps(steps):
+    """For each loss, mvs_tpu's and the port's bf16 step (f32 parameters)
+    from the same variables: losses and gradients on the batch and on
+    BF16_DRAWS - 1 copies of it with the images moved by one bf16
+    rounding; and the port's float64 gradients on those copies."""
+    run = _jax_step(jnp.bfloat16)
+    variables, state = steps["variables"], steps["state"]
+    state64 = {k: t.double() for k, t in state.items()}
+    out = {loss: {"port": [], "jax": [], "port_loss": [], "jax_loss": [],
+                  "moved64": []} for loss in CASES}
+    for seed in (None,) + tuple(range(BF16_DRAWS - 1)):
+        batch = _nudged(_train_batch(), seed, BF16_ROUNDING)
+        values, _, grads = run(variables["params"], variables["batch_stats"],
+                               jax.tree.map(jnp.asarray, batch))
+        for i, (loss, refine) in enumerate(CASES.items()):
+            port = _port_step(state, batch, loss, refine, torch.bfloat16)
+            case = out[loss]
+            case["port"].append(port["grads"])
+            case["port_loss"].append(port["loss"])
+            case["jax"].append(_refine_free(flax_to_state_dict(
+                {"params": jax.tree.map(np.asarray, grads[i])}), refine))
+            case["jax_loss"].append(float(values[i]))
+            if seed is not None:
+                with pytest.MonkeyPatch.context() as mp:
+                    mp.setattr(torch.Tensor, "float", lambda t: t if
+                               t.dtype == torch.float64 else
+                               t.to(torch.float32))
+                    case["moved64"].append(_port_step(
+                        state64, batch, loss, refine, torch.float64)["grads"])
     return out
 
 
@@ -295,6 +345,19 @@ def test_train_step_gradients(steps, loss):
     for k, (_, cos, ratio) in _gradient_errors(got, f32).items():
         if k not in ZERO_GRADIENT:
             assert cos > 0.999 and abs(ratio - 1) < 1e-2, (k, cos, ratio)
+
+
+@pytest.mark.parametrize("loss", list(CASES))
+def test_bf16_train_step_against_mvs_tpus_bf16(steps, bf16_steps, loss):
+    """The bf16 step against float64, each side's error held to the
+    other's (module docstring)."""
+    refine = CASES[loss]
+    check_bf16_step(bf16_steps[loss],
+                    _refine_free(steps[loss]["jax_grads64"], refine),
+                    steps[loss]["port64"]["loss"],
+                    {"port": steps[loss]["port"]["grads"],
+                     "jax": _refine_free(steps[loss]["jax_grads"], refine)},
+                    ZERO_GRADIENT)
 
 
 @pytest.mark.parametrize("loss", list(CASES))

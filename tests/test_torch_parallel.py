@@ -11,7 +11,15 @@ mvs_tpu runs on the virtual CPU devices of tests/conftest.py. Bounds:
     batch's: 1e-6 (two f32 means of equal halves averaged, against one);
   * the masked loss and OHEM summed over two ranks against the one-process
     value and mvs_tpu's on the whole batch: rtol 1e-6, their gradients
-    concatenated against jax.grad's: rtol 1e-6, atol 1e-9.
+    concatenated against jax.grad's: rtol 1e-6, atol 1e-9;
+  * make_view_variance's volume and each view rank's feature gradients
+    (float64) against one process's volume and half its gradient: 1e-12
+    of the largest magnitude (the features' cotangent summed over the
+    view group and divided by its size);
+  * the bf16 MVSNet view=2 step (f32 parameters) against one bf16
+    process: loss rtol 1e-3 and update-norm ratio 1 +- 0.02 (chip_smoke.py
+    13b's), every parameter's update within one bf16 rounding (2^-8) of
+    its largest magnitude; the fix reverted lies past 10x that.
 """
 
 import sys
@@ -59,7 +67,10 @@ TRAIN_CASES = [("train", DATA2, "right", 1, "float64"),
                ("train", VIEW2, "right", 1, "float64"),
                ("train", VIEW2, "no_view_div", 1, "float64"),
                ("train", DATA2, "right", 2, "float32"),
-               ("train", VIEW2, "right", 1, "float64", "cas")]
+               ("train", VIEW2, "right", 1, "float64", "cas"),
+               ("train", VIEW2, "right", 1, "bfloat16"),
+               ("train", VIEW2, "unshared", 1, "bfloat16")]
+VIEW_SHARED = ("view_shared", VIEW2)
 
 
 def run_ranks(inputs: dict, tmp_path, world: int = 2,
@@ -270,6 +281,21 @@ def _primitive_inputs():
         mask=torch.from_numpy(mask))
 
 
+def _view_shared_inputs():
+    """make_view_variance's inputs (float64): a reference view and four
+    source views at 24x32, C = 6, 6 planes, and the weights w of
+    sum(volume * w)."""
+    feats, rels, depths = _views(5, seed=2)
+    f = torch.from_numpy(feats).double()
+    return dict(
+        vs_ref=f[:1], vs_src=f[None, 1:],
+        vs_rel=torch.from_numpy(rels).double()[None],
+        vs_hyp=torch.from_numpy(depths).double()[None, :, None, None].expand(
+            1, -1, 24, 32).contiguous(),
+        vs_w=torch.from_numpy(np.random.default_rng(3).normal(
+            size=(1, 6, 24, 32, 6))))
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """One launch of two gloo ranks for every case of this file."""
@@ -280,20 +306,23 @@ def ranks(tmp_path_factory):
     cas_state = CasMVSNet(ndepths=(8, 8, 8), trained=False,
                           generator=torch.Generator().manual_seed(4)
                           ).state_dict()
-    inputs = dict(cases=[("primitives", DATA2)] + TRAIN_CASES,
+    inputs = dict(cases=[("primitives", DATA2), VIEW_SHARED] + TRAIN_CASES,
                   state=state, loss="smooth_l1", batch=batch,
                   cas_state=cas_state, cas_batch=_cas_batch(),
-                  **_primitive_inputs())
+                  **_primitive_inputs(), **_view_shared_inputs())
     results = run_ranks(inputs, tmp_path_factory.mktemp("ranks"))
+    stored = {"float64": torch.float64, "float32": torch.float32,
+              "bfloat16": torch.float32}  # bf16: f32 parameters
     single = {(steps, dtype, name): worker.train(
-        dict(inputs, state={k: v.to(getattr(torch, dtype))
+        dict(inputs, state={k: v.to(stored[dtype])
                             for k, v in state.items()},
-             cas_state={k: v.to(getattr(torch, dtype))
+             cas_state={k: v.to(stored[dtype])
                         for k, v in cas_state.items()}),
         make_mesh(), "right", steps, dtype, name)
         for steps, dtype, name in ((1, "float64", "mvsnet"),
                                    (2, "float32", "mvsnet"),
-                                   (1, "float64", "cas"))}
+                                   (1, "float64", "cas"),
+                                   (1, "bfloat16", "mvsnet"))}
     return dict(inputs=inputs, results=results, single=single)
 
 
@@ -494,3 +523,71 @@ def test_data_and_view_mesh_step_equals_one_process(ranks, tmp_path):
                                    want["metrics"]["loss"], rtol=1e-12)
         assert _deviation(_updates(rank[case], ranks["inputs"]["state"]),
                           want_upd) < 1e-9
+
+
+def test_view_ranks_features_take_the_groups_mean_cotangent(ranks):
+    """make_view_variance over view=2 (float64): rank r warps source views
+    2r and 2r + 1, the reference on rank 0 only, and its share of
+    sum(volume * w) is 1 / |view| of it, as the train step's is. Each
+    rank's features get the mean of the ranks' cotangents (collectives
+    .shared over 'view'): half the one-process gradient on every view, the
+    reference and the other rank's sources included, which sum_gradients'
+    sum over the two ranks counts once. Without the sum a rank's would be
+    the whole gradient on its own views and 0 on the others'. Bounds:
+    1e-12 of the largest magnitude (float64 sums in another order)."""
+    inp = ranks["inputs"]
+    ref, src = (inp[k].clone().requires_grad_(True)
+                for k in ("vs_ref", "vs_src"))
+    with worker.float64_kept(torch.float64):
+        volume = fused_variance_volume(ref, src, inp["vs_rel"],
+                                       inp["vs_hyp"])
+        g_ref, g_src = torch.autograd.grad((volume * inp["vs_w"]).sum(),
+                                           (ref, src))
+    got = [r[VIEW_SHARED] for r in ranks["results"]]
+    assert [g["coords"]["view"] for g in got] == [0, 1]
+    for g in got:
+        for name, want, have in (("volume", volume.detach(), g["volume"]),
+                                 ("ref", g_ref / 2, g["ref_grad"]),
+                                 ("src", g_src / 2, g["src_grad"])):
+            scale = float(want.abs().max())
+            assert float((have - want).abs().max()) <= 1e-12 * scale, name
+        # The other rank's source views and, on rank 1, the reference.
+        other = slice(2, 4) if g["coords"]["view"] == 0 else slice(0, 2)
+        assert float(g["src_grad"][:, other].abs().max()) > 0
+        assert float(g["ref_grad"].abs().max()) > 0
+
+
+# One bf16 rounding of a parameter's largest update: the farthest a view
+# rank's bf16 update may lie from one bf16 process's.
+BF16_ROUNDING = 2.0 ** -8
+
+
+@pytest.mark.parametrize("mode", ["right", "unshared"])
+def test_bf16_view_sharded_step_update_norm(ranks, mode):
+    """bf16 MVSNet (f32 parameters, as cli train's), view=2, one source
+    view a rank, against one bf16 process: the loss within 1e-3 and the
+    update-norm ratio within 2% (chip_smoke.py 13b's limits), and every
+    parameter's update within BF16_ROUNDING of its largest magnitude
+    (here 1.1e-4: the partial sums' f32 order). With the features'
+    cotangent not summed over the view group ('unshared', the fix
+    reverted: each rank runs the feature net's backward in bf16 on its
+    own view's share) the feature net's updates lie 0.226 of their
+    largest magnitude away, 58x the limit, while the norm ratio, 1.0052
+    at this size, stays inside 2% (0.978 at 13b's on an H100)."""
+    want = ranks["single"][(1, "bfloat16", "mvsnet")]
+    state = ranks["inputs"]["state"]
+    want_upd = _updates(want, state)
+    for rank in ranks["results"]:
+        got = rank[("train", VIEW2, mode, 1, "bfloat16")]
+        np.testing.assert_allclose(got["metrics"]["loss"],
+                                   want["metrics"]["loss"], rtol=1e-3)
+        upd = _updates(got, state)
+        assert _norm_ratio(upd, want_upd) == pytest.approx(1.0, rel=0.02)
+        feature = {k for k in upd if k.startswith("MVSNetFeatureNet")}
+        part = lambda keys: {k: want_upd[k] for k in keys}  # noqa: E731
+        assert _deviation(upd, part(set(upd) - feature)) < BF16_ROUNDING
+        off = _deviation(upd, part(feature))
+        if mode == "right":
+            assert off < BF16_ROUNDING
+        else:
+            assert off > 10 * BF16_ROUNDING

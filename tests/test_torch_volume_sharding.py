@@ -101,6 +101,7 @@ HALO_SPECS = {"depth_rows": VOLUME,
 HALO_CASES = [("halo", D2S2, name, p2p) for name in HALO_SPECS
               for p2p in (False, True)]
 FWD_CASE = ("forward", D2S2, "float32")
+NESTED_CASE = ("nested_shared", VIEW2S2)
 
 
 # ---- the guard ------------------------------------------------------------------
@@ -305,7 +306,7 @@ def ranks(tmp_path_factory, cli_started):
                   cas_ndepths=CAS_ND, fwd_state=flax_to_state_dict(variables),
                   fwd_batch={k: np.asarray(v) for k, v in batch.items()},
                   **halo_inp)
-    groups = {2: [], 4: [MVS_CASE, FWD_CASE] + HALO_CASES}
+    groups = {2: [], 4: [MVS_CASE, FWD_CASE, NESTED_CASE] + HALO_CASES}
     for case in CAS_CASES:
         groups[int(np.prod([n for _, n in case[1]]))].append(case)
     results = {}
@@ -409,6 +410,19 @@ def test_shared_features_take_the_groups_cotangent(ranks):
     once."""
     x = ranks["inputs"]["halo_x"]
     got = [r["shared_grad"] for r in ranks["cases"][HALO_CASES[0]]]
+    assert len(got) == 4
+    for g in got:
+        assert float((g - 2.5 * x).abs().max()) <= 1e-12 * float(
+            x.abs().max())
+
+
+def test_nested_shared_takes_the_product_groups_cotangent(ranks):
+    """shared over 'view' inside shared over the sample group (space), as
+    make_view_variance's sits inside the models' on a view=2 x space=2
+    mesh: the groups are orthogonal, so every rank gets the mean over all
+    four ranks' cotangents (rank r's (r + 1) x): 2.5 x."""
+    x = ranks["inputs"]["halo_x"]
+    got = [r["grad"] for r in ranks["cases"][NESTED_CASE]]
     assert len(got) == 4
     for g in got:
         assert float((g - 2.5 * x).abs().max()) <= 1e-12 * float(
